@@ -1,0 +1,71 @@
+"""The PyTorch port stands alone: ``mxnet_tpu_torch`` and
+``chip_smoke.py`` import neither JAX nor anything of the JAX package
+``mxnet_tpu`` (not even its modules that do not import JAX), and the
+smoke script refuses to run without a GPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "mxnet_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def _imported_modules(path):
+    """Absolute module names imported anywhere in a file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+def _forbidden(name):
+    return name.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, "%s imports %s" % (path.relative_to(ROOT), bad)
+
+
+def _run(code_or_args, cwd):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable] + code_or_args, cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_import_loads_no_jax(tmp_path):
+    """Importing the package and its serving path leaves jax and
+    mxnet_tpu out of sys.modules, and needs no nvcc."""
+    code = ("import sys, mxnet_tpu_torch\n"
+            "from mxnet_tpu_torch.models import serving, convert\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r)\n"
+            "print('BAD', bad)\n" % (FORBIDDEN,))
+    out = _run(["-c", code], tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_chip_smoke_refuses_without_a_gpu():
+    """With no CUDA device the smoke script exits nonzero and prints no
+    result line."""
+    out = _run([str(ROOT / "chip_smoke.py")], ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
