@@ -11,12 +11,15 @@ Run from the root of a checkout on a machine with one CUDA GPU and
 2. builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16, at the serving shapes: the paged decode kernel
-   on 32 lanes of 8 KV heads x 64 dims, a pool of 2049 16-position
-   blocks, 256-entry tables, live lengths in [1, 4096], spans 1 and 4,
-   groups 1 and 2; the flash-decode kernel on 8 lanes x 8 heads against
-   a 4096-position cache with lengths including 0 and 4096; each at the
-   tolerance stated by ``TOL``;
+   float32 and bfloat16, each at the tolerance stated by ``TOL`` or
+   ``TOL_FLASH``: the paged decode kernel on 32 lanes of 8 KV heads x 64
+   dims, a pool of 2049 16-position blocks, 256-entry tables, live
+   lengths in [1, 4096], spans 1 and 4, groups 1 and 2; the flash-decode
+   kernel on 8 lanes x 8 heads against a 4096-position cache with
+   lengths including 0 and 4096; the flash forward (o and lse) and the
+   two flash backward kernels (dq, and dk/dv), causal and not, at the
+   training shape (64 batch-heads x 1024 positions x 128 dims), at head
+   dim 64, and at one ragged cross-length case;
 4. serves 16 requests (prompts of 64-512 seeded tokens, 32 new tokens
    each) through ``ContinuousBatcher(paged=True)`` at the full width of
    the repo's paged serving model (vocab 32000, d_model 512, 8 heads,
@@ -27,26 +30,42 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    tolerance of its row's maximum when the stream is teacher-forced
    through ``prefill_chunk`` (a dense contraction, no kernel);
 5. runs greedy ``generate()`` (batch 8, prompt 256, 32 new tokens) at
-   the same width with the flash-decode kernel, with the same checks;
-6. times each decode step, and each kernel beside its plain version, a
+   the same width with the flash kernels (the prompt through the flash
+   forward, each token through flash decode), with the same checks;
+6. takes one training step of the LM of ``benchmark/train_lm_bench.py``
+   at full width (vocab 32000, d_model 1024, 8 heads of 128, 12 layers,
+   d_ff 4096, 1024 positions, batch 8, rope, random weights from a seed)
+   in float32 with TF32 off, once through the flash kernels and once
+   through dense attention, and requires the losses to agree to 1e-4 and
+   every parameter's gradient to a relative L2 error of 1e-3;
+7. trains the same model in bfloat16 for 10 steps of SGD with momentum
+   (lr 1e-2) on one fixed batch through ``make_train_step``: the loss
+   must stay finite and fall, and each step must launch each flash
+   kernel once per layer; prints the step ms, tokens/s and MFU (6 N
+   FLOPs per token over 989 TFLOP/s);
+8. times each decode step, and each kernel beside its plain version, a
    one-call PyTorch yardstick (``scaled_dot_product_attention``, timed
-   here only) and its bound (live K/V bytes over 3.35 TB/s); the paged
-   kernel is timed on the served pool full, each block in one lane's
-   table;
-7. traces 16 decode steps of a serve run and of ``generate()`` with
-   ``torch.profiler`` and prints, for each, the host ms per step, the
-   device ms per step (the sum of the kernels' own times), the device's
-   idle share and the kernels that took the most time;
-8. times both kernels and the yardstick with every lane at one length,
-   over 8, 32 and 128 lanes and lengths 256 and 4096, to show what
-   limits the kernels;
-9. prints the kernels' JSON line, then as its last line
-   ``{"ok": true, "device": {...}}``.
+   here only, forward, and backward through autograd for the flash
+   backward kernels) and its bound; the paged kernel is timed on the
+   served pool full, each block in one lane's table;
+9. traces 16 decode steps of a serve run and of ``generate()``, and 3
+   train steps, with ``torch.profiler`` and prints, for each, the host ms
+   per step, the device ms per step (the sum of the kernels' own times),
+   the device's idle share and the kernels that took the most time;
+10. times the decode kernels and the yardstick with every lane at one
+    length, over 8, 32 and 128 lanes and lengths 256 and 4096, and the
+    flash forward, forward + backward and the yardstick over sequence
+    lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
+    kernels;
+11. prints the kernels' JSON line, then as its last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
 result line. It imports nothing of JAX or of the JAX package.
 """
 
+import collections
+import dataclasses
 import json
 import subprocess
 import time
@@ -70,6 +89,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-3, 2.0 ** -7)}
 # lse is float32 in both and ~8 here, where one fp32 ulp is 9.5e-7
 TOL_LSE = 1e-4
+# training flash kernels vs plain versions, (atol, rtol). Outputs (o, dq,
+# dk, dv) run to ~10 on random inputs. float32: the kernel's fp32 FMAs and
+# the plain version's fp32 matmuls sum up to 1024 products per element in
+# another order, which moves a result by ~1e-6 of its size and at worst
+# ~1024 * 2^-24 = 6e-5 of it (rtol 1e-4); atol covers elements near 0,
+# where the backward's dP - delta cancels. bfloat16: both work in fp32 on
+# the same bf16 inputs and round each result to bf16 once, so a flip is
+# one bf16 ulp (2^-7 of a value at most), as for the decode kernels.
+TOL_FLASH = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
 # teacher-forced check: an emitted token's logit may sit this far below
 # its row's maximum. Logits have std ~0.45 here; the batched dense prefill
 # and the stepped decode round bf16 activations at other places over 8
@@ -82,9 +110,26 @@ SERVE = dict(max_batch=32, block_size=16, num_blocks=2049, requests=16,
              prompt_lo=64, prompt_hi=512, n_new=32)
 GENERATE = dict(batch=8, prompt=256, n_new=32)
 
-SOURCE = "mxnet_tpu_torch/csrc/decode_attention.cu"
+# the training flagship of benchmark/train_lm_bench.py at full width
+TRAIN_CFG = dict(vocab_size=32000, d_model=1024, n_heads=8, n_layers=12,
+                 d_ff=4096, max_len=1024, rope=True, use_flash_kernel=True)
+TRAIN = dict(batch=8, steps=10, lr=1e-2)
+# (label, batch*heads, Tq, Tk, head dim) of the flash kernel checks
+FLASH_CHECKS = (("train", 64, 1024, 1024, 128), ("d64", 64, 1024, 1024, 64),
+                ("ragged", 6, 333, 200, 128))
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+TRAIN_SWEEP = (1024, 4096, 8192)        # sequence lengths at 8192 tokens
+
+SOURCE = {"paged_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
+          "flash_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
+          "flash_fwd": "mxnet_tpu_torch/csrc/flash_attention.cu",
+          "flash_bwd_dq": "mxnet_tpu_torch/csrc/flash_attention.cu",
+          "flash_bwd_dkv": "mxnet_tpu_torch/csrc/flash_attention.cu"}
 REPLACES = {"paged_decode": "mxnet_tpu/kernels/paged_decode.py:69",
-            "flash_decode": "mxnet_tpu/kernels/flash_attention.py:439"}
+            "flash_decode": "mxnet_tpu/kernels/flash_attention.py:439",
+            "flash_fwd": "mxnet_tpu/kernels/flash_attention.py:44",
+            "flash_bwd_dq": "mxnet_tpu/kernels/flash_attention.py:253",
+            "flash_bwd_dkv": "mxnet_tpu/kernels/flash_attention.py:291"}
 
 
 def log(msg):
@@ -130,11 +175,15 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def compare(got, want, dtype_name, what):
-    """Hold a kernel's output against its plain version at TOL; returns
-    the max abs error. The log line gives the worst element's error as a
-    share of what it is allowed."""
-    atol, rtol = TOL[dtype_name]
+def dtype_name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def compare(got, want, dtype_name, what, tol=TOL):
+    """Hold a kernel's output against its plain version at ``tol``;
+    returns the max abs error. The log line gives the worst element's
+    error as a share of what it is allowed."""
+    atol, rtol = tol[dtype_name]
     want = want.float()
     err = (got.float() - want).abs()
     share = float((err / (atol + rtol * want.abs())).max())
@@ -218,7 +267,7 @@ def paged_work(q, pool, tables, pos):
 def check_paged(torch, kernels, device):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
+        name = dtype_name(dtype)
         for span, g in ((1, 1), (4, 1), (1, 2), (4, 2)):
             q, pool, tables, pos = paged_case(torch, device, dtype, span, g,
                                               seed=10 * span + g)
@@ -258,7 +307,7 @@ def flash_work(q, k, lengths):
 def check_flash(torch, kernels, device):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
+        name = dtype_name(dtype)
         for g in (1, 2):
             q, k, v, lengths = flash_case(torch, device, dtype, g, seed=20 + g)
             o, lse = kernels.flash_decode_with_lse(q, k, v, lengths)
@@ -271,6 +320,53 @@ def check_flash(torch, kernels, device):
             if not err_lse <= TOL_LSE:
                 raise AssertionError("flash_decode's lse disagrees with its "
                                      "plain version")
+    return errs
+
+
+# ------------------------------------------------------- B1, B2a, B2b ---
+
+def flash_inputs(torch, device, dtype, bh, tq, tk, d, seed):
+    """q, k, v and an output gradient do of one flash-kernel case, drawn
+    on the card from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = randn(torch, (bh, tq, d), gen, device, dtype)
+    k, v = (randn(torch, (bh, tk, d), gen, device, dtype) for _ in range(2))
+    return q, k, v, randn(torch, (bh, tq, d), gen, device, dtype)
+
+
+def check_flash_attention(torch, kernels, device):
+    """The flash forward (o, lse) and backward (dq, dk, dv) kernels
+    against their plain versions on FLASH_CHECKS, causal and not, in fp32
+    and bf16. Both backward versions get the kernel's own (o, lse), so
+    the backward check sees the backward kernels alone. Returns the max
+    abs errors by (label, causal, dtype, output)."""
+    errs = {}
+    for seed, (label, bh, tq, tk, d) in enumerate(FLASH_CHECKS):
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                name = dtype_name(dtype)
+                q, k, v, do = flash_inputs(torch, device, dtype, bh, tq, tk,
+                                           d, seed=30 + seed)
+                what = "%-6s %-8s causal=%d" % (label, name, causal)
+                o, lse = kernels.flash_attention_with_lse(q, k, v, causal)
+                o_ref, lse_ref = kernels.dense_attention_with_lse(q, k, v,
+                                                                  causal)
+                errs[(label, causal, name, "o")] = compare(
+                    o, o_ref, name, "flash_fwd %s o" % what, TOL_FLASH)
+                err_lse = max_err(lse, lse_ref)
+                log("flash_fwd %s lse: max abs err %.3g (tol %g)"
+                    % (what, err_lse, TOL_LSE))
+                if not err_lse <= TOL_LSE:
+                    raise AssertionError("flash_fwd's lse disagrees with its "
+                                         "plain version")
+                got = kernels.flash_attention_bwd(q, k, v, o, lse, do, causal)
+                want = kernels.dense_attention_bwd(q, k, v, o, lse, do,
+                                                   causal)
+                for out, g, w in zip(("dq", "dk", "dv"), got, want):
+                    kernel = "flash_bwd_dq" if out == "dq" else "flash_bwd_dkv"
+                    errs[(label, causal, name, out)] = compare(
+                        g, w, name, "%s %s %s" % (kernel, what, out),
+                        TOL_FLASH)
     return errs
 
 
@@ -386,6 +482,99 @@ def run_generate(torch, tf, kernels, params, cfg, device):
     return {"launches": launches, "steps": n_new - 1, "step_ms": step_ms}
 
 
+# ------------------------------------------------------------ training ---
+
+def train_tokens(torch, cfg, device):
+    """The fixed batch of train_lm_bench.py: seeded tokens in [1, vocab)."""
+    rng = np.random.RandomState(0)
+    return torch.from_numpy(rng.randint(1, cfg.vocab_size,
+                                        (TRAIN["batch"], cfg.max_len))).to(
+        device)
+
+
+def loss_and_grads(torch, tf, params, tokens, cfg):
+    ps = list(params.parameters())
+    for p in ps:
+        p.requires_grad_(True)
+    try:
+        loss = tf.loss_fn(params, tokens, cfg)
+        grads = torch.autograd.grad(loss, ps)
+    finally:
+        for p in ps:
+            p.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def check_launches(kernels, before, n, what):
+    for name in TRAIN_KERNELS:
+        got = kernels.launches[name] - before.get(name, 0)
+        if got != n:
+            raise AssertionError("%s launched %s %d times, not %d"
+                                 % (what, name, got, n))
+
+
+def train_equivalence(torch, tf, kernels, device):
+    """One fp32 step at full width, TF32 off: the loss and every
+    parameter's gradient through the flash kernels against the dense
+    attention route."""
+    cfg = tf.TransformerConfig(dtype=torch.float32, **TRAIN_CFG)
+    dense = dataclasses.replace(cfg, use_flash_kernel=False)
+    params = tf.init_params(cfg, seed=0, device=device)
+    tokens = train_tokens(torch, cfg, device)
+    before = dict(kernels.launches)
+    loss_k, grads_k = loss_and_grads(torch, tf, params, tokens, cfg)
+    check_launches(kernels, before, cfg.n_layers, "the fp32 kernel step")
+    loss_d, grads_d = loss_and_grads(torch, tf, params, tokens, dense)
+    worst, worst_name = 0.0, None
+    for (name, _), gk, gd in zip(params.named_parameters(), grads_k, grads_d):
+        rel = float((gk - gd).norm() / gd.norm())
+        if not rel <= worst:
+            worst, worst_name = rel, name
+    log("train fp32 step, kernels vs dense attention: loss %.6f vs %.6f "
+        "(|diff| %.3g, tol 1e-4), worst gradient relative L2 %.3g at %s "
+        "(tol 1e-3)" % (loss_k, loss_d, abs(loss_k - loss_d), worst,
+                        worst_name))
+    if not abs(loss_k - loss_d) <= 1e-4 or not worst <= 1e-3:
+        raise AssertionError("the flash kernels' training step disagrees "
+                             "with dense attention")
+
+
+def train(torch, tf, kernels, device):
+    """TRAIN["steps"] bf16 steps on one fixed batch through
+    make_train_step; each step must launch each flash kernel once per
+    layer, and the loss must stay finite and fall."""
+    cfg = tf.TransformerConfig(dtype=torch.bfloat16, **TRAIN_CFG)
+    params = tf.init_params(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in params.parameters())
+    mom = tf.init_momentum(params)
+    step = tf.make_train_step(cfg, lr=TRAIN["lr"])
+    tokens = train_tokens(torch, cfg, device)
+    losses, step_s = [], []
+    kernels.launches.clear()
+    for _ in range(TRAIN["steps"]):
+        before = dict(kernels.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, mom, loss = step(params, mom, tokens)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+        check_launches(kernels, before, cfg.n_layers, "a bf16 train step")
+    launches = {n: kernels.launches[n] for n in TRAIN_KERNELS}
+    step_ms = 1e3 * float(np.mean(step_s[1:]))
+    n_tok = tokens.numel()
+    mfu = 6.0 * n_params * n_tok / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    log("train bf16: %d params, losses %s" % (
+        n_params, " ".join("%.4f" % x for x in losses)))
+    log("train bf16: step %.3f ms (mean of steps 2-%d; first %.3f ms), "
+        "%.0f tokens/s, MFU %.4f (6 N FLOPs per token over 989 TFLOP/s), "
+        "launches %s" % (step_ms, len(step_s), 1e3 * step_s[0],
+                         n_tok / (step_ms / 1e3), mfu, launches))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("training loss is not finite and falling")
+    return {"launches": launches, "step_ms": step_ms, "params": params,
+            "mom": mom, "step": step, "tokens": tokens}
+
+
 # ------------------------------------------------------------ timings ---
 
 def time_paged(torch, F, kernels, device):
@@ -426,6 +615,62 @@ def time_flash(torch, F, kernels, device):
     return ms, plain, lib, bound_ms(nbytes, flops, "bfloat16")
 
 
+def train_flash_work(bh, t, d, item, kernel):
+    """(bytes, flops) one flash kernel's function needs at [bh, t, d],
+    causal: each input read once and each output written once; the
+    products the function needs, half of the full squares for the causal
+    mask (forward: QK^T and PV; dQ: S, dP and dS K; dK/dV: S, dP, P^T dO
+    and dS^T Q)."""
+    mat = bh * t * d * item
+    stat = 4 * bh * t
+    nbytes, products = {
+        "flash_fwd": (4 * mat + stat, 2),
+        "flash_bwd_dq": (5 * mat + 2 * stat, 3),
+        "flash_bwd_dkv": (6 * mat + 2 * stat, 4)}[kernel]
+    return nbytes, 2 * products * bh * t * t * d / 2
+
+
+def time_flash_attention(torch, F, kernels, device, b=8, h=8, t=1024,
+                         d=128):
+    """The three training kernels at the training shape, bf16, causal:
+    {kernel: (ms, plain ms, library ms, (bound ms, bound by))}. The
+    plain backward and the library backward compute dq, dk and dv
+    together, so both backward rows carry the same plain and library
+    times."""
+    q, k, v, do = flash_inputs(torch, device, torch.bfloat16, b * h, t, t, d,
+                               seed=41)
+    o, lse = kernels.flash_attention_with_lse(q, k, v, True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    ms = {"flash_fwd": time_ms(
+              lambda: kernels.flash_attention_with_lse(q, k, v, True), 10),
+          "flash_bwd_dq": time_ms(
+              lambda: kernels.flash_bwd_dq(q, k, v, do, lse, delta, True), 10),
+          "flash_bwd_dkv": time_ms(
+              lambda: kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+              10)}
+    plain_fwd = time_ms(
+        lambda: kernels.dense_attention_with_lse(q, k, v, True), 5)
+    plain_bwd = time_ms(
+        lambda: kernels.dense_attention_bwd(q, k, v, o, lse, do, True), 5)
+    q4, k4, v4 = (x.reshape(b, h, t, d).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 10)
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(b, h, t, d)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (q4, k4, v4), do4, retain_graph=True), 10)
+    rows = {}
+    for name in TRAIN_KERNELS:
+        fwd = name == "flash_fwd"
+        nbytes, flops = train_flash_work(b * h, t, d, 2, name)
+        rows[name] = (ms[name], plain_fwd if fwd else plain_bwd,
+                      lib_fwd if fwd else lib_bwd,
+                      bound_ms(nbytes, flops, "bfloat16"))
+    return rows
+
+
 # ------------------------------------------------------------ profile ---
 
 PROFILE_STEPS = 16
@@ -434,20 +679,31 @@ SWEEP_LANES = (8, 32, 128)
 SWEEP_LENGTHS = (256, 4096)
 
 
-def profile_steps(torch, what, step):
-    """Run ``step`` PROFILE_STEPS times untraced, then as many times under
+# kinds of kernel in a train step's profile, by a word of the kernel's name
+TRAIN_KINDS = (("flash kernels", ("flash_",)),
+               ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
+               ("index / embedding", ("index",)),
+               ("reduction", ("reduce",)),
+               ("elementwise and copies", ("elementwise", "copy")))
+
+
+def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
+                  kinds=()):
+    """Run ``step`` ``steps`` times untraced, then as many times under
     torch.profiler (CUDA activity only), and print the host ms per step of
     both runs, the device ms per step of the traced one (the sum of the
-    kernels' own times), its idle share and its costliest kernels."""
+    kernels' own times), its idle share, its ``top`` costliest kernels
+    and, with ``kinds``, the device ms per step of each kind of kernel
+    (the first kind whose word a kernel's name holds; "other" else)."""
     from torch.profiler import ProfilerActivity, profile
 
     def host_ms():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
+        return 1e3 * (time.perf_counter() - t0) / steps
 
     untraced = host_ms()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -458,13 +714,21 @@ def profile_steps(torch, what, step):
             and e.self_device_time_total > 0]
     if not rows:
         raise AssertionError("the profiler saw no kernel in " + what)
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 / PROFILE_STEPS
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     log("%s: host %.3f ms per step (%.3f traced), device %.3f ms per step, "
         "idle share %.3f" % (what, untraced, traced, busy, 1 - busy / traced))
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in rows[:PROFILE_TOP]:
+    for e in rows[:top]:
         log("  %8.1f us/step %5d calls  %s"
-            % (e.self_device_time_total / PROFILE_STEPS, e.count, e.key[:80]))
+            % (e.self_device_time_total / steps, e.count, e.key[:80]))
+    if kinds:
+        by_kind = collections.Counter()
+        for e in rows:
+            kind = next((k for k, words in kinds
+                         if any(w in e.key for w in words)), "other")
+            by_kind[kind] += e.self_device_time_total / 1e3 / steps
+        log("  by kind, ms per step: " + ", ".join(
+            "%s %.3f" % kv for kv in by_kind.most_common()))
 
 
 def profile_decode(torch, tf, sv, params, cfg, device):
@@ -540,6 +804,46 @@ def sweep(torch, F, kernels, device, kvh=8, d=64, bs=16):
                 % (lanes, length, flash, paged, lib, bound))
 
 
+def train_sweep(torch, F, kernels, device, tokens=8192, h=8, d=128):
+    """The flash forward, forward + backward (delta and both backward
+    kernels) and the yardstick in bf16, causal, over TRAIN_SWEEP at
+    ``tokens`` tokens (batch = tokens / T): whether the H100 needs a
+    sequence-length crossover between the kernels and dense attention.
+    The forward + backward bound counts the products a flash step needs:
+    2 forward and 4 backward (dP, dS, dV, dK; recomputing S is not
+    inherent)."""
+    for t in TRAIN_SWEEP:
+        b = tokens // t
+        q, k, v, do = flash_inputs(torch, device, torch.bfloat16, b * h, t, t,
+                                   d, seed=50)
+        o, lse = kernels.flash_attention_with_lse(q, k, v, True)
+
+        def both():
+            o, lse = kernels.flash_attention_with_lse(q, k, v, True)
+            kernels.flash_attention_bwd(q, k, v, o, lse, do, True)
+
+        fwd = time_ms(lambda: kernels.flash_attention_with_lse(q, k, v, True),
+                      5)
+        fwd_bwd = time_ms(both, 3)
+        q4, k4, v4 = (x.reshape(b, h, t, d).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        do4 = do.reshape(b, h, t, d)
+        with torch.no_grad():
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True), 5)
+        lib_both = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+            (q4, k4, v4), do4), 3)
+        mat = b * h * t * d * 2
+        sq = b * h * t * t * d            # one product, causal half x 2 flops
+        bound_f, _ = bound_ms(4 * mat + 4 * b * h * t, 2 * sq, "bfloat16")
+        bound_fb, _ = bound_ms(8 * mat + 8 * b * h * t, 6 * sq, "bfloat16")
+        log("train sweep T=%4d x B=%d: flash_fwd %.3f ms (sdpa %.3f, bound "
+            "%.3f), fwd+bwd %.3f ms (sdpa %.3f, bound %.3f)"
+            % (t, b, fwd, lib, bound_f, fwd_bwd, lib_both, bound_fb))
+        del q, k, v, do, o, lse, q4, k4, v4, do4
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -568,11 +872,16 @@ def main():
 
     paged_errs = check_paged(torch, kernels, device)
     flash_errs = check_flash(torch, kernels, device)
+    train_errs = check_flash_attention(torch, kernels, device)
 
     cfg = tf.TransformerConfig(dtype=torch.bfloat16, **SERVE_CFG)
     params = tf.init_params(cfg, seed=0, device=device)
     served = serve(torch, tf, sv, kernels, params, cfg, device)
     generated = run_generate(torch, tf, kernels, params, cfg, device)
+
+    train_equivalence(torch, tf, kernels, device)
+    torch.cuda.empty_cache()
+    trained = train(torch, tf, kernels, device)
 
     rows = []
     for name, timing, run, err in (
@@ -585,15 +894,38 @@ def main():
         log("%s: %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms, "
             "%.2f launches per decode step"
             % (name, ms, plain, lib, bound, run["launches"] / run["steps"]))
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+        rows.append({"name": name, "route": "cuda", "source": SOURCE[name],
                      "replaces": REPLACES[name],
                      "launches": run["launches"], "max_abs_err": err,
                      "ms": ms, "plain_ms": plain, "bound_ms": bound,
                      "bound_by": bound_by, "library_ms": lib})
-    log("decode step: serve %.3f ms, generate %.3f ms"
-        % (served["step_ms"], generated["step_ms"]))
+    outputs = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",),
+               "flash_bwd_dkv": ("dk", "dv")}
+    for name, (ms, plain, lib, (bound, bound_by)) in time_flash_attention(
+            torch, F, kernels, device).items():
+        err = max(train_errs[("train", True, "bfloat16", out)]
+                  for out in outputs[name])
+        log("%s: %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s), "
+            "%d launches in %d train steps"
+            % (name, ms, plain, lib, bound, bound_by,
+               trained["launches"][name], TRAIN["steps"]))
+        rows.append({"name": name, "route": "cuda", "source": SOURCE[name],
+                     "replaces": REPLACES[name],
+                     "launches": trained["launches"][name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "library_ms": lib})
+    log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms"
+        % (served["step_ms"], generated["step_ms"], trained["step_ms"]))
     profile_decode(torch, tf, sv, params, cfg, device)
+    profile_steps(torch, "train step, bf16, batch 8 x 1024",
+                  lambda: trained["step"](trained["params"], trained["mom"],
+                                          trained["tokens"]),
+                  steps=3, top=12, kinds=TRAIN_KINDS)
+    del trained
+    torch.cuda.empty_cache()
     sweep(torch, F, kernels, device)
+    train_sweep(torch, F, kernels, device)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

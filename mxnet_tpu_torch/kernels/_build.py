@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches = collections.Counter()
 
-_c_int, _ptr = ctypes.c_int, ctypes.c_void_p
+_c_int, _ptr, _c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # argument types of each C entry point, by source name
 SIGNATURES = {
     "decode_attention": {
@@ -41,6 +41,19 @@ SIGNATURES = {
         "paged_decode": [_c_int] + [_ptr] * 6 + [_c_int] * 7 + [_ptr],
         # dtype, q, k, v, lengths, out, lse, b, kvh, tmax, d, g, stream
         "flash_decode": [_c_int] + [_ptr] * 6 + [_c_int] * 5 + [_ptr],
+    },
+    "flash_attention": {
+        # dtype, q, k, v, o, lse, bh, tq, tk, d, causal, scale, stream
+        "flash_fwd": [_c_int] + [_ptr] * 5 + [_c_int] * 5
+                     + [_c_float, _ptr],
+        # dtype, q, k, v, do, lse, delta, dq,
+        # bh, tq, tk, d, causal, scale, stream
+        "flash_bwd_dq": [_c_int] + [_ptr] * 7 + [_c_int] * 5
+                        + [_c_float, _ptr],
+        # dtype, q, k, v, do, lse, delta, dk, dv,
+        # bh, tq, tk, d, causal, scale, stream
+        "flash_bwd_dkv": [_c_int] + [_ptr] * 8 + [_c_int] * 5
+                         + [_c_float, _ptr],
     },
 }
 
@@ -101,11 +114,12 @@ def _open(name, lib):
     return handle
 
 
-def build_all():
-    """Build every source in csrc/ at once (one nvcc each, started
-    together) and load them. Returns {name: ctypes library}."""
+def build_all(names=None):
+    """Build every source in csrc/ (or the ``names`` given) at once (one
+    nvcc each, started together) and load them. Returns {name: ctypes
+    library}."""
     with _LOCK:
-        names = [n for n in SIGNATURES if n not in _LIBS]
+        names = [n for n in (names or SIGNATURES) if n not in _LIBS]
         started = [(n,) + _start_build(n) for n in names]
         for n, proc, lib, tmp in started:
             _finish_build(n, proc, lib, tmp)
@@ -115,10 +129,10 @@ def build_all():
 
 
 def load(name):
-    """The ctypes library of csrc/<name>.cu, building the sources if
+    """The ctypes library of csrc/<name>.cu, building that source if
     needed."""
     lib = _LIBS.get(name)
-    return lib if lib is not None else build_all()[name]
+    return lib if lib is not None else build_all([name])[name]
 
 
 def check(status, kernel):

@@ -1,28 +1,255 @@
-"""Decode attention against a dense KV cache (port of the decode part of
+"""Flash attention for training and decode (port of
 ``mxnet_tpu/kernels/flash_attention.py``).
 
-``flash_decode`` / ``flash_decode_with_lse`` launch the ``flash_decode``
-kernel of ``csrc/decode_attention.cu`` on CUDA tensors. It replaces the
-TPU kernel ``_decode_kernel``: one CTA per (lane, KV head) streams the
-lane's first ``lengths[b]`` cache rows once, for all G query heads of
-the group, with q pre-scaled by 1/sqrt(D) in fp32 and a single-pass
-online softmax. Its bound is the live K/V bytes (about G flops per byte
-of bf16 cache); the cache is read once and nothing but (o, lse) is
-written.
+Training: ``flash_attention(q, k, v, causal)`` over [B, T, H, D] is a
+``torch.autograd.Function`` (``_FlashAttention``) whose forward and
+backward are the kernels of ``csrc/flash_attention.cu`` on CUDA tensors:
 
-``dense_decode_with_lse`` is the plain version, and what the CPU runs:
-the same contract by plain tensor ops, PV accumulated in fp32.
+- ``flash_fwd`` replaces ``_fwd_kernel``: one CTA per (bh, 64-row query
+  tile) streams the key tiles with an online (o, m, l) and writes o and
+  the fp32 row lse;
+- ``flash_bwd_dq`` replaces ``_dq_kernel`` (one CTA per query tile) and
+  ``flash_bwd_dkv`` replaces ``_dkv_kernel`` (one CTA per key tile); both
+  recompute P = exp(S - lse) from the saved lse, with
+  delta = rowsum(dO * O) computed here, outside the kernels, as the JAX
+  package computes it.
 
-The training kernels of the JAX module (flash forward and backward, and
-the ring step) are not ported yet.
+The autograd function saves (q, k, v, o, lse) as ``_flash_bh_fwd`` does.
+Causal masking is top-left aligned (query i attends key j iff i >= j);
+any Tq and Tk are taken. The kernels take float32 and bfloat16 at head
+dims 64 and 128 and compute in fp32; anything else raises.
+``dense_attention_with_lse`` and ``dense_attention_bwd`` are the plain
+versions, and what CPU tensors run: the same formulas by plain tensor
+ops (q pre-scaled in fp32, every dot in fp32, masked scores at the
+finite -1e30).
+
+Decode: ``flash_decode`` / ``flash_decode_with_lse`` launch the
+``flash_decode`` kernel of ``csrc/decode_attention.cu`` on CUDA tensors.
+It replaces the TPU kernel ``_decode_kernel``: one CTA per (lane, KV
+head) streams the lane's first ``lengths[b]`` cache rows once, for all G
+query heads of the group, with q pre-scaled by 1/sqrt(D) in fp32 and a
+single-pass online softmax. Its bound is the live K/V bytes (about G
+flops per byte of bf16 cache); the cache is read once and nothing but
+(o, lse) is written. ``dense_decode_with_lse`` is its plain version: the
+same contract by plain tensor ops, PV accumulated in fp32.
+
+The ring step of the JAX module (``flash_carry_block``) is not ported
+yet.
 """
+
+import math
 
 import torch
 
 from . import _build
 from .common import DTYPE_CODE, NEG_INF, check_cuda_inputs
 
-__all__ = ["flash_decode", "flash_decode_with_lse", "dense_decode_with_lse"]
+__all__ = ["flash_attention", "flash_attention_with_lse",
+           "flash_attention_bwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "dense_attention_with_lse", "dense_attention_bwd",
+           "flash_decode", "flash_decode_with_lse", "dense_decode_with_lse"]
+
+FLASH_HEAD_DIMS = (64, 128)     # head dims the training kernels are built for
+
+
+# ----------------------------------------------------------- training ---
+
+def _acc_dtype(x):
+    """The plain versions compute in fp32, or in float64 for float64
+    inputs (the gradient check)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, causal):
+    """(q pre-scaled by 1/sqrt(D), the masked scores q k^T) in the
+    accumulation dtype, for [BH, Tq, D] / [BH, Tk, D]."""
+    acc = _acc_dtype(q)
+    qs = q.to(acc) * (1.0 / math.sqrt(q.shape[-1]))
+    s = qs @ k.to(acc).transpose(1, 2)
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        mask = (torch.arange(tq, device=q.device)[:, None]
+                >= torch.arange(tk, device=q.device)[None, :])
+        s = torch.where(mask, s, NEG_INF)
+    return qs, s
+
+
+def dense_attention_with_lse(q, k, v, causal=False):
+    """(o [BH, Tq, D] in q.dtype, lse [BH, Tq] fp32) by plain tensor ops
+    — the contract of the ``flash_fwd`` kernel: softmax(q k^T / sqrt(D))
+    v with o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30))."""
+    _, s = _scores(q, k, causal)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    o = (p @ v.to(s.dtype)) / l[..., None]
+    return o.to(q.dtype), m + torch.log(l)
+
+
+def dense_attention_bwd(q, k, v, o, lse, do, causal=False):
+    """(dq, dk, dv) by plain tensor ops — the contract of the
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` kernels, by the JAX backward's
+    formulas: P = exp(S - lse) with S from the pre-scaled q, delta =
+    rowsum(dO * O) from the saved o, dS = P (dO V^T - delta),
+    dQ = scale dS K, dK = dS^T (scale q), dV = P^T dO."""
+    qs, s = _scores(q, k, causal)
+    acc = s.dtype
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dof = do.to(acc)
+    delta = (dof * o.to(acc)).sum(dim=-1)
+    ds = p * (dof @ v.to(acc).transpose(1, 2) - delta[..., None])
+    dq = (1.0 / math.sqrt(q.shape[-1])) * (ds @ k.to(acc))
+    dk = ds.transpose(1, 2) @ qs
+    dv = p.transpose(1, 2) @ dof
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_flash_inputs(tensors, stats=()):
+    """Validate what a training kernel is handed: [BH, T, D] tensors of
+    one dtype (float32 or bfloat16) and head dim (64 or 128), contiguous,
+    16-byte aligned and on one CUDA device, and float32 [BH, Tq] row
+    statistics beside them."""
+    q = tensors[0]
+    if q.dtype not in DTYPE_CODE:
+        raise TypeError("the flash kernels take float32 or bfloat16, not %s"
+                        % q.dtype)
+    if q.dim() != 3 or q.shape[-1] not in FLASH_HEAD_DIMS:
+        raise ValueError("the flash kernels take [BH, T, D] tensors with D "
+                         "in %s, not %s" % (FLASH_HEAD_DIMS, tuple(q.shape)))
+    if q.device.type != "cuda":
+        raise ValueError("the flash kernels run on a CUDA device, not %s"
+                         % q.device)
+    for t in tuple(tensors) + tuple(stats):
+        if t.device != q.device:
+            raise ValueError("all tensors must be on %s (got %s)"
+                             % (q.device, t.device))
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the flash kernels take contiguous, 16-byte "
+                             "aligned tensors")
+    for t in tensors:
+        if t.dtype != q.dtype:
+            raise TypeError("q, k, v and the gradients must share one dtype "
+                            "(%s vs %s)" % (q.dtype, t.dtype))
+    for t in stats:
+        if t.dtype != torch.float32 or t.shape != q.shape[:2]:
+            raise ValueError("row statistics must be float32 [BH, Tq]")
+
+
+def _check_qkv(q, k, v):
+    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError("q must be [BH, Tq, D] and k, v [BH, Tk, D], not "
+                         "%s / %s / %s" % (tuple(q.shape), tuple(k.shape),
+                                           tuple(v.shape)))
+    if q.shape[1] < 1 or k.shape[1] < 1:
+        raise ValueError("empty sequence")
+
+
+def _scale(q):
+    return 1.0 / math.sqrt(q.shape[-1])
+
+
+def flash_attention_with_lse(q, k, v, causal=False):
+    """Attention of q [BH, Tq, D] over k, v [BH, Tk, D]: (o [BH, Tq, D]
+    in q.dtype, lse [BH, Tq] fp32). Launches ``flash_fwd`` on CUDA
+    tensors; CPU tensors take :func:`dense_attention_with_lse`."""
+    _check_qkv(q, k, v)
+    if q.device.type == "cpu":
+        return dense_attention_with_lse(q, k, v, causal)
+    _check_flash_inputs((q, k, v))
+    bh, tq, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    status = _build.load("flash_attention").flash_fwd(
+        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), bh, tq, k.shape[1], d, int(causal),
+        _scale(q), _build.current_stream_ptr(q.device))
+    _build.check(status, "flash_fwd")
+    _build.launches["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal=False):
+    """dq in q.dtype from the ``flash_bwd_dq`` kernel (CUDA tensors
+    only): lse and delta are fp32 [BH, Tq]."""
+    _check_qkv(q, k, v)
+    _check_flash_inputs((q, k, v, do), (lse, delta))
+    bh, tq, d = q.shape
+    dq = torch.empty_like(q)
+    status = _build.load("flash_attention").flash_bwd_dq(
+        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh,
+        tq, k.shape[1], d, int(causal), _scale(q),
+        _build.current_stream_ptr(q.device))
+    _build.check(status, "flash_bwd_dq")
+    _build.launches["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False):
+    """(dk, dv) in k.dtype from the ``flash_bwd_dkv`` kernel (CUDA
+    tensors only)."""
+    _check_qkv(q, k, v)
+    _check_flash_inputs((q, k, v, do), (lse, delta))
+    bh, tq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    status = _build.load("flash_attention").flash_bwd_dkv(
+        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, tq, k.shape[1], d, int(causal), _scale(q),
+        _build.current_stream_ptr(q.device))
+    _build.check(status, "flash_bwd_dkv")
+    _build.launches["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False):
+    """(dq, dk, dv) of :func:`flash_attention_with_lse` given the saved
+    (o, lse) and the output gradient ``do``. On CUDA tensors: delta by a
+    torch expression, then the two backward kernels; CPU tensors take
+    :func:`dense_attention_bwd`."""
+    if q.device.type == "cpu":
+        return dense_attention_bwd(q, k, v, o, lse, do, causal)
+    do = do.contiguous()
+    # delta = rowsum(dO * O) in fp32 from the saved o in its own dtype
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention over [BH, T, D] with the flash backward: the forward
+    saves (q, k, v, o, lse) and the backward recomputes P from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_with_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal=False):
+    """Multi-head attention over q [B, Tq, H, D] and k, v [B, Tk, H, D]
+    -> [B, Tq, H, D] in q.dtype, differentiable through the flash
+    backward. ``causal`` masks key j from query i unless i >= j."""
+    b, tq, h, d = q.shape
+
+    def to_bh(x):
+        return x.transpose(1, 2).reshape(b * h, x.shape[1], d).contiguous()
+
+    out = _FlashAttention.apply(to_bh(q), to_bh(k), to_bh(v), bool(causal))
+    return out.reshape(b, h, tq, d).transpose(1, 2)
+
+
+# ------------------------------------------------------------- decode ---
 
 
 def _lengths(lengths, b, device):

@@ -1,17 +1,30 @@
-"""Parameters between the JAX package and the port.
+"""Parameters and optimizer state between the JAX package and the port.
 
 The JAX package keeps the transformer's parameters as a tree of arrays
-({"embed", "pos", "ln_f", "layers": [{"ln1", "ln2", "wq", "wk", "wv",
-"wo", "w1", "w2"}, ...]}); the port keeps them in a
-:class:`~.transformer.TransformerLM` with the same names and shapes.
-The tree crosses as numpy arrays, so this module imports nothing of JAX.
+({"embed", "pos" (absent for rope models), "ln_f", "layers": [{"ln1",
+"ln2", "wq", "wk", "wv", "wo", "w1", "w2", and "gate" for MoE layers},
+...]}) and its momentum as a tree of the same shape in fp32; the port
+keeps the parameters in a :class:`~.transformer.TransformerLM` with the
+same names and shapes, and the momentum as a dict by parameter name
+(``init_momentum``). The trees cross as numpy arrays, so this module
+imports nothing of JAX.
 """
 
 import numpy as np
+import torch
 
-from .transformer import TransformerLM, load_numpy_tree
+from .transformer import (TransformerLM, flatten_tree, load_numpy_tree,
+                          numpy_to_tensor, unflatten_tree)
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "momentum_from_jax",
+           "momentum_to_numpy"]
+
+
+def _numpy(t):
+    """A tensor as a numpy array (bfloat16 comes back as float32, which
+    holds it exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def params_from_jax(tree, cfg, device=None):
@@ -23,13 +36,29 @@ def params_from_jax(tree, cfg, device=None):
 
 def params_to_numpy(model):
     """The inverse: ``model``'s parameters as a JAX-shaped tree of numpy
-    arrays (bfloat16 parameters come back as float32, which holds them
-    exactly)."""
-    def arr(t):
-        return t.detach().float().cpu().numpy() if t.dtype.itemsize == 2 \
-            else t.detach().cpu().numpy()
+    arrays."""
+    return unflatten_tree({n: _numpy(p) for n, p in model.named_parameters()})
 
-    return {"embed": arr(model.embed), "pos": arr(model.pos),
-            "ln_f": arr(model.ln_f),
-            "layers": [{n: arr(t) for n, t in layer.named_parameters()}
-                       for layer in model.layers]}
+
+def momentum_from_jax(tree, params):
+    """The JAX package's momentum tree (numpy arrays, fp32) as the port's
+    momentum for ``params``: fp32 tensors on ``params``' device, by
+    parameter name, checked against the parameters' names and shapes."""
+    flat = flatten_tree(tree)
+    shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    if set(flat) != set(shapes):
+        raise ValueError("momentum keys do not match the parameters': %s"
+                         % sorted(set(flat) ^ set(shapes)))
+    out = {}
+    for name, shape in shapes.items():
+        if tuple(np.shape(flat[name])) != shape:
+            raise ValueError("momentum %s has shape %s, the parameter %s"
+                             % (name, np.shape(flat[name]), shape))
+        out[name] = numpy_to_tensor(flat[name], torch.float32, params.device)
+    return out
+
+
+def momentum_to_numpy(momentum):
+    """The inverse: the port's momentum as a JAX-shaped tree of fp32
+    numpy arrays."""
+    return unflatten_tree({n: _numpy(m) for n, m in momentum.items()})

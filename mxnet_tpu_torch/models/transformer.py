@@ -1,43 +1,50 @@
-"""The transformer language model's serving path in PyTorch (port of
-``mxnet_tpu/models/transformer.py``): config, seeded parameters, prompt
-prefill, dense-cache and paged decode steps, and greedy ``generate()``.
+"""The transformer language model in PyTorch (port of
+``mxnet_tpu/models/transformer.py``): config, seeded parameters, the
+training path (``forward``, ``loss_fn``, ``make_train_step``,
+``init_momentum``), and the serving path (prompt prefill, dense-cache and
+paged decode steps, greedy ``generate()``).
 
 Function names, argument order and numerics follow the JAX module, so a
 reader finds each counterpart and one seed gives the same weights in
 both packages. The op order that decides rounding is kept: scores
 accumulate in fp32 and are divided by sqrt(D) after the dot, the
 normalised probabilities are cast to the cache dtype before PV, and
-``_rms_norm`` casts before it scales. Caches and pools are updated in
-place (the JAX functions return new arrays); each function still returns
-the cache it wrote, so call sites read the same.
+``_rms_norm`` casts before it scales. Caches, pools, parameters and
+momentum are updated in place (the JAX functions return new arrays, and
+its train step donates them); each function still returns what it
+wrote, so call sites read the same. Parameters never require a gradient
+outside a train step, so the serving paths build no autograd graph.
 
-Two decode-attention kernels carry the path on the GPU: the paged kernel
-in ``decode_step_paged`` (always, on CUDA tensors) and the dense-cache
-flash-decode kernel in ``decode_step`` when ``cfg.use_flash_kernel``.
+Hand-written kernels carry the path on the GPU: the flash forward and
+backward kernels in ``_causal_attention`` whenever
+``cfg.use_flash_kernel`` (training, prefill, and ``generate()``'s
+prompt), the dense-cache flash-decode kernel in ``decode_step`` with the
+same flag, and the paged kernel in ``decode_step_paged`` (always, on
+CUDA tensors).
 
 Not ported yet; each raises NotImplementedError where it would be asked
-for: RoPE, int8 KV, MoE, pipeline stages, int8 weight trees, sampling,
-speculative verification, and the flash prefill kernel.
+for: meshes and pipeline stages, RoPE and int8 KV in the decode paths,
+int8 weight trees, sampling and speculative verification.
 """
 
 import dataclasses
 import math
-import os
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..context import resolve_device
 from ..kernels.common import NEG_INF
-from ..kernels.flash_attention import flash_decode
+from ..kernels.flash_attention import flash_attention, flash_decode
 from ..kernels.paged_decode import paged_attention
 
-__all__ = ["TransformerConfig", "TransformerLM", "init_params",
-           "init_cache", "prefill", "prefill_chunk", "decode_step",
-           "init_paged_cache", "paged_cache_nbytes", "decode_step_paged",
-           "generate"]
+__all__ = ["TransformerConfig", "TransformerLM", "init_params", "forward",
+           "loss_fn", "make_train_step", "init_momentum", "init_cache",
+           "prefill", "prefill_chunk", "decode_step", "init_paged_cache",
+           "paged_cache_nbytes", "decode_step_paged", "generate"]
 
 
 @dataclasses.dataclass
@@ -49,30 +56,49 @@ class TransformerConfig:
     n_kv_heads: int = None
     n_layers: int = 2
     d_ff: int = 128
-    n_experts: int = 0          # MoE: not ported yet
+    n_experts: int = 0          # 0 = dense FFN; >0 = top-all MoE every layer
     max_len: int = 128
     dtype: torch.dtype = torch.float32
     pp_axis: str = None         # pipeline stages: not ported yet
-    rope: bool = False          # rotary positions: not ported yet
-    # decode_step reads the dense cache through the flash-decode kernel
+    # rotary positions on q/k instead of the learned `pos` table (which a
+    # rope model does not carry); training only in this port so far
+    rope: bool = False
+    rope_base: float = 10000.0
+    # attention through the hand-written flash kernels: the training
+    # forward/backward and prefill, and decode_step's flash-decode kernel
     use_flash_kernel: bool = False
+    # activation recompute: backward re-runs each layer from its input
+    # (torch.utils.checkpoint, non-reentrant) instead of storing it
+    remat_layers: bool = False
     kv_cache_int8: bool = False  # not ported yet
 
 
-# config fields this slice does not carry, and the slice that brings each
-_LATER = (
-    ("rope", "RoPE arrives with the RoPE slice"),
-    ("kv_cache_int8", "int8 KV caches arrive with the int8-KV slice"),
-    ("n_experts", "the MoE FFN arrives with the training slice"),
-    ("pp_axis", "pipeline stages arrive with the parallel slice"),
+# config fields a path does not carry yet, and the slice that brings each
+_LATER_TRAIN = (
+    ("pp_axis", "pipeline stages arrive with the parallel slice (A7)"),
+)
+_LATER_SERVE = _LATER_TRAIN + (
+    ("rope", "RoPE in the decode paths arrives with the RoPE/int8-KV slice "
+             "(A3)"),
+    ("kv_cache_int8", "int8 KV caches arrive with the RoPE/int8-KV slice "
+                      "(A3)"),
 )
 
 
-def _check_supported(cfg):
-    for name, later in _LATER:
+def _check_supported(cfg, serving=True):
+    """Raise for a config field the serving (or, with ``serving=False``,
+    the training) path of this port does not carry yet."""
+    for name, later in _LATER_SERVE if serving else _LATER_TRAIN:
         if getattr(cfg, name):
             raise NotImplementedError("%s=%r: %s" % (name, getattr(cfg, name),
                                                       later))
+
+
+def _check_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "meshes (tp/sp/ep/dp sharding, ring attention) arrive with the "
+            "parallel slice (A7)")
 
 
 def _kvh(cfg):
@@ -101,19 +127,25 @@ class TransformerLayer(nn.Module):
         self.ln1, self.ln2 = p(d), p(d)
         self.wq, self.wk, self.wv = p(d, h, hd), p(d, kvh, hd), p(d, kvh, hd)
         self.wo = p(h, hd, d)
-        self.w1, self.w2 = p(d, cfg.d_ff), p(cfg.d_ff, d)
+        if cfg.n_experts:
+            e = cfg.n_experts
+            self.gate = p(d, e)
+            self.w1, self.w2 = p(e, d, cfg.d_ff), p(e, cfg.d_ff, d)
+        else:
+            self.w1, self.w2 = p(d, cfg.d_ff), p(cfg.d_ff, d)
 
 
 class TransformerLM(nn.Module):
-    """The decoder LM's parameters: ``embed [V, D]``, ``pos [max_len, D]``,
-    ``ln_f [D]`` and ``layers``, named and shaped as the JAX package's
-    parameter tree. The model functions of this module take it where the
-    JAX functions take ``params``. Inference only: no parameter requires
-    a gradient."""
+    """The decoder LM's parameters: ``embed [V, D]``, ``pos [max_len, D]``
+    (absent when ``cfg.rope``), ``ln_f [D]`` and ``layers``, named and
+    shaped as the JAX package's parameter tree. The model functions of
+    this module take it where the JAX functions take ``params``. No
+    parameter requires a gradient outside :func:`make_train_step`'s
+    step."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_supported(cfg)
+        _check_supported(cfg, serving=False)
         device = resolve_device(device)
         self.cfg = cfg
         d = cfg.d_model
@@ -124,7 +156,8 @@ class TransformerLM(nn.Module):
                                 requires_grad=False)
 
         self.embed = p(cfg.vocab_size, d)
-        self.pos = p(cfg.max_len, d)
+        if not cfg.rope:
+            self.pos = p(cfg.max_len, d)
         self.ln_f = p(d)
         self.layers = nn.ModuleList(TransformerLayer(cfg, device)
                                     for _ in range(cfg.n_layers))
@@ -145,27 +178,50 @@ def numpy_to_tensor(arr, dtype, device):
     return t.to(device=device, dtype=dtype)
 
 
+def flatten_tree(tree):
+    """{parameter name: leaf} of a JAX-shaped tree ({"embed", "pos",
+    "ln_f", "layers": [{...}, ...]}), named as ``named_parameters()``
+    names them ("embed", "layers.0.wq", ...)."""
+    flat = {n: leaf for n, leaf in tree.items() if n != "layers"}
+    for i, sub in enumerate(tree["layers"]):
+        flat.update(("layers.%d.%s" % (i, n), leaf) for n, leaf in sub.items())
+    return flat
+
+
+def unflatten_tree(flat):
+    """The inverse of :func:`flatten_tree`."""
+    tree = {"layers": []}
+    for name, leaf in flat.items():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            tree[name] = leaf
+            continue
+        i = int(parts[1])
+        tree["layers"] += [{} for _ in range(i + 1 - len(tree["layers"]))]
+        tree["layers"][i][parts[2]] = leaf
+    return tree
+
+
 def load_numpy_tree(model, tree):
-    """Copy a JAX-shaped parameter tree of numpy arrays ({"embed", "pos",
-    "ln_f", "layers": [{...}, ...]}) into ``model``, checking names and
-    shapes."""
+    """Copy a JAX-shaped parameter tree of numpy arrays into ``model``,
+    checking names and shapes."""
     if len(tree["layers"]) != len(model.layers):
         raise ValueError("tree has %d layers, model %d"
                          % (len(tree["layers"]), len(model.layers)))
-    pairs = [(getattr(model, n), tree[n]) for n in ("embed", "pos", "ln_f")]
-    for layer, sub in zip(model.layers, tree["layers"]):
-        if set(sub) != {n for n, _ in layer.named_parameters()}:
-            raise ValueError("layer keys %s do not match the model's"
-                             % sorted(sub))
-        pairs += [(getattr(layer, n), sub[n]) for n in sub]
+    flat = flatten_tree(tree)
+    params = dict(model.named_parameters())
+    if set(flat) != set(params):
+        raise ValueError("tree keys do not match the model's: %s"
+                         % sorted(set(flat) ^ set(params)))
     with torch.no_grad():
-        for param, arr in pairs:
+        for name, arr in flat.items():
+            param = params[name]
             if isinstance(arr, dict):
                 raise NotImplementedError(
                     "int8 weight trees arrive with the int8-weights slice")
             if tuple(np.shape(arr)) != tuple(param.shape):
-                raise ValueError("shape %s does not match parameter %s"
-                                 % (np.shape(arr), tuple(param.shape)))
+                raise ValueError("shape %s does not match parameter %s %s"
+                                 % (np.shape(arr), name, tuple(param.shape)))
             param.copy_(numpy_to_tensor(arr, param.dtype, param.device))
     return model
 
@@ -174,7 +230,7 @@ def init_params(cfg, seed=0, device=None):
     """Seeded random parameters as a :class:`TransformerLM` — the same
     numpy ``RandomState`` draws, in the same order, as the JAX package's
     ``init_params``, so one seed gives the same weights in both."""
-    _check_supported(cfg)
+    _check_supported(cfg, serving=False)
     rng = np.random.RandomState(seed)
     d, h, kvh = cfg.d_model, cfg.n_heads, _kvh(cfg)
     hd = d // h
@@ -184,15 +240,24 @@ def init_params(cfg, seed=0, device=None):
         return rng.randn(*shape) * scale
 
     def layer():
-        return {"ln1": np.ones(d), "ln2": np.ones(d),
-                "wq": dense(d, h, hd), "wk": dense(d, kvh, hd),
-                "wv": dense(d, kvh, hd), "wo": dense(h, hd, d),
-                "w1": dense(d, cfg.d_ff), "w2": dense(cfg.d_ff, d)}
+        p = {"ln1": np.ones(d), "ln2": np.ones(d),
+             "wq": dense(d, h, hd), "wk": dense(d, kvh, hd),
+             "wv": dense(d, kvh, hd), "wo": dense(h, hd, d)}
+        if cfg.n_experts:
+            e = cfg.n_experts
+            p["gate"] = dense(d, e)
+            p["w1"] = rng.randn(e, d, cfg.d_ff) / np.sqrt(d)
+            p["w2"] = rng.randn(e, cfg.d_ff, d) / np.sqrt(cfg.d_ff)
+        else:
+            p["w1"] = dense(d, cfg.d_ff)
+            p["w2"] = dense(cfg.d_ff, d)
+        return p
 
     tree = {"embed": rng.randn(cfg.vocab_size, d) * 0.02,
             "ln_f": np.ones(d),
             "layers": [layer() for _ in range(cfg.n_layers)]}
-    tree["pos"] = rng.randn(cfg.max_len, d) * 0.02
+    if not cfg.rope:
+        tree["pos"] = rng.randn(cfg.max_len, d) * 0.02
     return load_numpy_tree(TransformerLM(cfg, device), tree)
 
 
@@ -214,28 +279,49 @@ def _repeat_kv(x, g):
     return x if g == 1 else torch.repeat_interleave(x, g, dim=2)
 
 
+def _rope(x, positions, base):
+    """Rotary position encoding on [..., T, H, Dh] (or [..., H, Dh] with
+    scalar / [B] positions): rotate feature pairs (half-split convention)
+    by position-dependent angles, in fp32, cast back to x's dtype."""
+    dh = x.shape[-1]
+    if dh % 2:
+        raise ValueError(
+            "rope needs an even head dim, got d_model/n_heads = %d" % dh)
+    half = dh // 2
+    freqs = torch.pow(1.0 / base, torch.arange(half, dtype=torch.float32,
+                                               device=x.device) / half)
+    positions = torch.as_tensor(positions, device=x.device)
+    ang = positions.float()[..., None] * freqs
+    if positions.dim() >= 1:
+        # positions carry a T (or batch) axis that aligns with x's -3
+        # axis; insert the broadcast head axis
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rot.to(x.dtype)
+
+
 def _ffn(x, p, cfg):
     # jax.nn.gelu defaults to the tanh approximation
+    if cfg.n_experts:
+        # dense top-all dispatch: every token weighted over every expert
+        gates = torch.softmax(torch.einsum("btd,de->bte", x, p.gate), dim=-1)
+        h = F.gelu(torch.einsum("btd,edf->betf", x, p.w1), approximate="tanh")
+        y = torch.einsum("betf,efd->betd", h, p.w2)
+        return torch.einsum("betd,bte->btd", y, gates)
     h = F.gelu(torch.einsum("btd,df->btf", x, p.w1), approximate="tanh")
     return torch.einsum("btf,fd->btd", h, p.w2)
 
 
-def _flash_min_seq():
-    """Sequence length from which the JAX package routes prefill through
-    its flash kernel (MXNET_FLASH_MIN_SEQ, default 8192)."""
-    try:
-        return int(os.environ.get("MXNET_FLASH_MIN_SEQ", "8192"))
-    except ValueError:
-        return 8192
-
-
 def _causal_attention(q, k, v, cfg, out_dtype):
-    """Causal attention over [B, T, H, D] by the dense masked softmax."""
+    """Causal attention over [B, T, H, D]: the flash kernels (forward,
+    and the flash backward under autograd) whenever
+    ``cfg.use_flash_kernel``, at every T; else the dense masked
+    softmax."""
+    if cfg.use_flash_kernel:
+        return flash_attention(q, k, v, causal=True).to(out_dtype)
     T = q.shape[1]
-    if cfg.use_flash_kernel and T >= _flash_min_seq():
-        raise NotImplementedError(
-            "prefill of %d >= MXNET_FLASH_MIN_SEQ tokens needs the flash "
-            "attention kernel, which arrives with the training slice" % T)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         / math.sqrt(q.shape[-1])
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=q.device))
@@ -251,6 +337,121 @@ def _pos_rows(table, pos):
     valid = (pos >= 0) & (pos < n)
     rows = table[pos.long().clamp(0, n - 1)]
     return torch.where(valid[:, None], rows, float("nan"))
+
+
+# ----------------------------------------------------------- training ---
+
+def _attention(x, p, cfg):
+    q, k, v = _qkv(x, p)
+    if cfg.rope:
+        positions = torch.arange(x.shape[1], device=x.device)
+        q = _rope(q, positions, cfg.rope_base)
+        k = _rope(k, positions, cfg.rope_base)
+    # training attends with the repeated view, as the JAX package does
+    g = cfg.n_heads // _kvh(cfg)
+    o = _causal_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), cfg,
+                          x.dtype)
+    return torch.einsum("bthk,hkd->btd", o, p.wo)
+
+
+def _layer(p, x, cfg):
+    x = x + _attention(_rms_norm(x, p.ln1), p, cfg)
+    return x + _ffn(_rms_norm(x, p.ln2), p, cfg)
+
+
+def _tokens(tokens, device):
+    if not torch.is_tensor(tokens):
+        tokens = torch.from_numpy(np.asarray(tokens))
+    return tokens.to(device=device, dtype=torch.long)
+
+
+def forward(params, tokens, cfg, mesh=None):
+    """tokens [B, T] int -> logits [B, T, vocab]. With
+    ``cfg.remat_layers`` each layer is checkpointed: backward re-runs it
+    from its input instead of keeping its activations."""
+    _check_supported(cfg, serving=False)
+    _check_mesh(mesh)
+    tokens = _tokens(tokens, params.device)
+    x = params.embed[tokens]
+    if not cfg.rope:
+        x = x + params.pos[:tokens.shape[1]]
+    for p in params.layers:
+        if cfg.remat_layers:
+            x = checkpoint(_layer, p, x, cfg, use_reentrant=False)
+        else:
+            x = _layer(p, x, cfg)
+    x = _rms_norm(x, params.ln_f)
+    return torch.einsum("btd,vd->btv", x, params.embed)
+
+
+def loss_fn(params, tokens, cfg, mesh=None):
+    """Next-token cross entropy (mean over B, T-1), as a 0-dim fp32
+    tensor."""
+    tokens = _tokens(tokens, params.device)
+    # the full sequence goes through the model; the logits are shifted
+    logits = forward(params, tokens, cfg, mesh)[:, :-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
+    return nll.mean()
+
+
+def init_momentum(params):
+    """Zero fp32 momentum for every parameter, by parameter name."""
+    return {n: torch.zeros_like(p, dtype=torch.float32)
+            for n, p in params.named_parameters()}
+
+
+def make_train_step(cfg, mesh=None, lr=1e-2, guard=False):
+    """The training step: ``step(params, momentum, tokens)`` ->
+    ``(params, momentum, loss)``, SGD with momentum 0.9 as the JAX
+    package's ``make_train_step``: m = 0.9 m + g in fp32, then
+    p = p - lr * m cast to p's dtype. ``params`` and ``momentum`` (as
+    :func:`init_momentum` makes it) are updated in place, where the JAX
+    step donates them, and returned.
+
+    The learning rate is taken in the parameters' dtype, as JAX rounds
+    its weakly typed Python ``lr`` to bf16 before the bf16 product.
+
+    With ``guard=True`` the step returns a fourth output ``skipped`` (a
+    0-dim bool tensor on the device) and, when the loss or any gradient
+    is not finite, leaves params and momentum untouched; the select runs
+    on the device, with no host sync."""
+    _check_supported(cfg, serving=False)
+    _check_mesh(mesh)
+
+    def step(params, momentum, tokens):
+        names, ps = zip(*params.named_parameters())
+        for p in ps:
+            p.requires_grad_(True)
+        try:
+            loss = loss_fn(params, tokens, cfg)
+            grads = torch.autograd.grad(loss, ps)
+        finally:
+            for p in ps:
+                p.requires_grad_(False)
+        with torch.no_grad():
+            loss = loss.detach()
+            if guard:
+                ok = torch.isfinite(loss)
+                for g in grads:
+                    ok = ok & torch.isfinite(g).all()
+            lrs = {}
+            for name, p, g in zip(names, ps, grads):
+                m = momentum[name]
+                if p.dtype not in lrs:
+                    lrs[p.dtype] = torch.tensor(lr, dtype=p.dtype)
+                new_m = 0.9 * m + g
+                new_p = p - lrs[p.dtype] * new_m.to(p.dtype)
+                if guard:
+                    new_m = torch.where(ok, new_m, m)
+                    new_p = torch.where(ok, new_p, p)
+                m.copy_(new_m)
+                p.copy_(new_p)
+        if guard:
+            return params, momentum, loss, ~ok
+        return params, momentum, loss
+
+    return step
 
 
 # ------------------------------------------------------------- decode ---

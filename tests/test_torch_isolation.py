@@ -51,10 +51,17 @@ def _run(code_or_args, cwd):
 
 
 def test_import_loads_no_jax(tmp_path):
-    """Importing the package and its serving path leaves jax and
-    mxnet_tpu out of sys.modules, and needs no nvcc."""
+    """Importing the package and its serving path, and running one train
+    step of its training path on the CPU (rope, MoE, remat through the
+    flash autograd function), leaves jax and mxnet_tpu out of
+    sys.modules, and needs no nvcc."""
     code = ("import sys, mxnet_tpu_torch\n"
             "from mxnet_tpu_torch.models import serving, convert\n"
+            "from mxnet_tpu_torch.models import transformer as tf\n"
+            "cfg = tf.TransformerConfig(rope=True, n_experts=2, max_len=8, "
+            "remat_layers=True, use_flash_kernel=True)\n"
+            "p = tf.init_params(cfg, device='cpu')\n"
+            "tf.make_train_step(cfg)(p, tf.init_momentum(p), [list(range(8))])\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "%r)\n"
             "print('BAD', bad)\n" % (FORBIDDEN,))

@@ -233,12 +233,16 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("rope", True), ("kv_cache_int8", True), ("n_experts", 4),
-    ("pp_axis", "pp")])
+    ("rope", True), ("kv_cache_int8", True), ("pp_axis", "pp")])
 def test_unported_config_fields_raise(field, value):
+    """The serving paths do not carry RoPE, int8 KV or pipeline stages
+    yet (the MoE FFN is ported): their entry points raise naming the
+    slice that brings each."""
     _, tcfg = _cfgs(**{field: value})
     with pytest.raises(NotImplementedError, match="slice"):
-        ttf.init_params(tcfg, device="cpu")
+        ttf.init_cache(tcfg, 1, "cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        ttf.init_paged_cache(tcfg, 4, BS, "cpu")
 
 
 def test_unported_decoding_controls_raise():
@@ -257,15 +261,31 @@ def test_unported_decoding_controls_raise():
 
 
 def test_long_prefill_needs_the_flash_kernel(monkeypatch):
-    """With use_flash_kernel, the JAX package routes a prompt of
-    MXNET_FLASH_MIN_SEQ tokens or more through its flash kernel, which
-    is not ported yet: the port raises there instead of computing it
-    another way."""
+    """With use_flash_kernel the port routes prefill through the flash
+    attention kernel at every prompt length (on CPU tensors its plain
+    version): the JAX package's TPU-measured crossover
+    MXNET_FLASH_MIN_SEQ is not read. The logits match the dense route's
+    at atol 1e-4 (fp32, the same products summed in another order)."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa_fn
     _, tcfg = _cfgs(use_flash_kernel=True)
+    _, dcfg = _cfgs()
     tp = ttf.init_params(tcfg, device="cpu")
-    monkeypatch.setenv("MXNET_FLASH_MIN_SEQ", "8")
-    with pytest.raises(NotImplementedError, match="flash attention"):
-        ttf.prefill(tp, ttf.init_cache(tcfg, 1, "cpu"),
-                    torch.zeros((1, 8), dtype=torch.long), tcfg)
-    ttf.prefill(tp, ttf.init_cache(tcfg, 1, "cpu"),
-                torch.zeros((1, 7), dtype=torch.long), tcfg)
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape[1])
+        return fa_fn(*args, **kwargs)
+
+    monkeypatch.setattr(ttf, "flash_attention", counted)
+    toks = torch.from_numpy(
+        np.random.RandomState(8).randint(0, 97, (1, 9)).astype(np.int64))
+    for min_seq in ("8", "100000"):
+        monkeypatch.setenv("MXNET_FLASH_MIN_SEQ", min_seq)
+        for t in (7, 9):
+            calls.clear()
+            got, _ = ttf.prefill(tp, ttf.init_cache(tcfg, 1, "cpu"),
+                                 toks[:, :t], tcfg)
+            assert calls == [t] * CFG["n_layers"]
+            want, _ = ttf.prefill(tp, ttf.init_cache(dcfg, 1, "cpu"),
+                                  toks[:, :t], dcfg)
+            _close(got, want, "flash vs dense prefill, T=%d" % t)
