@@ -19,19 +19,34 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    lengths including 0 and 4096; the flash forward (o and lse) and the
    two flash backward kernels (dq, and dk/dv), causal and not, at the
    training shape (64 batch-heads x 1024 positions x 128 dims), at head
-   dim 64, and at one ragged cross-length case;
+   dim 64, and at one ragged cross-length case; and the paged kernel's
+   int8 mode on int8 pools (codes and fp32 scales quantised from seeded
+   rows) with float32 and bfloat16 queries, at the paged cases above and
+   at head dim 128, allowing one probability code beside ``TOL`` in at
+   most ``INT8_CODE_SHARE`` of the elements;
 4. serves 16 requests (prompts of 64-512 seeded tokens, 32 new tokens
    each) through ``ContinuousBatcher(paged=True)`` at the full width of
    the repo's paged serving model (vocab 32000, d_model 512, 8 heads,
    8 layers, d_ff 2048, max_len 4096, bfloat16, random weights from a
    seed), checks every stream's length, the block allocator's
    invariants, that every decode step launched the paged kernel once
-   per layer, and that each emitted token's logit lies within a stated
-   tolerance of its row's maximum when the stream is teacher-forced
-   through ``prefill_chunk`` (a dense contraction, no kernel);
+   per layer and no other kernel ran, and that each emitted token's
+   logit lies within a stated tolerance of its row's maximum when the
+   stream is teacher-forced through ``prefill_chunk`` (a dense
+   contraction, no kernel);
 5. runs greedy ``generate()`` (batch 8, prompt 256, 32 new tokens) at
    the same width with the flash kernels (the prompt through the flash
    forward, each token through flash decode), with the same checks;
+   then serves the same requests, and runs the same ``generate()``,
+   with an int8 KV cache (the width of the int8-KV serving A/B of
+   ``benchmark/serving_bench.py``): every decode step launches the
+   paged kernel's int8 mode once per layer, ``generate()``'s dense int8
+   path launches no kernel, and the int8 pool's bytes are printed beside
+   the bfloat16 pool's; then serves the RoPE model of step 6 (its full
+   width, bfloat16, random weights): ``generate()`` through the flash
+   forward and flash decode, and 8 requests through the batcher and the
+   paged kernel at head dim 128, each with the launch and teacher-forced
+   checks;
 6. takes one training step of the LM of ``benchmark/train_lm_bench.py``
    at full width (vocab 32000, d_model 1024, 8 heads of 128, 12 layers,
    d_ff 4096, 1024 positions, batch 8, rope, random weights from a seed)
@@ -46,14 +61,17 @@ Run from the root of a checkout on a machine with one CUDA GPU and
 8. times each decode step, and each kernel beside its plain version, a
    one-call PyTorch yardstick (``scaled_dot_product_attention``, timed
    here only, forward, and backward through autograd for the flash
-   backward kernels) and its bound; the paged kernel is timed on the
-   served pool full, each block in one lane's table;
-9. traces 16 decode steps of a serve run and of ``generate()``, and 3
-   train steps, with ``torch.profiler`` and prints, for each, the host ms
+   backward kernels; none for the int8 mode) and its bound; the paged
+   kernel is timed on the served pool full, each block in one lane's
+   table, in bfloat16 and int8;
+9. traces 16 decode steps of a serve run, of an int8 serve run and of
+   ``generate()``, and 3 train steps, with ``torch.profiler`` and
+   prints, for each, the host ms
    per step, the device ms per step (the sum of the kernels' own times),
    the device's idle share and the kernels that took the most time;
-10. times the decode kernels and the yardstick with every lane at one
-    length, over 8, 32 and 128 lanes and lengths 256 and 4096, and the
+10. times the decode kernels (the paged kernel in bfloat16 and int8)
+    and the yardstick with every lane at one length, over 8, 32 and 128
+    lanes and lengths 256 and 4096, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
@@ -74,7 +92,7 @@ import numpy as np
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 and fp32
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # kernel vs plain version: |kernel - plain| <= atol + rtol * |plain| for
 # every output element, as (atol, rtol). float32: both sum the same fp32
@@ -103,12 +121,24 @@ TOL_FLASH = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2.0 ** -7)}
 # and the stepped decode round bf16 activations at other places over 8
 # layers, which moves a logit by a few bf16 ulps (2^-7 near 1).
 TOL_TEACHER = 0.1
+# int8 paged kernel vs its plain version: TOL plus one probability code.
+# Both re-quantise a * vs with the row's scale as_ from statistics summed
+# in another order, so a code sitting on a rounding edge may come out one
+# apart; one code moves each element of its row by as_ * |v code| <=
+# 127 as_. That allowance may be needed by at most this share of the
+# elements (a bias of a third of a code step needs it everywhere).
+INT8_CODE_SHARE = 0.01
 
 SERVE_CFG = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=8,
                  d_ff=2048, max_len=4096, use_flash_kernel=True)
 SERVE = dict(max_batch=32, block_size=16, num_blocks=2049, requests=16,
              prompt_lo=64, prompt_hi=512, n_new=32)
 GENERATE = dict(batch=8, prompt=256, n_new=32)
+# the RoPE serving run: TRAIN_CFG's model behind the batcher
+ROPE_SERVE = dict(max_batch=8, block_size=16, num_blocks=8 * 64 + 1,
+                  requests=8, prompt_lo=64, prompt_hi=512, n_new=32)
+# (span, G, head dim) of the int8 kernel checks
+INT8_CHECKS = ((1, 1, 64), (4, 1, 64), (1, 2, 64), (4, 2, 64), (1, 1, 128))
 
 # the training flagship of benchmark/train_lm_bench.py at full width
 TRAIN_CFG = dict(vocab_size=32000, d_model=1024, n_heads=8, n_layers=12,
@@ -121,11 +151,13 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_SWEEP = (1024, 4096, 8192)        # sequence lengths at 8192 tokens
 
 SOURCE = {"paged_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
+          "paged_decode_int8": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "flash_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "flash_fwd": "mxnet_tpu_torch/csrc/flash_attention.cu",
           "flash_bwd_dq": "mxnet_tpu_torch/csrc/flash_attention.cu",
           "flash_bwd_dkv": "mxnet_tpu_torch/csrc/flash_attention.cu"}
 REPLACES = {"paged_decode": "mxnet_tpu/kernels/paged_decode.py:69",
+            "paged_decode_int8": "mxnet_tpu/kernels/paged_decode.py:69",
             "flash_decode": "mxnet_tpu/kernels/flash_attention.py:439",
             "flash_fwd": "mxnet_tpu/kernels/flash_attention.py:44",
             "flash_bwd_dq": "mxnet_tpu/kernels/flash_attention.py:253",
@@ -202,19 +234,24 @@ def randn(torch, shape, gen, device, dtype):
 
 
 def paged_tensors(torch, device, dtype, tables, pos, span, g, seed,
-                  kvh=8, d=64, bs=16, nb=SERVE["num_blocks"]):
+                  kvh=8, d=64, bs=16, nb=SERVE["num_blocks"], int8=False):
     """Pool, q, tables and pos of one paged-kernel case on the card; the
-    pool and q are drawn from ``seed``."""
+    pool and q are drawn from ``seed``. With ``int8`` the pool holds the
+    int8 codes and fp32 scales of float32 rows so drawn."""
+    from mxnet_tpu_torch.kernels.common import kv_quant
     gen = torch.Generator(device=device).manual_seed(seed)
-    pool = {n: randn(torch, (nb, bs, kvh, d), gen, device, dtype)
-            for n in ("k", "v")}
+    pool = {n: randn(torch, (nb, bs, kvh, d), gen, device,
+                     torch.float32 if int8 else dtype) for n in ("k", "v")}
+    if int8:
+        for n in ("k", "v"):
+            pool[n], pool[n + "s"] = kv_quant(pool[n])
     q = randn(torch, (len(pos), span, kvh * g, d), gen, device, dtype)
     return (q, pool, torch.from_numpy(tables.astype(np.int32)).to(device),
             torch.from_numpy(pos.astype(np.int32)).to(device))
 
 
 def paged_case(torch, device, dtype, span, g, seed, lanes=32, bs=16,
-               nbl=256, nb=SERVE["num_blocks"]):
+               nbl=256, nb=SERVE["num_blocks"], d=64, int8=False):
     """One check case at the served shapes (a pool of 2049 blocks,
     256-entry tables), made from ``seed``: each lane's table holds
     distinct blocks drawn for that lane alone, so lanes may share blocks
@@ -226,11 +263,12 @@ def paged_case(torch, device, dtype, span, g, seed, lanes=32, bs=16,
                        for _ in range(lanes)])
     pos = rng.randint(0, nbl * bs - span + 1, size=lanes)
     tables[0], pos[0] = 0, 0
-    return paged_tensors(torch, device, dtype, tables, pos, span, g, seed)
+    return paged_tensors(torch, device, dtype, tables, pos, span, g, seed,
+                         d=d, int8=int8)
 
 
 def full_pool_case(torch, device, dtype, seed, lanes=32, bs=16, nbl=256,
-                   nb=SERVE["num_blocks"]):
+                   nb=SERVE["num_blocks"], int8=False):
     """The served pool full, made from ``seed``: its nb - 1 usable blocks
     split among the lanes at random and dealt from one permutation, so
     each block sits in one lane's table only, as ContinuousBatcher maps
@@ -243,22 +281,26 @@ def full_pool_case(torch, device, dtype, seed, lanes=32, bs=16, nbl=256,
     for b, end in enumerate(np.cumsum(counts)):
         tables[b, :counts[b]] = perm[end - counts[b]:end]
     pos = counts * bs - 1 - rng.randint(0, bs, size=lanes)
-    return paged_tensors(torch, device, dtype, tables, pos, 1, 1, seed)
+    return paged_tensors(torch, device, dtype, tables, pos, 1, 1, seed,
+                         int8=int8)
 
 
 def paged_work(q, pool, tables, pos):
-    """(bytes, flops) the paged function needs on these inputs: every
-    pool cell some lane attends, read once (a cell two lanes share
-    counts once), q, the tables, pos and the output."""
+    """(bytes, operations) the paged function needs on these inputs:
+    every pool cell some lane attends, read once (a cell two lanes share
+    counts once) with all its leaves (K and V rows, and an int8 pool's
+    two fp32 scales: 2D + 8 bytes per KV head), q, the tables, pos and
+    the output."""
     lanes, span, h, d = q.shape
-    nb, bs, kvh, _ = pool["k"].shape
+    nb, bs = pool["k"].shape[:2]
     tables, pos = tables.cpu().numpy(), pos.cpu().numpy()
     used = np.zeros((nb, bs), bool)
     for b in range(lanes):
         t = np.arange(pos[b] + span)
         used[tables[b, t // bs], t % bs] = True
-    item = q.element_size()
-    nbytes = (2 * int(used.sum()) * kvh * d * item + 2 * q.numel() * item
+    cell = sum(leaf[0, 0].numel() * leaf.element_size()
+               for leaf in pool.values())
+    nbytes = (int(used.sum()) * cell + 2 * q.numel() * q.element_size()
               + 4 * tables.size + 4 * lanes)
     flops = 4 * int((pos + span).sum()) * span * h * d
     return nbytes, flops
@@ -276,6 +318,75 @@ def check_paged(torch, kernels, device):
             errs[(name, span, g)] = compare(
                 got, want, name,
                 "paged_decode %-8s span=%d G=%d" % (name, span, g))
+    return errs
+
+
+def int8_code_step(torch, q, pool, tables, pos):
+    """127 * as_ of every output row of the int8 plain version, as
+    [B, C, H, 1]: as_ is the row's probability scale (max over the
+    attended positions of a * vs, over 127), the step of one probability
+    code, and one code moves an element of its row by as_ * |v code| at
+    most. Computed here in the plain version's op order."""
+    import math
+    from mxnet_tpu_torch.kernels.common import NEG_INF, kv_quant
+    b, span, h, d = q.shape
+    bs, kvh = pool["k"].shape[1:3]
+    idx = tables.long()
+    t = tables.shape[1] * bs
+    kq = pool["k"][idx].reshape(b, t, kvh, d)
+    ks, vs = (pool[n][idx].reshape(b, t, kvh).transpose(1, 2)
+              [:, None, :, None, :] for n in ("ks", "vs"))
+    q8, qs = kv_quant(q.reshape(b, span, kvh, h // kvh, d))
+    s = torch.einsum("bckgd,btkd->bckgt", q8.double(), kq.double()).float()
+    s = s * qs[..., None] * ks / math.sqrt(d)
+    positions = pos.long()[:, None] + torch.arange(span, device=q.device)
+    mask = torch.arange(t, device=q.device) <= positions[:, :, None]
+    a = torch.softmax(torch.where(mask[:, :, None, None, :], s, NEG_INF), -1)
+    as_ = (a * vs).amax(dim=-1).clamp_min(1e-8) / 127
+    return (127 * as_).reshape(b, span, h, 1)
+
+
+def compare_int8(got, want, code_step, dtype_name, what):
+    """Hold the int8 kernel's output against its plain version: every
+    element within TOL plus one probability code of its row
+    (``code_step``), and at most INT8_CODE_SHARE of the elements beyond
+    TOL alone. Returns (max abs error, share beyond TOL)."""
+    atol, rtol = TOL[dtype_name]
+    want = want.float()
+    err = (got.float() - want).abs()
+    base = atol + rtol * want.abs()
+    worst = float((err / (base + code_step)).max())
+    share = float((err > base).float().mean())
+    log("%s: max abs err %.3g, worst err / (TOL + one code) = %.3f, share "
+        "of elements beyond TOL %.5f (limit %g; median code step %.3g)"
+        % (what, float(err.max()), worst, share, INT8_CODE_SHARE,
+           float(code_step.median())))
+    if not worst <= 1.0 or not share <= INT8_CODE_SHARE:
+        raise AssertionError("%s disagrees with its plain version" % what)
+    return float(err.max()), share
+
+
+def check_paged_int8(torch, kernels, device):
+    """The paged kernel's int8 mode on INT8_CHECKS, q in fp32 and bf16,
+    at the served pool and tables (an idle lane on the null table).
+    Returns the max abs errors by (dtype, span, G, head dim)."""
+    errs, shares = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        for span, g, d in INT8_CHECKS:
+            q, pool, tables, pos = paged_case(torch, device, dtype, span, g,
+                                              seed=60 + 10 * span + g, d=d,
+                                              int8=True)
+            got = kernels.paged_attention(q, pool, tables, pos)
+            want = kernels.paged_attention_reference(q, pool, tables, pos)
+            step = int8_code_step(torch, q, pool, tables, pos)
+            errs[(name, span, g, d)], share = compare_int8(
+                got, want, step, name, "paged_decode_int8 %-8s span=%d G=%d "
+                "D=%d" % (name, span, g, d))
+            shares.append(share)
+            del pool
+    log("paged_decode_int8: worst error %.3g, largest share on the code "
+        "allowance %.5f" % (max(errs.values()), max(shares)))
     return errs
 
 
@@ -390,25 +501,37 @@ def teacher_gap(torch, tf, params, cfg, streams, t_prompt):
     return worst
 
 
-def serve_jobs(cfg, n_new):
-    """The served job mix: SERVE["requests"] seeded prompts of
+def serve_jobs(cfg, n_new, spec=SERVE):
+    """The served job mix: spec["requests"] seeded prompts of
     prompt_lo-prompt_hi tokens, each asking for ``n_new`` tokens."""
     rng = np.random.RandomState(1)
     return [(list(rng.randint(0, cfg.vocab_size,
-                              rng.randint(SERVE["prompt_lo"],
-                                          SERVE["prompt_hi"] + 1))),
-             n_new) for _ in range(SERVE["requests"])]
+                              rng.randint(spec["prompt_lo"],
+                                          spec["prompt_hi"] + 1))),
+             n_new) for _ in range(spec["requests"])]
 
 
-def batcher(sv, params, cfg, device):
-    return sv.ContinuousBatcher(params, cfg, max_batch=SERVE["max_batch"],
-                                block_size=SERVE["block_size"],
-                                num_blocks=SERVE["num_blocks"], device=device)
+def batcher(sv, params, cfg, device, spec=SERVE):
+    return sv.ContinuousBatcher(params, cfg, max_batch=spec["max_batch"],
+                                block_size=spec["block_size"],
+                                num_blocks=spec["num_blocks"], device=device)
 
 
-def serve(torch, tf, sv, kernels, params, cfg, device):
-    jobs = serve_jobs(cfg, SERVE["n_new"])
-    srv = batcher(sv, params, cfg, device)
+def check_only(kernels, expect, what):
+    """Every kernel launched exactly as ``expect`` ({name: count}) says,
+    and no other kernel at all."""
+    got = {n: c for n, c in kernels.launches.items() if c}
+    if got != {n: c for n, c in expect.items() if c}:
+        raise AssertionError("%s launched %s, not %s" % (what, got, expect))
+
+
+def serve(torch, tf, sv, kernels, params, cfg, device, kernel, label="serve",
+          spec=SERVE):
+    """Serve spec's job mix through the batcher: each decode step must
+    launch ``kernel`` once per layer and nothing else; every stream must
+    pass the teacher-forced check."""
+    jobs = serve_jobs(cfg, spec["n_new"], spec)
+    srv = batcher(sv, params, cfg, device, spec)
     kernels.launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -422,23 +545,23 @@ def serve(torch, tf, sv, kernels, params, cfg, device):
         t0 = time.perf_counter()
         results.update(srv.step())
         step_s.append(time.perf_counter() - t0)
-    launches = kernels.launches["paged_decode"]
+    launches = kernels.launches[kernel]
+    steps = srv.dispatch_count
+    check_only(kernels, {kernel: cfg.n_layers * steps}, label)
     srv.check_invariants(quiesce=True)
     for rid, (prompt, n_new) in zip(rids, jobs):
         if len(results[rid]) != len(prompt) + n_new \
                 or results[rid][:len(prompt)] != prompt:
             raise AssertionError("request %d: wrong stream" % rid)
-    steps = srv.dispatch_count
-    if steps < SERVE["n_new"] - 1 or launches < cfg.n_layers * steps:
-        raise AssertionError("paged kernel launched %d times in %d decode "
-                             "steps of %d layers" % (launches, steps,
-                                                     cfg.n_layers))
+    if steps < spec["n_new"] - 1:
+        raise AssertionError("%d decode steps for %d new tokens"
+                             % (steps, spec["n_new"]))
     gap = teacher_gap(torch, tf, params, cfg, [results[r] for r in rids],
                       [len(p) for p, _ in jobs])
-    log("serve: %d requests, %d decode steps, paged_decode launches %d, "
-        "admission %.3f s, decode step %.3f ms (mean), teacher-forced max "
-        "gap %.4f (tol %g)" % (len(jobs), steps, launches, t_admit,
-                              1e3 * np.mean(step_s), gap, TOL_TEACHER))
+    log("%s: %d requests, %d decode steps, %s launches %d, admission "
+        "%.3f s, decode step %.3f ms (mean), teacher-forced max gap %.4f "
+        "(tol %g)" % (label, len(jobs), steps, kernel, launches, t_admit,
+                      1e3 * np.mean(step_s), gap, TOL_TEACHER))
     if not gap <= TOL_TEACHER:
         raise AssertionError("served tokens disagree with the "
                              "teacher-forced logits")
@@ -446,22 +569,23 @@ def serve(torch, tf, sv, kernels, params, cfg, device):
             "step_ms": 1e3 * float(np.mean(step_s))}
 
 
-def run_generate(torch, tf, kernels, params, cfg, device):
+def run_generate(torch, tf, kernels, params, cfg, device, expect,
+                 label="generate"):
+    """Greedy generate() at GENERATE's batch: the launches must be exactly
+    ``expect(n_layers, decode steps)`` ({kernel: count}); every token must
+    pass the teacher-forced check."""
     rng = np.random.RandomState(2)
     b, t_p, n_new = GENERATE["batch"], GENERATE["prompt"], GENERATE["n_new"]
     prompt = rng.randint(0, cfg.vocab_size, (b, t_p)).astype(np.int32)
     kernels.launches.clear()
     out = tf.generate(params, prompt, n_new, cfg, device=device)
     torch.cuda.synchronize()
-    launches = kernels.launches["flash_decode"]
+    launches = dict(kernels.launches)
+    check_only(kernels, expect(cfg.n_layers, n_new - 1), label)
     out = out.cpu().numpy()
     if out.shape != (b, t_p + n_new) or not (out[:, :t_p] == prompt).all() \
             or out.min() < 0 or out.max() >= cfg.vocab_size:
-        raise AssertionError("generate() returned a malformed batch")
-    if launches < cfg.n_layers * (n_new - 1):
-        raise AssertionError("flash_decode launched %d times for %d decode "
-                             "steps of %d layers" % (launches, n_new - 1,
-                                                     cfg.n_layers))
+        raise AssertionError("%s returned a malformed batch" % label)
     gap = teacher_gap(torch, tf, params, cfg, [list(r) for r in out],
                       [t_p] * b)
     # ms per decode step: the 32-token call less the prefill-only call
@@ -473,13 +597,53 @@ def run_generate(torch, tf, kernels, params, cfg, device):
         torch.cuda.synchronize()
         times[n] = time.perf_counter() - t0
     step_ms = 1e3 * (times[n_new] - times[1]) / (n_new - 1)
-    log("generate: batch %d, prompt %d, %d new tokens, flash_decode "
-        "launches %d, decode step %.3f ms, teacher-forced max gap %.4f "
-        "(tol %g)" % (b, t_p, n_new, launches, step_ms, gap, TOL_TEACHER))
+    log("%s: batch %d, prompt %d, %d new tokens, launches %s, decode step "
+        "%.3f ms, teacher-forced max gap %.4f (tol %g)"
+        % (label, b, t_p, n_new, launches, step_ms, gap, TOL_TEACHER))
     if not gap <= TOL_TEACHER:
         raise AssertionError("generated tokens disagree with the "
                              "teacher-forced logits")
-    return {"launches": launches, "steps": n_new - 1, "step_ms": step_ms}
+    return {"launches": launches.get("flash_decode", 0), "steps": n_new - 1,
+            "step_ms": step_ms}
+
+
+def flash_generate(n_layers, steps):
+    """generate()'s launches with use_flash_kernel: the prompt through the
+    flash forward once per layer, each decode step through flash decode
+    once per layer."""
+    return {"flash_fwd": n_layers, "flash_decode": n_layers * steps}
+
+
+def serve_int8(torch, tf, sv, kernels, device):
+    """SERVE_CFG with an int8 KV cache, bf16: the batcher through the
+    paged kernel's int8 mode, and generate() through the dense int8
+    contraction (no kernel); the pools' bytes beside bf16's."""
+    cfg = tf.TransformerConfig(dtype=torch.bfloat16, kv_cache_int8=True,
+                               **SERVE_CFG)
+    params = tf.init_params(cfg, seed=0, device=device)
+    nb, bs = SERVE["num_blocks"], SERVE["block_size"]
+    bf16 = dataclasses.replace(cfg, kv_cache_int8=False)
+    log("int8 KV pool %d bytes, bf16 pool %d bytes (%.3f of it)" % (
+        tf.paged_cache_nbytes(cfg, nb, bs), tf.paged_cache_nbytes(bf16, nb, bs),
+        tf.paged_cache_nbytes(cfg, nb, bs) / tf.paged_cache_nbytes(bf16, nb,
+                                                                   bs)))
+    served = serve(torch, tf, sv, kernels, params, cfg, device,
+                   "paged_decode_int8", "serve int8")
+    run_generate(torch, tf, kernels, params, cfg, device, lambda n, s: {},
+                 "generate int8")
+    return served, params, cfg
+
+
+def serve_rope(torch, tf, sv, kernels, device):
+    """TRAIN_CFG's RoPE model served in bf16: generate() through the flash
+    forward and flash decode, and ROPE_SERVE's requests through the
+    batcher and the paged kernel at head dim 128."""
+    cfg = tf.TransformerConfig(dtype=torch.bfloat16, **TRAIN_CFG)
+    params = tf.init_params(cfg, seed=0, device=device)
+    run_generate(torch, tf, kernels, params, cfg, device, flash_generate,
+                 "generate rope")
+    serve(torch, tf, sv, kernels, params, cfg, device, "paged_decode",
+          "serve rope", ROPE_SERVE)
 
 
 # ------------------------------------------------------------ training ---
@@ -596,6 +760,19 @@ def time_paged(torch, F, kernels, device):
                                                          attn_mask=mask), 20)
     nbytes, flops = paged_work(q, pool, tables, pos)
     return ms, plain, lib, bound_ms(nbytes, flops, "bfloat16")
+
+
+def time_paged_int8(torch, F, kernels, device):
+    """The int8 mode on the same full pool (seed 11 rows, quantised), q
+    in bf16. No single PyTorch call computes int8 x int8 attention, so
+    it has no library time."""
+    q, pool, tables, pos = full_pool_case(torch, device, torch.bfloat16,
+                                          seed=11, int8=True)
+    ms = time_ms(lambda: kernels.paged_attention(q, pool, tables, pos), 20)
+    plain = time_ms(
+        lambda: kernels.paged_attention_reference(q, pool, tables, pos), 5)
+    nbytes, ops = paged_work(q, pool, tables, pos)
+    return ms, plain, None, bound_ms(nbytes, ops, "int8")
 
 
 def time_flash(torch, F, kernels, device):
@@ -731,16 +908,23 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
             "%s %.3f" % kv for kv in by_kind.most_common()))
 
 
-def profile_decode(torch, tf, sv, params, cfg, device):
-    """Where a decode step's time goes: the serve job mix on 16 lanes of
-    32, then generate()'s decode step at batch 8 after a 256-token
-    prefill, each warmed up by two steps."""
+def profile_serve(torch, sv, params, cfg, device, what):
+    """Where a serve step's time goes: the serve job mix on 16 lanes of
+    32, warmed up by two steps."""
     srv = batcher(sv, params, cfg, device)
     for prompt, n_new in serve_jobs(cfg, 2 * PROFILE_STEPS + 4):
         srv.admit(prompt, n_new)
     for _ in range(2):
         srv.step()
-    profile_steps(torch, "serve step, 16 live lanes of 32", srv.step)
+    profile_steps(torch, what, srv.step)
+
+
+def profile_decode(torch, tf, sv, params, cfg, device):
+    """Where a decode step's time goes: the serve job mix on 16 lanes of
+    32, then generate()'s decode step at batch 8 after a 256-token
+    prefill, each warmed up by two steps."""
+    profile_serve(torch, sv, params, cfg, device,
+                  "serve step, 16 live lanes of 32")
 
     b, t_p = GENERATE["batch"], GENERATE["prompt"]
     prompt = torch.from_numpy(np.random.RandomState(2).randint(
@@ -765,10 +949,12 @@ def profile_decode(torch, tf, sv, params, cfg, device):
 # -------------------------------------------------------------- sweep ---
 
 def sweep(torch, F, kernels, device, kvh=8, d=64, bs=16):
-    """Both kernels and the yardstick with every lane at one length, in
-    bfloat16, over lane counts and lengths. The time follows the total
+    """The decode kernels and the yardstick with every lane at one
+    length, in bfloat16 (and the paged kernel on the same rows quantised
+    to int8), over lane counts and lengths. The time follows the total
     bytes where bandwidth limits a kernel, and the per-lane length at a
     fixed lane count where one CTA's walk along its lane does."""
+    from mxnet_tpu_torch.kernels.common import kv_quant
     gen = torch.Generator(device=device).manual_seed(3)
 
     def rand(*shape):
@@ -796,12 +982,19 @@ def sweep(torch, F, kernels, device, kvh=8, d=64, bs=16):
             qp = q[:, None]
             paged = time_ms(
                 lambda: kernels.paged_attention(qp, pool, tables, pos), 20)
-            del pool
-            bound, _ = bound_ms(2 * lanes * length * kvh * d * 2,
-                                4 * lanes * length * kvh * d, "bfloat16")
+            pool8 = {}
+            for n in "kv":
+                pool8[n], pool8[n + "s"] = kv_quant(pool.pop(n))
+            paged8 = time_ms(
+                lambda: kernels.paged_attention(qp, pool8, tables, pos), 20)
+            del pool8
+            cells = lanes * length * kvh
+            bound, _ = bound_ms(2 * cells * d * 2, 4 * cells * d, "bfloat16")
+            bound8, _ = bound_ms(cells * (2 * d + 8), 4 * cells * d, "int8")
             log("sweep %3d lanes x %4d: flash_decode %.4f ms, paged_decode "
-                "%.4f ms, sdpa %.4f ms, bound %.4f ms"
-                % (lanes, length, flash, paged, lib, bound))
+                "%.4f ms (bound %.4f), paged_decode_int8 %.4f ms (bound "
+                "%.4f), sdpa %.4f ms"
+                % (lanes, length, flash, paged, bound, paged8, bound8, lib))
 
 
 def train_sweep(torch, F, kernels, device, tokens=8192, h=8, d=128):
@@ -871,13 +1064,20 @@ def main():
     log("kernels built in %.1f s" % (time.perf_counter() - t0))
 
     paged_errs = check_paged(torch, kernels, device)
+    int8_errs = check_paged_int8(torch, kernels, device)
+    torch.cuda.empty_cache()
     flash_errs = check_flash(torch, kernels, device)
     train_errs = check_flash_attention(torch, kernels, device)
 
     cfg = tf.TransformerConfig(dtype=torch.bfloat16, **SERVE_CFG)
     params = tf.init_params(cfg, seed=0, device=device)
-    served = serve(torch, tf, sv, kernels, params, cfg, device)
-    generated = run_generate(torch, tf, kernels, params, cfg, device)
+    served = serve(torch, tf, sv, kernels, params, cfg, device,
+                   "paged_decode")
+    generated = run_generate(torch, tf, kernels, params, cfg, device,
+                             flash_generate)
+    served8, params8, cfg8 = serve_int8(torch, tf, sv, kernels, device)
+    serve_rope(torch, tf, sv, kernels, device)
+    torch.cuda.empty_cache()
 
     train_equivalence(torch, tf, kernels, device)
     torch.cuda.empty_cache()
@@ -887,13 +1087,16 @@ def main():
     for name, timing, run, err in (
             ("paged_decode", time_paged, served,
              paged_errs[("bfloat16", 1, 1)]),
+            ("paged_decode_int8", time_paged_int8, served8,
+             int8_errs[("bfloat16", 1, 1, 64)]),
             ("flash_decode", time_flash, generated,
              flash_errs[("bfloat16", 1)])):
         ms, plain, lib, (bound, bound_by) = timing(torch, F, kernels,
                                                    device)
-        log("%s: %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms, "
+        log("%s: %.4f ms, plain %.4f ms, sdpa %s ms, bound %.4f ms, "
             "%.2f launches per decode step"
-            % (name, ms, plain, lib, bound, run["launches"] / run["steps"]))
+            % (name, ms, plain, "-" if lib is None else "%.4f" % lib, bound,
+               run["launches"] / run["steps"]))
         rows.append({"name": name, "route": "cuda", "source": SOURCE[name],
                      "replaces": REPLACES[name],
                      "launches": run["launches"], "max_abs_err": err,
@@ -918,6 +1121,9 @@ def main():
     log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms"
         % (served["step_ms"], generated["step_ms"], trained["step_ms"]))
     profile_decode(torch, tf, sv, params, cfg, device)
+    profile_serve(torch, sv, params8, cfg8, device,
+                  "int8 serve step, 16 live lanes of 32")
+    del params8
     profile_steps(torch, "train step, bf16, batch 8 x 1024",
                   lambda: trained["step"](trained["params"], trained["mom"],
                                           trained["tokens"]),

@@ -3,8 +3,10 @@
 The JAX package stays the reference; each module here is named after its
 counterpart there. The port so far carries the transformer: its serving
 path (the paged continuous-batching server in ``models.serving`` and
-greedy ``generate()`` in ``models.transformer``), with the two
-decode-attention kernels written in CUDA C++ (``csrc/decode_attention.cu``),
+greedy ``generate()`` in ``models.transformer``, with RoPE and int8 KV
+caches), with the decode-attention kernels written in CUDA C++
+(``csrc/decode_attention.cu``: paged decode in fp32/bf16 and int8, and
+flash decode),
 and its training path (``forward``, ``loss_fn`` and ``make_train_step``
 in ``models.transformer``), with the flash-attention forward and
 backward kernels (``csrc/flash_attention.cu``). Importing the package

@@ -39,6 +39,9 @@ SIGNATURES = {
         # dtype, q, kpool, vpool, tables, pos, out,
         # b, kvh, d, bs, nbl, span, g, stream
         "paged_decode": [_c_int] + [_ptr] * 6 + [_c_int] * 7 + [_ptr],
+        # dtype, q, kpool, vpool, ks, vs, tables, pos, out,
+        # b, kvh, d, bs, nbl, span, g, stream
+        "paged_decode_int8": [_c_int] + [_ptr] * 8 + [_c_int] * 7 + [_ptr],
         # dtype, q, k, v, lengths, out, lse, b, kvh, tmax, d, g, stream
         "flash_decode": [_c_int] + [_ptr] * 6 + [_c_int] * 5 + [_ptr],
     },

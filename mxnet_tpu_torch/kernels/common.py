@@ -1,8 +1,11 @@
 """Shared plumbing of the decode kernels: the mask value and the block
 rules, kept from the JAX package's ``kernels/common.py`` so the port
-needs nothing of it. The TPU layout rule for row statistics (128 equal
-lanes) has no counterpart here: the CUDA kernels keep their statistics in
-registers and shared memory."""
+needs nothing of it, and the int8 KV quantiser with the one int8 cache
+contraction (``models/transformer.py``'s ``_kv_quant``, ``_kv_dequant``
+and ``_int8_cache_attention`` in the JAX package), shared by the model
+and the paged kernel's plain version. The TPU layout rule for row
+statistics (128 equal lanes) has no counterpart here: the CUDA kernels
+keep their statistics in registers and shared memory."""
 
 import math
 import warnings
@@ -45,6 +48,57 @@ def choose_block_k(t_max, candidates=(512, 256, 128), multiple=1):
     choice = next((bb for bb in candidates
                    if bb % multiple == 0 and t_max % bb == 0), t_max)
     return min(choice, t_max)
+
+
+def _f32(value, like):
+    """``value`` as a 0-dim fp32 tensor on ``like``'s device. Dividing by
+    it is a true division on CUDA too, where a Python number as divisor
+    becomes a product with its rounded reciprocal."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def kv_quant(x):
+    """Symmetric int8 over the last axis: x [..., D] -> (codes int8
+    [..., D], scale fp32 [...]). In fp32: scale = max(max|x|, 1e-8) / 127,
+    codes = clip(round(x / scale), -127, 127) with true divisions and
+    round half to even, as the JAX package's ``_kv_quant``."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / _f32(127.0, x)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequant(q8, scale, dtype):
+    return (q8.float() * scale[..., None]).to(dtype)
+
+
+def int8_cache_attention(qg, layer_cache, mask, out_dtype):
+    """The one int8 cache contraction (decode is its C=1 case): qg
+    [B, C, KVH, G, D] float against cache codes [B, T, KVH, D] int8 with
+    scale planes ``ks``/``vs`` [B, T, KVH]; mask [B|1, C, T] marks the
+    attendable positions. q is quantised per call; the scores are
+    s * qs * ks / sqrt(D), masked, softmaxed; a * vs is re-quantised with
+    each row's own scale and contracted with the V codes; the integer
+    sum times that scale is cast to ``out_dtype``.
+
+    Both integer dots must be exact, as the JAX package's int8 x int8 ->
+    int32 products are. torch's einsum on int8 returns int8 and wraps,
+    and CUDA has no int32 batched matmul; fp32 holds QK^T exactly
+    (|s| <= 127^2 D < 2^24) but not PV (127^2 T reaches 2^24 at
+    T = 1040). So both dots run in float64, exact below 2^53, i.e. for
+    T < 2^53 / 127^2 ~ 5.6e11 positions."""
+    kq, ks = layer_cache["k"], layer_cache["ks"]
+    vq, vs = layer_cache["v"], layer_cache["vs"]
+    dh = qg.shape[-1]
+    q8, qs = kv_quant(qg)
+    s = torch.einsum("bckgd,btkd->bckgt", q8.double(), kq.double()).float()
+    s = s * qs[..., None] * ks.transpose(1, 2)[:, None, :, None, :] \
+        / _f32(math.sqrt(dh), qg)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    a = torch.softmax(s, dim=-1)
+    a8, as_ = kv_quant(a * vs.transpose(1, 2)[:, None, :, None, :])
+    o = torch.einsum("bckgt,btkd->bckgd", a8.double(), vq.double()).float()
+    return (o * as_[..., None]).to(out_dtype)
 
 
 def check_cuda_inputs(tensors, int_tensors, head_dim, rows):

@@ -2,22 +2,26 @@
 ``mxnet_tpu/kernels/paged_decode.py``).
 
 ``paged_attention`` reads one layer's block pool through per-lane block
-tables for a whole batch of lanes. On CUDA tensors it launches the
-``paged_decode`` kernel of ``csrc/decode_attention.cu``, which replaces
-the TPU kernel ``_paged_kernel``: one CTA per (lane, KV head) walks only
-the lane's live positions, reads each table entry itself, and packs the
-G query heads of a KV head (times the span) as rows ``r = c*G + g`` so
-each cache row is read once per group. Its bound is the live K/V bytes
+tables for a whole batch of lanes. On CUDA tensors it launches a kernel
+of ``csrc/decode_attention.cu`` that replaces the TPU kernel
+``_paged_kernel``: ``paged_decode`` for float32/bfloat16 pools, and
+``paged_decode_int8`` for int8 pools with fp32 scale planes (the TPU
+kernel's ``int8=True`` mode). One CTA per (lane, KV head) walks only the
+lane's live positions, reads each table entry itself, and packs the G
+query heads of a KV head (times the span) as rows ``r = c*G + g`` so each
+cache row is read once per group. Its bound is the live K/V bytes
 (about G flops per byte of bf16 cache); it reads K twice and V once
-because the reference rounds the normalised probabilities to the cache
-dtype before PV, which needs the row statistics before any probability
-exists.
+because the reference quantises the normalised probabilities (rounds
+them to the cache dtype, or re-quantises them to int8 codes with the
+row's own scale) before PV, which needs the row statistics before any
+probability exists.
 
 ``paged_attention_reference`` is the plain version, and what the CPU
 runs: gather the pool through the tables into the dense [B, T] layout,
-masked grouped softmax, normalised probabilities cast to the cache
-dtype, PV accumulated in fp32 — the op order of the JAX package's
-``decode_step_paged`` / ``verify_chunk_paged`` gather path.
+then the dense contraction of the JAX package's ``decode_step_paged`` /
+``verify_chunk_paged`` gather path — the masked grouped softmax with the
+probabilities cast to the cache dtype and PV accumulated in fp32, or,
+for an int8 pool, ``common.int8_cache_attention``.
 """
 
 import math
@@ -25,25 +29,37 @@ import math
 import torch
 
 from . import _build
-from .common import DTYPE_CODE, NEG_INF, check_cuda_inputs
+from .common import (DTYPE_CODE, NEG_INF, check_cuda_inputs,
+                     int8_cache_attention)
 
 __all__ = ["paged_attention", "paged_attention_reference"]
+
+
+def _gather(layer_pool, tables):
+    """Every leaf of one layer's pool gathered through the tables into the
+    dense [B, NB_lane * bs, ...] layout, in position order."""
+    b, nbl = tables.shape
+    idx = tables.long()
+    return {name: leaf[idx].reshape((b, nbl * leaf.shape[1])
+                                    + tuple(leaf.shape[2:]))
+            for name, leaf in layer_pool.items()}
 
 
 def paged_attention_reference(q, layer_pool, tables, pos):
     """Plain PyTorch version of :func:`paged_attention` (same contract)."""
     b, span, h, d = q.shape
-    kpool, vpool = layer_pool["k"], layer_pool["v"]
-    _, bs, kvh, _ = kpool.shape
+    kvh = layer_pool["k"].shape[2]
     g = h // kvh
-    t = tables.shape[1] * bs
-    idx = tables.long()
-    ck = kpool[idx].reshape(b, t, kvh, d)
-    cv = vpool[idx].reshape(b, t, kvh, d)
+    att = _gather(layer_pool, tables)
+    t = att["k"].shape[1]
     positions = pos.long()[:, None] + torch.arange(span, device=q.device)
     mask = torch.arange(t, device=q.device)[None, None, :] \
         <= positions[:, :, None]                              # [B, C, T]
     qg = q.reshape(b, span, kvh, g, d)
+    if "ks" in layer_pool:
+        return int8_cache_attention(qg, att, mask, q.dtype).reshape(
+            b, span, h, d)
+    ck, cv = att["k"], att["v"]
     s = torch.einsum("bckgd,btkd->bckgt", qg.float(), ck.float()) \
         / math.sqrt(d)
     s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
@@ -53,12 +69,28 @@ def paged_attention_reference(q, layer_pool, tables, pos):
     return o.to(q.dtype).reshape(b, span, h, d)
 
 
+def _check_int8_pool(layer_pool):
+    kpool, vpool = layer_pool["k"], layer_pool["v"]
+    ks, vs = layer_pool["ks"], layer_pool["vs"]
+    if kpool.dtype != torch.int8 or vpool.dtype != torch.int8:
+        raise TypeError("an int8 pool holds int8 codes, not %s / %s"
+                        % (kpool.dtype, vpool.dtype))
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise TypeError("an int8 pool's scale planes are float32")
+    if ks.shape != kpool.shape[:3] or vs.shape != kpool.shape[:3]:
+        raise ValueError("scale planes %s / %s do not match the pool %s"
+                         % (tuple(ks.shape), tuple(vs.shape),
+                            tuple(kpool.shape)))
+
+
 def paged_attention(q, layer_pool, tables, pos):
     """Attention of a batch of lanes straight against one layer's pool.
 
     q: [B, C, H, D] — C=1 is plain decode, C=k+1 the speculative verify
     window (row (b, c) holds the query at stream position pos[b]+c).
-    layer_pool: {"k", "v": [NB, bs, KVH, D]}, float32 or bfloat16 like q.
+    layer_pool: {"k", "v": [NB, bs, KVH, D]}, float32 or bfloat16 like q;
+    or, for an int8 KV pool (detected by key, as every pool consumer
+    does), int8 codes plus {"ks", "vs": [NB, bs, KVH]} float32 scales.
     tables: [B, NB_lane] int32; entry j covers positions [j*bs, (j+1)*bs),
     unallocated entries point at the null block 0.
     pos: [B] int32 (or a scalar, broadcast) — row (b, c) attends pool
@@ -66,10 +98,7 @@ def paged_attention(q, layer_pool, tables, pos):
 
     Returns [B, C, H, D] in q.dtype.
     """
-    if "ks" in layer_pool:
-        raise NotImplementedError(
-            "int8 KV pools (the paged kernel's int8 mode) arrive with the "
-            "int8-KV slice")
+    int8 = "ks" in layer_pool
     kpool, vpool = layer_pool["k"], layer_pool["v"]
     if q.dim() != 4 or kpool.dim() != 4 or tables.dim() != 2:
         raise ValueError("q must be [B, C, H, D], pools [NB, bs, KVH, D] "
@@ -83,21 +112,47 @@ def paged_attention(q, layer_pool, tables, pos):
         raise ValueError("shape mismatch: q %s, pools %s / %s, tables %s"
                          % (tuple(q.shape), tuple(kpool.shape),
                             tuple(vpool.shape), tuple(tables.shape)))
+    if int8:
+        _check_int8_pool(layer_pool)
     pos = torch.as_tensor(pos, dtype=torch.int32,
                           device=q.device).expand(b).contiguous()
     if q.device.type == "cpu":
         return paged_attention_reference(q, layer_pool, tables, pos)
     g = h // kvh
-    check_cuda_inputs((q, kpool, vpool, tables, pos), (tables, pos), d,
-                      span * g)
     out = torch.empty_like(q)
     lib = _build.load("decode_attention")
+    stream = _build.current_stream_ptr(q.device)
+    if int8:
+        check_cuda_inputs((q, tables, pos), (tables, pos), d, span * g)
+        _check_int8_leaves(layer_pool, q.device, d)
+        status = lib.paged_decode_int8(
+            DTYPE_CODE[q.dtype], q.data_ptr(), kpool.data_ptr(),
+            vpool.data_ptr(), layer_pool["ks"].data_ptr(),
+            layer_pool["vs"].data_ptr(), tables.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), b, kvh, d, bs, tables.shape[1], span, g, stream)
+        _build.check(status, "paged_decode_int8")
+        _build.launches["paged_decode_int8"] += 1
+        return out
+    check_cuda_inputs((q, kpool, vpool, tables, pos), (tables, pos), d,
+                      span * g)
     status = lib.paged_decode(
         DTYPE_CODE[q.dtype], q.data_ptr(), kpool.data_ptr(),
         vpool.data_ptr(), tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, kvh, d, bs, tables.shape[1], span, g,
-        _build.current_stream_ptr(q.device))
+        out.data_ptr(), b, kvh, d, bs, tables.shape[1], span, g, stream)
     _build.check(status, "paged_decode")
     _build.launches["paged_decode"] += 1
     return out
 
+
+def _check_int8_leaves(layer_pool, device, d):
+    """The int8 kernel's own rules for a pool's leaves: contiguous, on
+    ``device`` and 16-byte aligned, with a head dim of 8 codes a thread
+    (one 8-byte load of a key row each, a power of two of them)."""
+    if d % 8 or d // 8 & (d // 8 - 1):
+        raise ValueError("head dim %d is not supported by the int8 paged "
+                         "kernel" % d)
+    for name, t in layer_pool.items():
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the int8 paged kernel takes contiguous, "
+                             "16-byte aligned pool leaves on %s (%s)"
+                             % (device, name))

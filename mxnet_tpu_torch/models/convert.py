@@ -6,18 +6,26 @@ The JAX package keeps the transformer's parameters as a tree of arrays
 ...]}) and its momentum as a tree of the same shape in fp32; the port
 keeps the parameters in a :class:`~.transformer.TransformerLM` with the
 same names and shapes, and the momentum as a dict by parameter name
-(``init_momentum``). The trees cross as numpy arrays, so this module
-imports nothing of JAX.
+(``init_momentum``). Serving state crosses too: per-layer KV caches and
+block pools, [{"k", "v"}, ...] or, under int8 KV, [{"k", "ks", "v",
+"vs"}, ...] in both packages. Everything crosses as numpy arrays, so this
+module imports nothing of JAX.
 """
 
 import numpy as np
 import torch
 
+from ..context import resolve_device
 from .transformer import (TransformerLM, flatten_tree, load_numpy_tree,
                           numpy_to_tensor, unflatten_tree)
 
 __all__ = ["params_from_jax", "params_to_numpy", "momentum_from_jax",
-           "momentum_to_numpy"]
+           "momentum_to_numpy", "cache_from_jax", "cache_to_numpy"]
+
+# dtypes a cache leaf may have, by numpy name
+_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int8": torch.int8}
+_CACHE_KEYS = ({"k", "v"}, {"k", "ks", "v", "vs"})
 
 
 def _numpy(t):
@@ -62,3 +70,34 @@ def momentum_to_numpy(momentum):
     """The inverse: the port's momentum as a JAX-shaped tree of fp32
     numpy arrays."""
     return unflatten_tree({n: _numpy(m) for n, m in momentum.items()})
+
+
+def cache_from_jax(cache, device=None):
+    """The JAX package's per-layer KV caches or block pools (numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, cache)``) as the port's: tensors of
+    the same names, shapes and dtypes (float32, bfloat16, or int8 codes
+    with float32 scales) on ``device``, the current CUDA device by
+    default."""
+    device = resolve_device(device)
+    out = []
+    for layer in cache:
+        if set(layer) not in _CACHE_KEYS:
+            raise ValueError("a cache layer holds k, v (and ks, vs under "
+                             "int8 KV), not %s" % sorted(layer))
+        leaves = {}
+        for name, arr in layer.items():
+            dtype = _CACHE_DTYPES.get(np.asarray(arr).dtype.name)
+            if dtype is None:
+                raise TypeError("cache leaf %s has dtype %s"
+                                % (name, np.asarray(arr).dtype))
+            leaves[name] = numpy_to_tensor(arr, dtype, device)
+        out.append(leaves)
+    return out
+
+
+def cache_to_numpy(cache):
+    """The inverse: the port's caches or pools as lists of dicts of numpy
+    arrays (bfloat16 leaves come back as float32, which holds them
+    exactly)."""
+    return [{name: _numpy(leaf) for name, leaf in layer.items()}
+            for layer in cache]

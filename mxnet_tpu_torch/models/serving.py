@@ -13,7 +13,10 @@ package compiles one program per bucket; the port keeps the widths so
 both write the same cache rows). Pad rows past the prompt are written
 into whole pool blocks and overwritten by decode before attention can
 reach them. A freed lane keeps decoding at position 0 through an
-all-null table, writing garbage into the null block.
+all-null table, writing garbage into the null block. RoPE models and
+int8 KV pools are served as they are: admission copies every leaf of the
+prefilled row cache into whole blocks by name, so an int8 pool's scale
+planes follow its codes.
 
 Not ported yet, each raising NotImplementedError: sampling, chunked and
 pipelined dispatch, speculative decoding, prefix caching and the

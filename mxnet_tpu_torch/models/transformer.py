@@ -20,11 +20,18 @@ backward kernels in ``_causal_attention`` whenever
 ``cfg.use_flash_kernel`` (training, prefill, and ``generate()``'s
 prompt), the dense-cache flash-decode kernel in ``decode_step`` with the
 same flag, and the paged kernel in ``decode_step_paged`` (always, on
-CUDA tensors).
+CUDA tensors; its int8 mode for an int8 KV pool).
+
+Every serving path carries RoPE (keys are cached rotated) and int8 KV
+caches (int8 codes plus fp32 scale planes ``ks``/``vs`` per position and
+KV head, quantised on the way in). Under int8 every cache read goes
+through the one int8 contraction ``_int8_cache_attention``, and
+``prefill`` delegates to ``prefill_chunk``, so solo ``generate()`` and
+the batcher's admission read the prompt through the same quantiser.
 
 Not ported yet; each raises NotImplementedError where it would be asked
-for: meshes and pipeline stages, RoPE and int8 KV in the decode paths,
-int8 weight trees, sampling and speculative verification.
+for: meshes and pipeline stages, int8 weight trees, sampling and
+speculative verification.
 """
 
 import dataclasses
@@ -38,6 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..context import resolve_device
 from ..kernels.common import NEG_INF
+from ..kernels.common import int8_cache_attention as _int8_cache_attention
+from ..kernels.common import kv_dequant as _kv_dequant  # noqa: F401
+from ..kernels.common import kv_quant as _kv_quant
 from ..kernels.flash_attention import flash_attention, flash_decode
 from ..kernels.paged_decode import paged_attention
 
@@ -61,34 +71,31 @@ class TransformerConfig:
     dtype: torch.dtype = torch.float32
     pp_axis: str = None         # pipeline stages: not ported yet
     # rotary positions on q/k instead of the learned `pos` table (which a
-    # rope model does not carry); training only in this port so far
+    # rope model does not carry), in training and every serving path;
+    # caches hold the keys rotated
     rope: bool = False
     rope_base: float = 10000.0
     # attention through the hand-written flash kernels: the training
     # forward/backward and prefill, and decode_step's flash-decode kernel
+    # (not under kv_cache_int8, whose dense decode is the int8 contraction)
     use_flash_kernel: bool = False
     # activation recompute: backward re-runs each layer from its input
     # (torch.utils.checkpoint, non-reentrant) instead of storing it
     remat_layers: bool = False
-    kv_cache_int8: bool = False  # not ported yet
+    # int8 KV caches and pools: int8 codes plus fp32 scales per position
+    # and KV head; the paged kernel reads them in its int8 mode
+    kv_cache_int8: bool = False
 
 
-# config fields a path does not carry yet, and the slice that brings each
-_LATER_TRAIN = (
+# config fields the port does not carry yet, and the slice that brings each
+_LATER = (
     ("pp_axis", "pipeline stages arrive with the parallel slice (A7)"),
 )
-_LATER_SERVE = _LATER_TRAIN + (
-    ("rope", "RoPE in the decode paths arrives with the RoPE/int8-KV slice "
-             "(A3)"),
-    ("kv_cache_int8", "int8 KV caches arrive with the RoPE/int8-KV slice "
-                      "(A3)"),
-)
 
 
-def _check_supported(cfg, serving=True):
-    """Raise for a config field the serving (or, with ``serving=False``,
-    the training) path of this port does not carry yet."""
-    for name, later in _LATER_SERVE if serving else _LATER_TRAIN:
+def _check_supported(cfg):
+    """Raise for a config field this port does not carry yet."""
+    for name, later in _LATER:
         if getattr(cfg, name):
             raise NotImplementedError("%s=%r: %s" % (name, getattr(cfg, name),
                                                       later))
@@ -145,7 +152,7 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_supported(cfg, serving=False)
+        _check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         d = cfg.d_model
@@ -230,7 +237,7 @@ def init_params(cfg, seed=0, device=None):
     """Seeded random parameters as a :class:`TransformerLM` — the same
     numpy ``RandomState`` draws, in the same order, as the JAX package's
     ``init_params``, so one seed gives the same weights in both."""
-    _check_supported(cfg, serving=False)
+    _check_supported(cfg)
     rng = np.random.RandomState(seed)
     d, h, kvh = cfg.d_model, cfg.n_heads, _kvh(cfg)
     hd = d // h
@@ -369,7 +376,7 @@ def forward(params, tokens, cfg, mesh=None):
     """tokens [B, T] int -> logits [B, T, vocab]. With
     ``cfg.remat_layers`` each layer is checkpointed: backward re-runs it
     from its input instead of keeping its activations."""
-    _check_supported(cfg, serving=False)
+    _check_supported(cfg)
     _check_mesh(mesh)
     tokens = _tokens(tokens, params.device)
     x = params.embed[tokens]
@@ -416,7 +423,7 @@ def make_train_step(cfg, mesh=None, lr=1e-2, guard=False):
     0-dim bool tensor on the device) and, when the loss or any gradient
     is not finite, leaves params and momentum untouched; the select runs
     on the device, with no host sync."""
-    _check_supported(cfg, serving=False)
+    _check_supported(cfg)
     _check_mesh(mesh)
 
     def step(params, momentum, tokens):
@@ -456,44 +463,78 @@ def make_train_step(cfg, mesh=None, lr=1e-2, guard=False):
 
 # ------------------------------------------------------------- decode ---
 
+def _cache_leaves(cfg, shape, device):
+    """One layer's zeroed cache leaves of ``shape`` [..., KVH, D]: k and v
+    of cfg.dtype, or under kv_cache_int8 int8 codes k, v and fp32 scale
+    planes ks, vs [..., KVH]."""
+    if cfg.kv_cache_int8:
+        codes = dict(dtype=torch.int8, device=device)
+        scales = dict(dtype=torch.float32, device=device)
+        return {"k": torch.zeros(shape, **codes),
+                "ks": torch.zeros(shape[:-1], **scales),
+                "v": torch.zeros(shape, **codes),
+                "vs": torch.zeros(shape[:-1], **scales)}
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
 def init_cache(cfg, batch, device=None):
-    """Zeroed per-layer K/V caches [batch, max_len, KVH, D] of cfg.dtype."""
+    """Zeroed per-layer K/V caches [batch, max_len, KVH, D] of cfg.dtype;
+    under kv_cache_int8, int8 codes plus fp32 scales [batch, max_len,
+    KVH] ("ks", "vs")."""
     _check_supported(cfg)
     device = resolve_device(device)
     shape = (batch, cfg.max_len, _kvh(cfg), cfg.d_model // cfg.n_heads)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-            for _ in range(cfg.n_layers)]
+    return [_cache_leaves(cfg, shape, device) for _ in range(cfg.n_layers)]
+
+
+def _cache_rows(k, v, cfg):
+    """The leaves a cache write stores for fresh k/v [..., KVH, D]: the
+    rows themselves, or under kv_cache_int8 their codes and scales."""
+    if cfg.kv_cache_int8:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        return {"k": kq, "ks": ks, "v": vq, "vs": vs}
+    return {"k": k, "v": v}
 
 
 def _cache_write_rows(layer_cache, k, v, start, cfg):
     """Write k/v [B, C, KVH, D] into cache positions [start, start+C), in
-    place. A start past the end clamps so the rows fit, as
-    ``dynamic_update_slice`` does."""
+    place, quantised on the way in under kv_cache_int8. A start past the
+    end clamps so the rows fit, as ``dynamic_update_slice`` does."""
     c = k.shape[1]
     start = min(max(int(start), 0), layer_cache["k"].shape[1] - c)
-    for name, new in (("k", k), ("v", v)):
+    for name, new in _cache_rows(k, v, cfg).items():
         layer_cache[name][:, start:start + c] = new
     return layer_cache
 
 
+def _where_rows(valid, new, old):
+    """``new`` where the [B] mask ``valid`` holds, else ``old``, row by
+    row, in ``old``'s dtype."""
+    valid = valid.reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(valid, new.to(old.dtype), old)
+
+
 def _cache_write_ragged(layer_cache, k_new, v_new, pos, cfg):
-    """Row i writes its k/v [B, KVH, D] at pos[i], in place. A position
-    past the cache is dropped, as JAX's scatter drops it."""
+    """Row i writes its k/v [B, KVH, D] at pos[i], in place, quantised on
+    the way in under kv_cache_int8. A position past the cache is dropped,
+    as JAX's scatter drops it."""
     t = layer_cache["k"].shape[1]
     rows = torch.arange(k_new.shape[0], device=k_new.device)
-    valid = ((pos >= 0) & (pos < t))[:, None, None]
+    valid = (pos >= 0) & (pos < t)
     at = pos.long().clamp(0, t - 1)
-    for name, new in (("k", k_new), ("v", v_new)):
+    for name, new in _cache_rows(k_new, v_new, cfg).items():
         leaf = layer_cache[name]
-        leaf[rows, at] = torch.where(valid, new.to(leaf.dtype),
-                                     leaf[rows, at])
+        leaf[rows, at] = _where_rows(valid, new, leaf[rows, at])
     return layer_cache
 
 
 def _decode_attention(q, layer_cache, pos, cfg):
     """q [B, H, D] vs cache [B, Tmax, KVH, D], attending positions <= pos
     (an int, or [B] for ragged decode)."""
+    if cfg.kv_cache_int8:
+        return _decode_attention_int8(q, layer_cache, pos, cfg)
     cache_k, cache_v = layer_cache["k"], layer_cache["v"]
     if cfg.use_flash_kernel:
         return flash_decode(q, cache_k, cache_v, pos + 1)
@@ -514,18 +555,42 @@ def _decode_attention(q, layer_cache, pos, cfg):
     return o.reshape(b, h, d).to(q.dtype)
 
 
+def _decode_attention_int8(q, layer_cache, pos, cfg):
+    """Decode as the C=1 case of ``_int8_cache_attention``."""
+    b, h, d = q.shape
+    kvh = layer_cache["k"].shape[2]
+    t_pos = torch.arange(layer_cache["k"].shape[1], device=q.device)
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1)
+    mask = (t_pos[None, :] <= pos[:, None])[:, None, :]        # [B|1, 1, T]
+    o = _int8_cache_attention(q.reshape(b, 1, kvh, h // kvh, d), layer_cache,
+                              mask, q.dtype)
+    return o.reshape(b, h, d)
+
+
 def prefill(params, cache, tokens, cfg):
     """Process the whole prompt tokens [B, Tp] in one forward pass,
     filling cache positions [0, Tp). Returns (last_logits [B, vocab],
-    cache)."""
+    cache). Under kv_cache_int8 it is ``prefill_chunk`` at start 0: the
+    prompt's own attention then reads its rows through the quantiser, as
+    decode and the batcher's admission do."""
     _check_supported(cfg)
     b, t_p = tokens.shape
+    if cfg.kv_cache_int8:
+        return prefill_chunk(params, cache, tokens, 0, cfg,
+                             logits_row=t_p - 1, attend_limit=t_p)
     tokens = tokens.long()
-    x = params.embed[tokens] + params.pos[:t_p]
+    x = params.embed[tokens]
+    if not cfg.rope:
+        x = x + params.pos[:t_p]
+    positions = torch.arange(t_p, device=x.device)
     g = cfg.n_heads // _kvh(cfg)
     for p, layer_cache in zip(params.layers, cache):
         h = _rms_norm(x, p.ln1)
         q, k, v = _qkv(h, p)
+        if cfg.rope:
+            # keys are cached rotated: decode never rotates the cache again
+            q = _rope(q, positions, cfg.rope_base)
+            k = _rope(k, positions, cfg.rope_base)
         _cache_write_rows(layer_cache, k, v, 0, cfg)
         o = _causal_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), cfg,
                               x.dtype)
@@ -549,28 +614,36 @@ def prefill_chunk(params, cache, tokens, start, cfg, logits_row=None,
     if start < 0 or start + c > cfg.max_len:
         raise ValueError("chunk [%d, %d) overruns max_len %d"
                          % (start, start + c, cfg.max_len))
-    x = params.embed[tokens.long()] + params.pos[start:start + c]
+    x = params.embed[tokens.long()]
+    chunk_pos = start + torch.arange(c, device=x.device)
+    if not cfg.rope:
+        x = x + params.pos[start:start + c]
     g = cfg.n_heads // _kvh(cfg)
     kvh = _kvh(cfg)
     for p, layer_cache in zip(params.layers, cache):
         h = _rms_norm(x, p.ln1)
         q, k, v = _qkv(h, p)
+        if cfg.rope:
+            q = _rope(q, chunk_pos, cfg.rope_base)
+            k = _rope(k, chunk_pos, cfg.rope_base)
         _cache_write_rows(layer_cache, k, v, start, cfg)
         dh = q.shape[-1]
         qg = q.reshape(b, c, kvh, g, dh)
-        ck, cv = layer_cache["k"], layer_cache["v"]
-        if attend_limit is not None:
-            ck, cv = ck[:, :attend_limit], cv[:, :attend_limit]
-        t_pos = torch.arange(ck.shape[1], device=x.device)
-        chunk_pos = start + torch.arange(c, device=x.device)
+        att = layer_cache if attend_limit is None else \
+            {name: leaf[:, :attend_limit] for name, leaf in layer_cache.items()}
+        t_pos = torch.arange(att["k"].shape[1], device=x.device)
         mask = (t_pos[None, :] <= chunk_pos[:, None])[None]      # [1, C, T]
-        s = torch.einsum("bckgd,btkd->bckgt", qg.float(), ck.float()) \
-            / math.sqrt(dh)
-        s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
-        a = torch.softmax(s, dim=-1)
-        o = torch.einsum("bckgt,btkd->bckgd", a.to(cv.dtype).float(),
-                         cv.float()).to(x.dtype).reshape(b, c, cfg.n_heads,
-                                                         dh)
+        if cfg.kv_cache_int8:
+            o = _int8_cache_attention(qg, att, mask, x.dtype)
+        else:
+            ck, cv = att["k"], att["v"]
+            s = torch.einsum("bckgd,btkd->bckgt", qg.float(), ck.float()) \
+                / math.sqrt(dh)
+            s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+            a = torch.softmax(s, dim=-1)
+            o = torch.einsum("bckgt,btkd->bckgd", a.to(cv.dtype).float(),
+                             cv.float()).to(x.dtype)
+        o = o.reshape(b, c, cfg.n_heads, dh)
         x = x + torch.einsum("bchk,hkd->bcd", o, p.wo)
         x = x + _ffn(_rms_norm(x, p.ln2), p, cfg)
     x = _rms_norm(x, params.ln_f)
@@ -578,6 +651,19 @@ def prefill_chunk(params, cache, tokens, start, cfg, logits_row=None,
         return torch.einsum("bd,vd->bv", x[:, int(logits_row)],
                             params.embed), cache
     return torch.einsum("bcd,vd->bcv", x, params.embed), cache
+
+
+def _step_qkv(x, p, pos, cfg):
+    """The decode step's q, k, v [B, H|KVH, D] of one layer, q and k
+    rotated at ``pos`` (an int or [B]) under cfg.rope."""
+    h = _rms_norm(x, p.ln1)
+    q = torch.einsum("bd,dhk->bhk", h, p.wq)
+    k = torch.einsum("bd,dhk->bhk", h, p.wk)
+    v = torch.einsum("bd,dhk->bhk", h, p.wv)
+    if cfg.rope:
+        q = _rope(q, pos, cfg.rope_base)
+        k = _rope(k, pos, cfg.rope_base)
+    return q.contiguous(), k, v
 
 
 def decode_step(params, cache, tokens, pos, cfg):
@@ -590,16 +676,15 @@ def decode_step(params, cache, tokens, pos, cfg):
     ragged = torch.is_tensor(pos) and pos.dim() == 1
     if ragged:
         pos = pos.to(device)
-        x = x + _pos_rows(params.pos, pos)
+        if not cfg.rope:
+            x = x + _pos_rows(params.pos, pos)
     else:
         pos = int(pos)
-        # dynamic_index_in_dim clamps the position into the table
-        x = x + params.pos[min(max(pos, 0), cfg.max_len - 1)]
+        if not cfg.rope:
+            # dynamic_index_in_dim clamps the position into the table
+            x = x + params.pos[min(max(pos, 0), cfg.max_len - 1)]
     for p, layer_cache in zip(params.layers, cache):
-        h = _rms_norm(x, p.ln1)
-        q = torch.einsum("bd,dhk->bhk", h, p.wq).contiguous()
-        k_new = torch.einsum("bd,dhk->bhk", h, p.wk)
-        v_new = torch.einsum("bd,dhk->bhk", h, p.wv)
+        q, k_new, v_new = _step_qkv(x, p, pos, cfg)
         if ragged:
             _cache_write_ragged(layer_cache, k_new, v_new, pos, cfg)
         else:
@@ -614,22 +699,23 @@ def decode_step(params, cache, tokens, pos, cfg):
 
 # ------------------------------------------------------- paged decode ---
 # The KV cache split into fixed-size blocks: one per-layer pool
-# [num_blocks, block_size, KVH, D] shared by every lane, and per-lane
+# [num_blocks, block_size, KVH, D] shared by every lane (under
+# kv_cache_int8 int8 codes plus fp32 scale planes [num_blocks,
+# block_size, KVH], so a block carries its own scales), and per-lane
 # int32 block tables [B, max_len // block_size] mapping positions
 # [j*bs, (j+1)*bs) to a pool block. Block 0 is the null block:
 # unallocated entries point at it, and writes past a lane's allocation
 # land there, never attended by a live request.
 
 def init_paged_cache(cfg, num_blocks, block_size, device=None):
-    """Zeroed per-layer block pools [num_blocks, block_size, KVH, D]."""
+    """Zeroed per-layer block pools [num_blocks, block_size, KVH, D]
+    (codes and scale planes under kv_cache_int8)."""
     _check_supported(cfg)
     if num_blocks < 2:
         raise ValueError("need >= 2 blocks (block 0 is the null block)")
     device = resolve_device(device)
     shape = (num_blocks, block_size, _kvh(cfg), cfg.d_model // cfg.n_heads)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-            for _ in range(cfg.n_layers)]
+    return [_cache_leaves(cfg, shape, device) for _ in range(cfg.n_layers)]
 
 
 def paged_cache_nbytes(cfg, num_blocks, block_size):
@@ -637,26 +723,29 @@ def paged_cache_nbytes(cfg, num_blocks, block_size):
     _check_supported(cfg)
     hd = cfg.d_model // cfg.n_heads
     cells = num_blocks * block_size * _kvh(cfg)
-    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
-    return int(2 * cells * hd * itemsize * cfg.n_layers)
+    if cfg.kv_cache_int8:
+        per_layer = 2 * cells * hd * 1 + 2 * cells * 4   # k/v + ks/vs
+    else:
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        per_layer = 2 * cells * hd * itemsize
+    return int(per_layer * cfg.n_layers)
 
 
 def _paged_write_ragged(layer_pool, k_new, v_new, tables, pos, cfg):
     """Row i writes its k/v [B, KVH, D] into block tables[i, pos[i]//bs]
-    at offset pos[i] % bs, in place. A position past the table is
-    dropped: JAX's ``take_along_axis`` fills such a table index with
-    INT_MIN and its scatter drops the write. An unallocated entry is the
-    null block."""
+    at offset pos[i] % bs, in place, quantised on the way in under
+    kv_cache_int8. A position past the table is dropped: JAX's
+    ``take_along_axis`` fills such a table index with INT_MIN and its
+    scatter drops the write. An unallocated entry is the null block."""
     bs = layer_pool["k"].shape[1]
     nb = tables.shape[1]
     idx = torch.div(pos, bs, rounding_mode="floor").long()
-    valid = ((idx >= 0) & (idx < nb))[:, None, None]
+    valid = (idx >= 0) & (idx < nb)
     blk = tables.gather(1, idx.clamp(0, nb - 1)[:, None])[:, 0].long()
     off = torch.remainder(pos, bs).long()
-    for name, new in (("k", k_new), ("v", v_new)):
+    for name, new in _cache_rows(k_new, v_new, cfg).items():
         leaf = layer_pool[name]
-        leaf[blk, off] = torch.where(valid, new.to(leaf.dtype),
-                                     leaf[blk, off])
+        leaf[blk, off] = _where_rows(valid, new, leaf[blk, off])
     return layer_pool
 
 
@@ -665,19 +754,18 @@ def decode_step_paged(params, pool, tables, tokens, pos, cfg):
 
     tokens [B] int, pos [B] int32, tables [B, max_len//bs] int32. Returns
     (logits [B, vocab], pool); the tables are read-only here. Attention
-    reads the pool through the tables with the paged kernel on CUDA
-    tensors, and with its plain version on the CPU."""
+    reads the pool through the tables with the paged kernel (its int8
+    mode for an int8 pool) on CUDA tensors, and with its plain version on
+    the CPU."""
     _check_supported(cfg)
     pos = pos.to(device=params.device, dtype=torch.int32)
-    x = params.embed[tokens.long()] + _pos_rows(params.pos, pos)
+    x = params.embed[tokens.long()]
+    if not cfg.rope:
+        x = x + _pos_rows(params.pos, pos)
     for p, layer_pool in zip(params.layers, pool):
-        h = _rms_norm(x, p.ln1)
-        q = torch.einsum("bd,dhk->bhk", h, p.wq)
-        k_new = torch.einsum("bd,dhk->bhk", h, p.wk)
-        v_new = torch.einsum("bd,dhk->bhk", h, p.wv)
+        q, k_new, v_new = _step_qkv(x, p, pos, cfg)
         _paged_write_ragged(layer_pool, k_new, v_new, tables, pos, cfg)
-        o = paged_attention(q[:, None].contiguous(), layer_pool, tables,
-                            pos)[:, 0]
+        o = paged_attention(q[:, None], layer_pool, tables, pos)[:, 0]
         x = x + torch.einsum("bhk,hkd->bd", o, p.wo)
         x = x + _ffn(_rms_norm(x, p.ln2)[:, None], p, cfg)[:, 0]
     x = _rms_norm(x, params.ln_f)

@@ -85,10 +85,19 @@ def test_paged_attention_bf16_casts_probabilities():
 
 
 def test_paged_attention_refuses_int8_and_bad_layouts():
+    """An int8 pool (detected by its scale planes) must hold int8 codes
+    and fp32 planes of the pool's [NB, bs, KVH] shape; q's heads must be
+    a multiple of the KV heads."""
     q, pool, tables, pos = _paged_setup(np.random.RandomState(1), 1, 1)
     tpool = {n: _t(a) for n, a in pool.items()}
-    with pytest.raises(NotImplementedError, match="int8"):
-        kernels.paged_attention(_t(q), dict(tpool, ks=None, vs=None),
+    planes = torch.ones(tpool["k"].shape[:3])
+    with pytest.raises(TypeError, match="int8 codes"):
+        kernels.paged_attention(_t(q), dict(tpool, ks=planes, vs=planes),
+                                _t(tables), _t(pos))
+    codes = {n: torch.zeros(tpool[n].shape, dtype=torch.int8)
+             for n in ("k", "v")}
+    with pytest.raises(ValueError, match="scale planes"):
+        kernels.paged_attention(_t(q), dict(codes, ks=planes[:1], vs=planes),
                                 _t(tables), _t(pos))
     with pytest.raises(ValueError, match="query heads"):
         kernels.paged_attention(_t(q)[:, :, :1].repeat(1, 1, 3, 1), tpool,
@@ -230,3 +239,29 @@ def test_smoke_bf16_tolerance_allows_one_ulp_and_catches_a_bias():
     cs.compare(want + ulp, want, "bfloat16", "one ulp")
     with pytest.raises(AssertionError, match="disagrees"):
         cs.compare(want + 0.01, want, "bfloat16", "biased")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_smoke_int8_check_allows_one_code_flip_and_catches_a_bias(dtype):
+    """The int8 kernel check allows TOL plus one probability code: one
+    row whose elements all moved by a flipped code (as_ times a V code of
+    up to 127, i.e. up to the row's code step 127 as_) passes, as one row
+    of 256 is inside INT8_CODE_SHARE; a bias of a third of a code step on
+    every element fails, by the share. Outputs ~0.03, code steps of
+    0.0045-0.0075 (a third is above bf16's TOL at these outputs)."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(1)
+    want = torch.from_numpy(rng.randn(32, 1, 8, 64).astype(np.float32)) * 0.03
+    want = want.to(getattr(torch, dtype)).float()
+    step = torch.from_numpy(rng.uniform(0.0045, 0.0075, (32, 1, 8, 1))
+                            .astype(np.float32))
+    flipped = want.clone()
+    codes = torch.from_numpy(rng.randint(-127, 128, 64).astype(np.float32))
+    flipped[3, 0, 5] += step[3, 0, 5] * codes / 127
+    _, share = cs.compare_int8(flipped, want, step, dtype, "one code")
+    assert 0 < share <= cs.INT8_CODE_SHARE
+    with pytest.raises(AssertionError, match="disagrees"):
+        cs.compare_int8(want + step / 3, want, step, dtype, "biased")
+    with pytest.raises(AssertionError, match="disagrees"):
+        cs.compare_int8(flipped + 2 * step * (flipped != want), want, step,
+                        dtype, "two codes")

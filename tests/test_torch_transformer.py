@@ -232,12 +232,12 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
         ttf.init_cache(tcfg, 1)
 
 
-@pytest.mark.parametrize("field, value", [
-    ("rope", True), ("kv_cache_int8", True), ("pp_axis", "pp")])
+@pytest.mark.parametrize("field, value", [("pp_axis", "pp")])
 def test_unported_config_fields_raise(field, value):
-    """The serving paths do not carry RoPE, int8 KV or pipeline stages
-    yet (the MoE FFN is ported): their entry points raise naming the
-    slice that brings each."""
+    """The serving paths do not carry pipeline stages yet (RoPE, int8 KV
+    and the MoE FFN are ported, see tests/test_torch_rope_serving.py and
+    tests/test_torch_kv_int8.py): their entry points raise naming the
+    slice that brings them."""
     _, tcfg = _cfgs(**{field: value})
     with pytest.raises(NotImplementedError, match="slice"):
         ttf.init_cache(tcfg, 1, "cpu")
