@@ -23,7 +23,17 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    int8 mode on int8 pools (codes and fp32 scales quantised from seeded
    rows) with float32 and bfloat16 queries, at the paged cases above and
    at head dim 128, allowing one probability code beside ``TOL`` in at
-   most ``INT8_CODE_SHARE`` of the elements;
+   most ``INT8_CODE_SHARE`` of the elements; and the ring-carry kernel
+   (o, m and l at the fp32 ``TOL_FLASH``, in float32 and bfloat16, head
+   dims 64 and 128) on a fresh carry at equal offsets, an in-flight carry
+   over a past shard, a dead call (its carry back bitwise), partial
+   overlaps at offsets off the 64-row tiles, a non-causal call and a
+   ragged Tq != Tk case, on the rows its contract specifies; then runs
+   the ring schedule on the card: the flagship's attention (8 heads of
+   128, bf16, causal) at 8 x 1024 and 1 x 8192, split into 4 and 8
+   shards, each shard's ring folded through the carry kernel in
+   ``ring_attention``'s order (exactly n^2 launches), held against the
+   flash forward over the whole sequence at the bf16 ``TOL_FLASH``;
 4. serves 16 requests (prompts of 64-512 seeded tokens, 32 new tokens
    each) through ``ContinuousBatcher(paged=True)`` at the full width of
    the repo's paged serving model (vocab 32000, d_model 512, 8 heads,
@@ -57,18 +67,28 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    (lr 1e-2) on one fixed batch through ``make_train_step``: the loss
    must stay finite and fall, and each step must launch each flash
    kernel once per layer; prints the step ms, tokens/s and MFU (6 N
-   FLOPs per token over 989 TFLOP/s);
+   FLOPs per token over 989 TFLOP/s); then drives the parallel slice:
+   the same model (max_len 8192) under ``parallel.make_mesh({"dp": 1,
+   "sp": 1})`` on a world of one, ``loss_fn`` and ``forward`` at 8 x 1024
+   and 1 x 8192: each launches the ring-carry kernel once per layer and
+   nothing else, the fp32 mesh loss is within 1e-4 of the no-mesh loss
+   (through the flash forward), the bf16 loss is finite, and the forward
+   ms and tokens/s are printed; and ``sp_flash_decode`` at sp = 1 on the
+   serving cache (8 lanes x 8 KV heads x 4096 x 64, bf16), through the
+   flash-decode kernel, against its dense route at ``TOL``, both timed;
 8. times each decode step, and each kernel beside its plain version, a
    one-call PyTorch yardstick (``scaled_dot_product_attention``, timed
    here only, forward, and backward through autograd for the flash
-   backward kernels; none for the int8 mode) and its bound; the paged
-   kernel is timed on the served pool full, each block in one lane's
-   table, in bfloat16 and int8;
+   backward kernels; none for the int8 mode or the carry kernel, which
+   gets SDPA's forward beside it) and its bound; the ring-carry kernel at
+   the flash forward's timing shape and at one past-shard step of the
+   sp = 8 split of 1 x 8192; the paged kernel is timed on the served
+   pool full, each block in one lane's table, in bfloat16 and int8;
 9. traces 16 decode steps of a serve run, of an int8 serve run and of
-   ``generate()``, and 3 train steps, with ``torch.profiler`` and
-   prints, for each, the host ms
-   per step, the device ms per step (the sum of the kernels' own times),
-   the device's idle share and the kernels that took the most time;
+   ``generate()``, 3 train steps and 3 mesh forwards, with
+   ``torch.profiler`` and prints, for each, the host ms per step, the
+   device ms per step (the sum of the kernels' own times), the device's
+   idle share and the kernels that took the most time;
 10. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, and the
@@ -150,18 +170,44 @@ FLASH_CHECKS = (("train", 64, 1024, 1024, 128), ("d64", 64, 1024, 1024, 64),
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_SWEEP = (1024, 4096, 8192)        # sequence lengths at 8192 tokens
 
+# the ring-carry kernel's checks: (label, batch*heads, Tq, Tk, q_offset,
+# kv_offset, causal, carry): "fresh" starts from (0, -1e30, 0), "flight"
+# from the kernel's output of the q shard's own block (a ring's state).
+# The "main" rows are the calls of the mesh forward at MESH_RUNS (8 heads,
+# a ring of one: a fresh carry at offsets 0, 0); they run at MAIN_D only.
+CARRY_CHECKS = (("main 8x1024", 64, 1024, 1024, 0, 0, True, "fresh"),
+                ("main 1x8192", 8, 8192, 8192, 0, 0, True, "fresh"),
+                ("own block", 16, 1024, 1024, 1024, 1024, True, "fresh"),
+                ("past shard", 16, 1024, 1024, 1024, 0, True, "flight"),
+                ("dead", 16, 1024, 1024, 1024, 2048, True, "flight"),
+                ("partial", 16, 1024, 1024, 1000, 520, True, "flight"),
+                ("partial fresh", 16, 1024, 1024, 40, 100, True, "fresh"),
+                ("non-causal", 16, 1024, 1024, 0, 1024, False, "flight"),
+                ("ragged", 6, 333, 200, 200, 0, True, "fresh"))
+MAIN_D = 128
+# the ring schedule on one card: (batch, T) of the training flagship's
+# attention (8 heads of 128, bf16, causal), split over sp ranks
+RING_SHAPES = ((8, 1024), (1, 8192))
+RING_SP = (4, 8)
+# the parallel slice's main path: the flagship under a world-of-one mesh,
+# (batch, T) per run; max_len rises to the longest T (RoPE has no table)
+MESH_RUNS = ((8, 1024), (1, 8192))
+MESH_CFG = dict(TRAIN_CFG, max_len=8192)
+
 SOURCE = {"paged_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "paged_decode_int8": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "flash_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "flash_fwd": "mxnet_tpu_torch/csrc/flash_attention.cu",
           "flash_bwd_dq": "mxnet_tpu_torch/csrc/flash_attention.cu",
-          "flash_bwd_dkv": "mxnet_tpu_torch/csrc/flash_attention.cu"}
+          "flash_bwd_dkv": "mxnet_tpu_torch/csrc/flash_attention.cu",
+          "flash_carry": "mxnet_tpu_torch/csrc/flash_attention.cu"}
 REPLACES = {"paged_decode": "mxnet_tpu/kernels/paged_decode.py:69",
             "paged_decode_int8": "mxnet_tpu/kernels/paged_decode.py:69",
             "flash_decode": "mxnet_tpu/kernels/flash_attention.py:439",
             "flash_fwd": "mxnet_tpu/kernels/flash_attention.py:44",
             "flash_bwd_dq": "mxnet_tpu/kernels/flash_attention.py:253",
-            "flash_bwd_dkv": "mxnet_tpu/kernels/flash_attention.py:291"}
+            "flash_bwd_dkv": "mxnet_tpu/kernels/flash_attention.py:291",
+            "flash_carry": "mxnet_tpu/kernels/flash_attention.py:134"}
 
 
 def log(msg):
@@ -481,6 +527,178 @@ def check_flash_attention(torch, kernels, device):
     return errs
 
 
+# ---------------------------------------------------------------- B5 ---
+
+def check_flash_carry(torch, kernels, device):
+    """The carry kernel against its plain version on CARRY_CHECKS, in
+    fp32 and bf16 at head dims 64 and 128 (the main path's rows at MAIN_D
+    only): o, m and l elementwise at the flash kernels' fp32 TOL (all of
+    its arithmetic is fp32), on the rows the contract specifies; a dead
+    call must return its carry bitwise.
+    Returns the max abs errors by (label, dtype, head dim)."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        for d in (128, 64):
+            for seed, (label, bh, tq, tk, q_off, kv_off, causal,
+                       carry) in enumerate(CARRY_CHECKS):
+                if label.startswith("main") and d != MAIN_D:
+                    continue
+                q, k, v, _ = flash_inputs(torch, device, dtype, bh, tq, tk, d,
+                                          seed=70 + seed)
+                fresh = (torch.zeros((bh, tq, d), device=device),
+                         torch.full((bh, tq), -1e30, device=device),
+                         torch.zeros((bh, tq), device=device))
+                c = fresh
+                if carry == "flight":
+                    gen = torch.Generator(device=device).manual_seed(90 + seed)
+                    k0, v0 = (randn(torch, (bh, tq, d), gen, device, dtype)
+                              for _ in range(2))
+                    c = kernels.flash_carry_block(q, k0, v0, *fresh, q_off,
+                                                  q_off, True)
+                got = kernels.flash_carry_block(q, k, v, *c, q_off, kv_off,
+                                                causal)
+                want = kernels.carry_block_reference(q, k, v, *c, q_off,
+                                                     kv_off, causal)
+                # the rows the contract specifies (see flash_carry_block):
+                # a real key in the carry already, or an unmasked one now
+                rows = ((c[1] > -1e29) | (not causal)
+                        | (q_off + torch.arange(tq, device=device)
+                           >= kv_off)[None])
+                what = "flash_carry %-13s %-8s D=%d" % (label, name, d)
+                atol, rtol = TOL_FLASH["float32"]
+                err, share = 0.0, 0.0
+                for g, w in zip(got, want):
+                    sel = rows[..., None].expand_as(g) if g.dim() == 3 \
+                        else rows
+                    e = (g[sel] - w[sel]).abs()
+                    err = max(err, float(e.max()))
+                    share = max(share, float(
+                        (e / (atol + rtol * w[sel].abs())).max()))
+                log("%s: o, m, l max abs err %.3g, worst err / (%g + %g "
+                    "|plain|) = %.3f, on %d of %d rows"
+                    % (what, err, atol, rtol, share, int(rows.sum()),
+                       rows.numel()))
+                if not share <= 1.0:
+                    raise AssertionError("%s disagrees with its plain version"
+                                         % what)
+                if label == "dead":
+                    if not all(torch.equal(g, c_in)
+                               for g, c_in in zip(got, c)):
+                        raise AssertionError("a dead flash_carry call changed "
+                                             "its carry")
+                    log("%s: carry returned bitwise" % what)
+                errs[(label, name, d)] = err
+    return errs
+
+
+def ring_schedule(torch, ring, q, k, v, n):
+    """Ring attention of [B, T, H, D] over n shards, every shard's ring
+    run on this card in ring_attention's order (its own block, then the
+    blocks of shards idx-1, idx-2, ... mod n), each fold through the carry
+    kernel; returns the normalised [B, T, H, D]."""
+    t = q.shape[1] // n
+    scale = 1.0 / q.shape[-1] ** 0.5
+    shard = [tuple(x[:, i * t:(i + 1) * t] for x in (q, k, v))
+             for i in range(n)]
+    outs = []
+    for idx in range(n):
+        carry = None
+        for step in range(n):
+            kv = (idx - step) % n
+            carry = ring.local_attention_block(
+                shard[idx][0], shard[kv][1], shard[kv][2], idx * t, kv * t,
+                True, scale, carry=carry, use_flash_kernel=True)
+        o, _, l = carry
+        outs.append((o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None])
+                    .to(q.dtype))
+    return torch.cat(outs, 1)
+
+
+def check_ring_schedule(torch, ring, kernels, device, h=8, d=128):
+    """The ring at sp = RING_SP on one card, at RING_SHAPES, against the
+    flash forward over the whole sequence at the bf16 TOL; exactly n^2
+    carry launches per ring. Times each whole schedule (all n rings, the
+    layout copies and normalisation included) beside the flash forward
+    over the sequence."""
+    for b, t in RING_SHAPES:
+        q, k, v, _ = flash_inputs(torch, device, torch.bfloat16, b * h, t, t,
+                                  d, seed=80)
+        want, _ = kernels.flash_attention_with_lse(q, k, v, True)
+        fwd_ms = time_ms(lambda: kernels.flash_attention_with_lse(q, k, v,
+                                                                  True), 5)
+        q4, k4, v4 = (x.reshape(b, h, t, d).transpose(1, 2) for x in (q, k, v))
+        for n in RING_SP:
+            kernels.launches.clear()
+            got = ring_schedule(torch, ring, q4, k4, v4, n)
+            torch.cuda.synchronize()
+            check_only(kernels, {"flash_carry": n * n},
+                       "the ring at sp=%d" % n)
+            got = got.transpose(1, 2).reshape(b * h, t, d)
+            compare(got, want, "bfloat16", "ring schedule %d x %d, sp=%d, "
+                    "%d flash_carry launches, vs flash_fwd" % (b, t, n, n * n),
+                    TOL_FLASH)
+            ms = time_ms(lambda: ring_schedule(torch, ring, q4, k4, v4, n), 3)
+            log("ring schedule %d x %d, sp=%d: %.3f ms, flash_fwd over the "
+                "sequence %.3f ms (%.2fx)" % (b, t, n, ms, fwd_ms,
+                                             ms / fwd_ms))
+        del q, k, v, want, q4, k4, v4
+
+
+def carry_work(bh, tq, tk, d, item, q_offset, kv_offset, causal):
+    """(bytes, flops) of one carry step: q, k, v read once in their
+    dtype, the fp32 carry (o, m, l) read once and written once; the two
+    products over the (q, k) pairs the causal mask leaves, at 2 flops a
+    multiply-add."""
+    nbytes = (bh * (tq + 2 * tk) * d * item
+              + 2 * 4 * bh * tq * (d + 2))
+    qp = q_offset + np.arange(tq)
+    kp = kv_offset + np.arange(tk)
+    pairs = int((qp[:, None] >= kp[None, :]).sum()) if causal else tq * tk
+    return nbytes, 2 * 2 * bh * pairs * d
+
+
+def time_flash_carry(torch, F, kernels, device, b=8, h=8, t=1024, d=128):
+    """The carry kernel at B1's timing shape (64 batch-heads x 1024 x
+    128, bf16, causal, a fresh carry at equal offsets) beside B1, its
+    plain version and one SDPA forward; then one past-shard step of the
+    sp = 8 split of 1 x 8192 (8 batch-heads x 1024 at offsets 7168 and 0,
+    an in-flight carry). Returns {label: (ms, plain ms, (bound, bound
+    by))} and logs both rows."""
+    rows = {}
+    for label, bh, q_off, kv_off in (("B1 shape", b * h, 0, 0),
+                                     ("sp=8 past shard", h, 7 * t, 0)):
+        q, k, v, _ = flash_inputs(torch, device, torch.bfloat16, bh, t, t, d,
+                                  seed=85)
+        c = (torch.zeros((bh, t, d), device=device),
+             torch.full((bh, t), -1e30, device=device),
+             torch.zeros((bh, t), device=device))
+        if kv_off != q_off:
+            c = kernels.flash_carry_block(q, k, v, *c, q_off, q_off, True)
+        ms = time_ms(lambda: kernels.flash_carry_block(q, k, v, *c, q_off,
+                                                       kv_off, True), 10)
+        plain = time_ms(lambda: kernels.carry_block_reference(
+            q, k, v, *c, q_off, kv_off, True), 5)
+        nbytes, flops = carry_work(bh, t, t, d, 2, q_off, kv_off, True)
+        bound = bound_ms(nbytes, flops, "bfloat16")
+        extra = ""
+        if label == "B1 shape":
+            fwd = time_ms(lambda: kernels.flash_attention_with_lse(q, k, v,
+                                                                   True), 10)
+            q4, k4, v4 = (x.reshape(b, h, t, d) for x in (q, k, v))
+            with torch.no_grad():
+                sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), 10)
+            extra = ", flash_fwd %.4f ms, sdpa forward %.4f ms" % (fwd, sdpa)
+        log("flash_carry %s (%d x %d x %d, offsets %d / %d): %.4f ms, plain "
+            "%.4f ms, bound %.4f ms (%s; %.1f MB, %.2f GFLOP)%s"
+            % (label, bh, t, d, q_off, kv_off, ms, plain, bound[0], bound[1],
+               nbytes / 1e6, flops / 1e9, extra))
+        rows[label] = (ms, plain, bound)
+        del q, k, v, c
+    return rows
+
+
 # ------------------------------------------------------ main path runs ---
 
 def teacher_gap(torch, tf, params, cfg, streams, t_prompt):
@@ -737,6 +955,99 @@ def train(torch, tf, kernels, device):
         raise AssertionError("training loss is not finite and falling")
     return {"launches": launches, "step_ms": step_ms, "params": params,
             "mom": mom, "step": step, "tokens": tokens}
+
+
+# ------------------------------------------------------ parallel slice ---
+
+def mesh_tokens(torch, cfg, b, t, device):
+    rng = np.random.RandomState(3)
+    return torch.from_numpy(rng.randint(1, cfg.vocab_size, (b, t))).to(device)
+
+
+def mesh_forward(torch, tf, parallel, kernels, device):
+    """The parallel slice's main path: the training flagship (MESH_CFG)
+    under parallel.make_mesh({"dp": 1, "sp": 1}) on a world of one, at
+    MESH_RUNS. In fp32 the mesh loss (ring attention, one carry launch per
+    layer) must be within 1e-4 of the no-mesh loss (the flash forward); in
+    bf16 the forward must launch the carry kernel once per layer and
+    nothing else, and the loss must be finite. Returns the bf16 model, the
+    mesh and the first run's carry launches and forward ms."""
+    mesh = parallel.make_mesh({"dp": 1, "sp": 1})
+    out = {"mesh": mesh}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = tf.TransformerConfig(dtype=dtype, **MESH_CFG)
+        params = tf.shard_params(tf.init_params(cfg, seed=0, device=device),
+                                 cfg, mesh)
+        for b, t in MESH_RUNS:
+            tokens = mesh_tokens(torch, cfg, b, t, device)
+            what = "mesh %s %d x %d" % (dtype_name(dtype), b, t)
+            with torch.no_grad():
+                kernels.launches.clear()
+                loss = float(tf.loss_fn(params, tokens, cfg, mesh))
+                check_only(kernels, {"flash_carry": cfg.n_layers},
+                           what + " loss")
+                if dtype == torch.float32:
+                    plain = float(tf.loss_fn(params, tokens, cfg))
+                    log("%s: loss %.6f, no-mesh loss (flash_fwd) %.6f, |diff| "
+                        "%.3g (tol 1e-4)" % (what, loss, plain,
+                                             abs(loss - plain)))
+                    if not abs(loss - plain) <= 1e-4:
+                        raise AssertionError("the mesh loss disagrees with "
+                                             "the no-mesh loss")
+                    continue
+                if not np.isfinite(loss):
+                    raise AssertionError(what + ": the loss is not finite")
+                kernels.launches.clear()
+                logits = tf.forward(params, tokens, cfg, mesh)
+                torch.cuda.synchronize()
+                launches = kernels.launches["flash_carry"]
+                check_only(kernels, {"flash_carry": cfg.n_layers},
+                           what + " forward")
+                if logits.shape != (b, t, cfg.vocab_size) \
+                        or not bool(torch.isfinite(logits).all()):
+                    raise AssertionError(what + ": malformed logits")
+                del logits
+                times = []
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    tf.forward(params, tokens, cfg, mesh)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                ms = 1e3 * float(np.mean(times[1:]))
+                log("%s: loss %.4f, forward %.3f ms (mean of calls 2-4), "
+                    "%.0f tokens/s, flash_carry launches %d per forward"
+                    % (what, loss, ms, b * t / (ms / 1e3), launches))
+                out.setdefault("launches", launches)
+                out.setdefault("forward_ms", ms)
+        if dtype == torch.bfloat16:
+            out.update(params=params, cfg=cfg)
+        else:
+            del params
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_sp_decode(torch, ring, kernels, mesh, device):
+    """sp_flash_decode at world one on the serving model's cache (8 lanes
+    x 8 KV heads x 4096 x 64, bf16, lengths 0 to 4096): the default route
+    launches the flash-decode kernel once and agrees with the dense route
+    at TOL; both routes timed. Returns (launches, kernel ms, dense ms)."""
+    q, k, v, lengths = flash_case(torch, device, torch.bfloat16, 1, seed=24)
+    kernels.launches.clear()
+    got = ring.sp_flash_decode(q, k, v, lengths, mesh)
+    torch.cuda.synchronize()
+    launches = kernels.launches["flash_decode"]
+    check_only(kernels, {"flash_decode": 1}, "sp_flash_decode")
+    want = ring.sp_flash_decode(q, k, v, lengths, mesh, use_pallas=False)
+    compare(got, want, "bfloat16", "sp_flash_decode flash_decode route vs "
+            "dense route")
+    ms = time_ms(lambda: ring.sp_flash_decode(q, k, v, lengths, mesh), 20)
+    dense = time_ms(lambda: ring.sp_flash_decode(q, k, v, lengths, mesh,
+                                                 use_pallas=False), 20)
+    log("sp_flash_decode sp=1, 8 x 4096: flash_decode route %.4f ms, dense "
+        "route %.4f ms" % (ms, dense))
+    return launches, ms, dense
 
 
 # ------------------------------------------------------------ timings ---
@@ -1047,10 +1358,11 @@ def main():
         raise SystemExit("chip_smoke: run from the root of a checkout of "
                          "the repository (%s)" % exc)
     import torch.nn.functional as F
-    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch import kernels, parallel
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.models import serving as sv
     from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.parallel import ring
 
     # fp32 comparisons are made in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1068,6 +1380,9 @@ def main():
     torch.cuda.empty_cache()
     flash_errs = check_flash(torch, kernels, device)
     train_errs = check_flash_attention(torch, kernels, device)
+    carry_errs = check_flash_carry(torch, kernels, device)
+    check_ring_schedule(torch, ring, kernels, device)
+    torch.cuda.empty_cache()
 
     cfg = tf.TransformerConfig(dtype=torch.bfloat16, **SERVE_CFG)
     params = tf.init_params(cfg, seed=0, device=device)
@@ -1082,6 +1397,8 @@ def main():
     train_equivalence(torch, tf, kernels, device)
     torch.cuda.empty_cache()
     trained = train(torch, tf, kernels, device)
+    meshed = mesh_forward(torch, tf, parallel, kernels, device)
+    sp_decode = check_sp_decode(torch, ring, kernels, meshed["mesh"], device)
 
     rows = []
     for name, timing, run, err in (
@@ -1118,8 +1435,22 @@ def main():
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bound, "bound_by": bound_by,
                      "library_ms": lib})
-    log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms"
-        % (served["step_ms"], generated["step_ms"], trained["step_ms"]))
+    carry = time_flash_carry(torch, F, kernels, device)
+    ms, plain, (bound, bound_by) = carry["B1 shape"]
+    log("flash_carry: %.4f ms, plain %.4f ms, bound %.4f ms (%s), %d launches "
+        "per mesh forward (bf16, 8 x 1024), sp_flash_decode %d flash_decode "
+        "launch" % (ms, plain, bound, bound_by, meshed["launches"],
+                    sp_decode[0]))
+    rows.append({"name": "flash_carry", "route": "cuda",
+                 "source": SOURCE["flash_carry"],
+                 "replaces": REPLACES["flash_carry"],
+                 "launches": meshed["launches"],
+                 "max_abs_err": carry_errs[("main 8x1024", "bfloat16", 128)],
+                 "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": bound_by, "library_ms": None})
+    log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms; "
+        "mesh forward %.3f ms" % (served["step_ms"], generated["step_ms"],
+                                  trained["step_ms"], meshed["forward_ms"]))
     profile_decode(torch, tf, sv, params, cfg, device)
     profile_serve(torch, sv, params8, cfg8, device,
                   "int8 serve step, 16 live lanes of 32")
@@ -1129,6 +1460,13 @@ def main():
                                           trained["tokens"]),
                   steps=3, top=12, kinds=TRAIN_KINDS)
     del trained
+    tokens = mesh_tokens(torch, meshed["cfg"], *MESH_RUNS[0], device)
+    with torch.no_grad():
+        profile_steps(torch, "mesh forward, bf16, batch 8 x 1024",
+                      lambda: tf.forward(meshed["params"], tokens,
+                                         meshed["cfg"], meshed["mesh"]),
+                      steps=3, top=12, kinds=TRAIN_KINDS)
+    del meshed
     torch.cuda.empty_cache()
     sweep(torch, F, kernels, device)
     train_sweep(torch, F, kernels, device)

@@ -9,11 +9,14 @@ caches), with the decode-attention kernels written in CUDA C++
 flash decode),
 and its training path (``forward``, ``loss_fn`` and ``make_train_step``
 in ``models.transformer``), with the flash-attention forward and
-backward kernels (``csrc/flash_attention.cu``). Importing the package
-needs neither ``nvcc`` nor a GPU: kernels build at first launch.
+backward kernels (``csrc/flash_attention.cu``), and the forward path
+under a mesh (``parallel``: a mesh over a ``torch.distributed`` world,
+its collectives, and ring attention with the ring-carry kernel of the
+same file). Importing the package needs neither ``nvcc`` nor a GPU:
+kernels build at first launch.
 """
 
 from .context import cpu, gpu, resolve_device
-from . import kernels, models
+from . import kernels, models, parallel
 
-__all__ = ["cpu", "gpu", "resolve_device", "kernels", "models"]
+__all__ = ["cpu", "gpu", "resolve_device", "kernels", "models", "parallel"]

@@ -11,14 +11,20 @@
 //                  dS = P * (dO V^T - delta).
 //   flash_bwd_dkv  replaces flash_attention.py::_dkv_kernel:
 //                  dV = sum_q P^T dO, dK = sum_q dS^T (scale * Q).
+//   flash_carry    replaces flash_attention.py::_carry_kernel (reached via
+//                  flash_carry_block), one step of ring attention: folds a
+//                  K/V shard into an unnormalised fp32 (o, m, l) carry,
+//                  with the causal mask taken at global positions
+//                  (q_offset + i >= kv_offset + j).
 //
 // delta = rowsum(dO * O) is computed by the caller (a torch expression),
 // as the JAX package computes it outside its kernels.
 //
 // Decomposition, as the TPU kernels: one CTA per (bh, 64-row query tile)
-// for the forward and dQ, looping over key tiles; one CTA per (bh, 64-row
-// key tile) for dK/dV, looping over query tiles. Causal masking is
-// top-left aligned (query i attends key j iff i >= j); tiles wholly above
+// for the forward, the carry step and dQ, looping over key tiles; one CTA
+// per (bh, 64-row key tile) for dK/dV, looping over query tiles. Causal
+// masking is top-left aligned (query i attends key j iff i >= j; the
+// carry step shifts both by their global offsets); tiles wholly above
 // the diagonal are skipped, and masked scores inside a live tile take the
 // finite -1e30 of the reference. Unlike the TPU kernels, whose tiles must
 // divide T, the last tile of either axis is bounds-masked, so any Tq and
@@ -42,7 +48,10 @@
 // kernels, with shared-memory reads as their limit (8 loads per 16 FMAs in
 // the score dots), sit far above that (PERF.md has their times). Tensor
 // cores (wgmma on bf16 tiles), TMA staging and overlapping loads with
-// compute are a later change.
+// compute are a later change. flash_carry does the forward's work and
+// moves the fp32 carry besides (o read and written: 8 D bytes a row
+// against the 2 D of a bf16 q), so its bound is the bytes wherever a step
+// is short or mostly masked.
 //
 // Plain C interface, loaded with ctypes: pointers and the stream arrive as
 // void*, every entry returns cudaGetLastError() (or the error of the
@@ -244,6 +253,118 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = from_float<T>(acc[i][c] / ll);
     if (tx == 0) lse[(size_t)bh * tq + row] = m[i] + logf(ll);
+  }
+}
+
+// ----------------------------------------------------------------------
+// flash_carry: grid (BH, ceil(Tq / 64)), as flash_fwd, but the online
+// (o, m, l) starts from the carry (o_in, m_in, l_in) and is written back
+// unnormalised in fp32: no lse, no floor on l. Causal liveness is taken at
+// global positions: key tile kt is live iff kv_offset + 64 kt <= q_offset +
+// q0 + 63 (_carry_kernel's test), and a masked score inside a live tile is
+// -1e30, so a row that has seen no unmasked key gets p = exp(0) = 1 for
+// each masked key, as the reference computes it. A query tile with no live
+// key tile writes its carry through bitwise (the whole call, when the K/V
+// shard lies past the diagonal).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_carry_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* o_in,
+                   const float* m_in, const float* l_in, float* o_out,
+                   float* m_out, float* l_out, int tq, int tk, int q_offset,
+                   int kv_offset, int causal, float scale) {
+  constexpr int NC = D / 16;
+  extern __shared__ float smem[];
+  float* q_s = smem;                      // [64][D+1], pre-scaled
+  float* k_s = q_s + kTile * (D + 1);     // [64][D+1]
+  float* v_s = k_s + kTile * (D + 1);     // [64][D+1]
+  float* p_s = v_s + kTile * (D + 1);     // [64][65]
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int q0 = qt * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const T* kb = k + (size_t)bh * tk * D;
+  const T* vb = v + (size_t)bh * tk * D;
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const bool in = row < tq;
+    const size_t r = (size_t)bh * tq + row;
+    m[i] = in ? m_in[r] : kNegInf;
+    l[i] = in ? l_in[r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      acc[i][c] = in ? o_in[r * D + tx + 16 * c] : 0.f;
+  }
+  int n_kt = (tk + kTile - 1) / kTile;
+  if (causal) {
+    // the last global query position of this tile, less the first key's
+    const long long reach = (long long)q_offset + q0 + kTile - 1 - kv_offset;
+    n_kt = reach < 0 ? 0 : (int)min((long long)n_kt, reach / kTile + 1);
+  }
+  if (n_kt > 0) stage_rows<T, D>(q_s, q + (size_t)bh * tq * D, q0, tq, scale);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();                      // the last tile's reads are done
+    stage_rows<T, D>(k_s, kb, k0, tk, 1.f);
+    stage_rows<T, D>(v_s, vb, k0, tk, 1.f);
+    __syncthreads();
+    float s[4][4];
+    row_dots<D>(s, q_s, k_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long qp = (long long)q_offset + q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kc = k0 + tx + 16 * j;
+        if (kc >= tk) s[i][j] = -INFINITY;          // past the keys: p = 0
+        else if (causal && qp < (long long)kv_offset + kc) s[i][j] = kNegInf;
+      }
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        ps += p;
+        p_s[(ty + 16 * i) * kPS + tx + 16 * j] = p;
+      }
+      l[i] = alpha * l[i] + row_sum(ps);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+      m[i] = m_new;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float vv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) vv[c] = v_s[kk * (D + 1) + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = p_s[(ty + 16 * i) * kPS + kk];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= tq) continue;
+    const size_t r = (size_t)bh * tq + row;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) o_out[r * D + tx + 16 * c] = acc[i][c];
+    if (tx == 0) {
+      m_out[r] = m[i];
+      l_out[r] = l[i];
+    }
   }
 }
 
@@ -452,6 +573,21 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 template <typename T, int D>
+int carry(const void* q, const void* k, const void* v, const void* o_in,
+          const void* m_in, const void* l_in, void* o_out, void* m_out,
+          void* l_out, int bh, int tq, int tk, int q_offset, int kv_offset,
+          int causal, float scale, cudaStream_t s) {
+  return launch(flash_carry_kernel<T, D>,
+                dim3(bh, (tq + kTile - 1) / kTile), tiles_bytes(D, 3, 1), s,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<const float*>(o_in),
+                static_cast<const float*>(m_in),
+                static_cast<const float*>(l_in), static_cast<float*>(o_out),
+                static_cast<float*>(m_out), static_cast<float*>(l_out), tq, tk,
+                q_offset, kv_offset, causal, scale);
+}
+
+template <typename T, int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int bh, int tq,
            int tk, int causal, float scale, cudaStream_t s) {
@@ -501,6 +637,20 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v,
               float scale, void* stream) {
   if (!args_ok(dtype, d, bh, tq, tk)) return (int)cudaErrorInvalidValue;
   return DISPATCH(fwd, dtype, d, q, k, v, o, lse, bh, tq, tk, causal, scale,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// One ring step: q, k, v in `dtype`; the carry o [BH, Tq, D], m and l
+// [BH, Tq] are float32, read from *_in and written to *_out. q_offset and
+// kv_offset are the global positions of q's and k's first rows.
+int flash_carry(int dtype, const void* q, const void* k, const void* v,
+                const void* o_in, const void* m_in, const void* l_in,
+                void* o_out, void* m_out, void* l_out, int bh, int tq, int tk,
+                int d, int q_offset, int kv_offset, int causal, float scale,
+                void* stream) {
+  if (!args_ok(dtype, d, bh, tq, tk)) return (int)cudaErrorInvalidValue;
+  return DISPATCH(carry, dtype, d, q, k, v, o_in, m_in, l_in, o_out, m_out,
+                  l_out, bh, tq, tk, q_offset, kv_offset, causal, scale,
                   static_cast<cudaStream_t>(stream));
 }
 

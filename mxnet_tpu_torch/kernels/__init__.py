@@ -3,11 +3,12 @@ version. A wrapper takes the plain version only for tensors on the CPU;
 on a CUDA tensor it launches its kernel or raises."""
 
 from ._build import launches
-from .flash_attention import (dense_attention_bwd, dense_attention_with_lse,
+from .flash_attention import (carry_block_reference, dense_attention_bwd,
+                              dense_attention_with_lse,
                               dense_decode_with_lse, flash_attention,
                               flash_attention_bwd, flash_attention_with_lse,
-                              flash_bwd_dkv, flash_bwd_dq, flash_decode,
-                              flash_decode_with_lse)
+                              flash_bwd_dkv, flash_bwd_dq, flash_carry_block,
+                              flash_decode, flash_decode_with_lse)
 from .paged_decode import paged_attention, paged_attention_reference
 
 __all__ = ["launches", "paged_attention", "paged_attention_reference",
@@ -15,4 +16,5 @@ __all__ = ["launches", "paged_attention", "paged_attention_reference",
            "flash_attention_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "dense_attention_with_lse",
            "dense_attention_bwd", "flash_decode", "flash_decode_with_lse",
-           "dense_decode_with_lse"]
+           "dense_decode_with_lse", "flash_carry_block",
+           "carry_block_reference"]

@@ -49,6 +49,10 @@ SIGNATURES = {
         # dtype, q, k, v, o, lse, bh, tq, tk, d, causal, scale, stream
         "flash_fwd": [_c_int] + [_ptr] * 5 + [_c_int] * 5
                      + [_c_float, _ptr],
+        # dtype, q, k, v, o_in, m_in, l_in, o_out, m_out, l_out,
+        # bh, tq, tk, d, q_offset, kv_offset, causal, scale, stream
+        "flash_carry": [_c_int] + [_ptr] * 9 + [_c_int] * 7
+                       + [_c_float, _ptr],
         # dtype, q, k, v, do, lse, delta, dq,
         # bh, tq, tk, d, causal, scale, stream
         "flash_bwd_dq": [_c_int] + [_ptr] * 7 + [_c_int] * 5

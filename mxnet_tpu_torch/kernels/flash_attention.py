@@ -33,8 +33,13 @@ flops per byte of bf16 cache); the cache is read once and nothing but
 (o, lse) is written. ``dense_decode_with_lse`` is its plain version: the
 same contract by plain tensor ops, PV accumulated in fp32.
 
-The ring step of the JAX module (``flash_carry_block``) is not ported
-yet.
+Ring attention: ``flash_carry_block`` launches the ``flash_carry`` kernel
+of ``csrc/flash_attention.cu`` on CUDA tensors. It replaces the TPU
+kernel ``_carry_kernel`` (reached via the JAX ``flash_carry_block``): one
+ring step folds a K/V shard into an unnormalised fp32 (o, m, l) carry,
+with the causal mask at global positions. ``carry_block_reference`` is
+its plain version, with the kernel's arithmetic (q pre-scaled in fp32,
+masked scores at the finite -1e30). It is forward-only, as in JAX.
 """
 
 import math
@@ -47,7 +52,8 @@ from .common import DTYPE_CODE, NEG_INF, check_cuda_inputs
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "dense_attention_with_lse", "dense_attention_bwd",
-           "flash_decode", "flash_decode_with_lse", "dense_decode_with_lse"]
+           "flash_decode", "flash_decode_with_lse", "dense_decode_with_lse",
+           "flash_carry_block", "carry_block_reference"]
 
 FLASH_HEAD_DIMS = (64, 128)     # head dims the training kernels are built for
 
@@ -247,6 +253,87 @@ def flash_attention(q, k, v, causal=False):
 
     out = _FlashAttention.apply(to_bh(q), to_bh(k), to_bh(v), bool(causal))
     return out.reshape(b, h, tq, d).transpose(1, 2)
+
+
+# --------------------------------------------------------- ring step ---
+
+def carry_block_reference(q, k, v, o, m, l, q_offset, kv_offset, causal):
+    """The updated carry (o, m, l) by plain tensor ops — the contract of
+    :func:`flash_carry_block`, in the accumulation dtype (fp32, or
+    float64 for float64 inputs): scores from q pre-scaled by 1/sqrt(D),
+    masked at global positions to the finite -1e30; a call wholly past
+    the diagonal returns the carry."""
+    acc = _acc_dtype(q)
+    tq, tk = q.shape[1], k.shape[1]
+    if causal and kv_offset > q_offset + tq - 1:
+        return tuple(t.to(acc, copy=True) for t in (o, m, l))
+    qs = q.to(acc) * _scale(q)
+    s = qs @ k.to(acc).transpose(1, 2)
+    if causal:
+        rows = torch.arange(tq, device=q.device)
+        cols = torch.arange(tk, device=q.device)
+        s = torch.where(q_offset + rows[:, None] >= kv_offset + cols[None, :],
+                        s, NEG_INF)
+    m_new = torch.maximum(m.to(acc), s.amax(dim=-1))
+    alpha = torch.exp(m.to(acc) - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = alpha * l.to(acc) + p.sum(dim=-1)
+    o_new = alpha[..., None] * o.to(acc) + p @ v.to(acc)
+    return o_new, m_new, l_new
+
+
+def flash_carry_block(q, k, v, o, m, l, q_offset, kv_offset, causal):
+    """One ring-attention step: fold k, v [BH, Tk, D] into the
+    UNNORMALISED carry of q [BH, Tq, D] — o [BH, Tq, D] and the running
+    max m and sum l [BH, Tq], all fp32 — and return the new (o, m, l).
+    ``q_offset`` and ``kv_offset`` (host ints) are the global positions of
+    q's and k's first rows; with ``causal`` query i attends key j iff
+    q_offset + i >= kv_offset + j. The caller normalises o / l at the end
+    of the ring. Any Tq and Tk are taken.
+
+    Launches ``flash_carry`` on CUDA tensors (float32 or bfloat16 q/k/v,
+    D 64 or 128); CPU tensors take :func:`carry_block_reference`. A call
+    whose K/V lie wholly past the diagonal returns the carry bitwise.
+
+    Rows that have seen no unmasked key are unspecified: masked scores are
+    the finite -1e30, so such a row gets p = 1 for every masked key of a
+    key tile the kernel visits (l counts them, m stays -1e30), and which
+    tiles are visited depends on the tile size (64 here, 128 in the JAX
+    kernel, every key in its jnp route). A ring never makes such a row: its
+    first step is the shard's own block, where every row sees its own key.
+
+    Forward-only, as in JAX: raises if grad mode is on and any input
+    requires a gradient."""
+    _check_qkv(q, k, v)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, o, m, l)):
+        raise RuntimeError("flash_carry_block is forward-only (as the JAX "
+                           "carry kernel): no input may require a gradient")
+    if o.shape != q.shape or m.shape != q.shape[:2] or l.shape != m.shape:
+        raise ValueError("the carry must be o %s and m, l %s, not %s / %s / %s"
+                         % (tuple(q.shape), tuple(q.shape[:2]),
+                            tuple(o.shape), tuple(m.shape), tuple(l.shape)))
+    q_offset, kv_offset = int(q_offset), int(kv_offset)
+    if not all(-2 ** 31 <= x < 2 ** 31 for x in (q_offset, kv_offset)):
+        raise ValueError("offsets must fit in int32")
+    if q.device.type == "cpu":
+        return carry_block_reference(q, k, v, o, m, l, q_offset, kv_offset,
+                                     causal)
+    for t in (o, m, l):
+        if t.dtype != torch.float32:
+            raise TypeError("the carry is float32, not %s" % t.dtype)
+    _check_flash_inputs((q, k, v), (m, l))
+    _check_flash_inputs((o,), (m, l))
+    bh, tq, d = q.shape
+    o_out, m_out, l_out = (torch.empty_like(t) for t in (o, m, l))
+    status = _build.load("flash_attention").flash_carry(
+        DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), m.data_ptr(), l.data_ptr(), o_out.data_ptr(),
+        m_out.data_ptr(), l_out.data_ptr(), bh, tq, k.shape[1], d, q_offset,
+        kv_offset, int(causal), _scale(q), _build.current_stream_ptr(q.device))
+    _build.check(status, "flash_carry")
+    _build.launches["flash_carry"] += 1
+    return o_out, m_out, l_out
 
 
 # ------------------------------------------------------------- decode ---

@@ -6,21 +6,27 @@ The JAX package keeps the transformer's parameters as a tree of arrays
 ...]}) and its momentum as a tree of the same shape in fp32; the port
 keeps the parameters in a :class:`~.transformer.TransformerLM` with the
 same names and shapes, and the momentum as a dict by parameter name
-(``init_momentum``). Serving state crosses too: per-layer KV caches and
+(``init_momentum``). The config crosses by field name
+(``config_from_jax``), the mesh axes and ``use_ring_attention`` with the
+rest; sharding does not change the parameter tree, so ``params_from_jax``
+serves meshes too. Serving state crosses as well: per-layer KV caches and
 block pools, [{"k", "v"}, ...] or, under int8 KV, [{"k", "ks", "v",
 "vs"}, ...] in both packages. Everything crosses as numpy arrays, so this
 module imports nothing of JAX.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..context import resolve_device
-from .transformer import (TransformerLM, flatten_tree, load_numpy_tree,
-                          numpy_to_tensor, unflatten_tree)
+from .transformer import (TransformerConfig, TransformerLM, flatten_tree,
+                          load_numpy_tree, numpy_to_tensor, unflatten_tree)
 
-__all__ = ["params_from_jax", "params_to_numpy", "momentum_from_jax",
-           "momentum_to_numpy", "cache_from_jax", "cache_to_numpy"]
+__all__ = ["config_from_jax", "params_from_jax", "params_to_numpy",
+           "momentum_from_jax", "momentum_to_numpy", "cache_from_jax",
+           "cache_to_numpy"]
 
 # dtypes a cache leaf may have, by numpy name
 _CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -33,6 +39,18 @@ def _numpy(t):
     holds it exactly)."""
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def config_from_jax(cfg):
+    """The port's :class:`TransformerConfig` holding the JAX package's
+    config ``cfg``: every field the port carries, by name, the dtype by
+    its numpy name (fields the port does not carry, such as
+    ``num_microbatches``, stay behind)."""
+    kw = {f.name: getattr(cfg, f.name)
+          for f in dataclasses.fields(TransformerConfig)
+          if hasattr(cfg, f.name)}
+    kw["dtype"] = _CACHE_DTYPES[np.dtype(cfg.dtype).name]
+    return TransformerConfig(**kw)
 
 
 def params_from_jax(tree, cfg, device=None):

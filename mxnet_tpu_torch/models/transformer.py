@@ -1,8 +1,9 @@
 """The transformer language model in PyTorch (port of
 ``mxnet_tpu/models/transformer.py``): config, seeded parameters, the
 training path (``forward``, ``loss_fn``, ``make_train_step``,
-``init_momentum``), and the serving path (prompt prefill, dense-cache and
-paged decode steps, greedy ``generate()``).
+``init_momentum``), the forward path under a mesh (``shard_params``, and
+``forward`` / ``loss_fn`` with ``mesh``), and the serving path (prompt
+prefill, dense-cache and paged decode steps, greedy ``generate()``).
 
 Function names, argument order and numerics follow the JAX module, so a
 reader finds each counterpart and one seed gives the same weights in
@@ -20,7 +21,18 @@ backward kernels in ``_causal_attention`` whenever
 ``cfg.use_flash_kernel`` (training, prefill, and ``generate()``'s
 prompt), the dense-cache flash-decode kernel in ``decode_step`` with the
 same flag, and the paged kernel in ``decode_step_paged`` (always, on
-CUDA tensors; its int8 mode for an int8 KV pool).
+CUDA tensors; its int8 mode for an int8 KV pool). Under a mesh, attention
+runs as ring attention over ``cfg.sp_axis`` (``parallel.ring``), each
+fold through the ring-carry kernel with ``cfg.use_flash_kernel``.
+
+Under a mesh (``parallel.make_mesh``, one rank per process) ``forward``
+and ``loss_fn`` take the GLOBAL tokens on every rank, as the JAX
+functions take a global array: each rank runs its block of the batch
+(over ``cfg.dp_axis``) and of the sequence (over ``cfg.sp_axis``), RoPE
+and the position table at global positions. ``forward`` all-gathers the
+logits, so every rank returns the global [B, T, vocab]; ``loss_fn``
+all-reduces its token losses over dp x sp, so every rank returns the
+global mean.
 
 Every serving path carries RoPE (keys are cached rotated) and int8 KV
 caches (int8 codes plus fp32 scale planes ``ks``/``vs`` per position and
@@ -30,8 +42,9 @@ through the one int8 contraction ``_int8_cache_attention``, and
 the batcher's admission read the prompt through the same quantiser.
 
 Not ported yet; each raises NotImplementedError where it would be asked
-for: meshes and pipeline stages, int8 weight trees, sampling and
-speculative verification.
+for: training under a mesh, tensor / expert sharding and pipeline stages
+(the next parallel slice), int8 weight trees, sampling and speculative
+verification.
 """
 
 import dataclasses
@@ -50,9 +63,12 @@ from ..kernels.common import kv_dequant as _kv_dequant  # noqa: F401
 from ..kernels.common import kv_quant as _kv_quant
 from ..kernels.flash_attention import flash_attention, flash_decode
 from ..kernels.paged_decode import paged_attention
+from ..parallel import NEXT_SLICE, all_gather, all_reduce
+from ..parallel.ring import ring_attention
 
 __all__ = ["TransformerConfig", "TransformerLM", "init_params", "forward",
-           "loss_fn", "make_train_step", "init_momentum", "init_cache",
+           "loss_fn", "make_train_step", "init_momentum", "shard_params",
+           "init_cache",
            "prefill", "prefill_chunk", "decode_step", "init_paged_cache",
            "paged_cache_nbytes", "decode_step_paged", "generate"]
 
@@ -69,15 +85,25 @@ class TransformerConfig:
     n_experts: int = 0          # 0 = dense FFN; >0 = top-all MoE every layer
     max_len: int = 128
     dtype: torch.dtype = torch.float32
+    # mesh axis names (None disables an axis): batch, heads / FFN hidden,
+    # sequence (ring attention) and experts; tp and ep above 1 are not
+    # ported yet
+    dp_axis: str = "dp"
+    tp_axis: str = "tp"
+    sp_axis: str = "sp"
+    ep_axis: str = "ep"
     pp_axis: str = None         # pipeline stages: not ported yet
     # rotary positions on q/k instead of the learned `pos` table (which a
     # rope model does not carry), in training and every serving path;
     # caches hold the keys rotated
     rope: bool = False
     rope_base: float = 10000.0
+    # under a mesh, attention over the sp axis as ring attention
+    use_ring_attention: bool = True
     # attention through the hand-written flash kernels: the training
-    # forward/backward and prefill, and decode_step's flash-decode kernel
-    # (not under kv_cache_int8, whose dense decode is the int8 contraction)
+    # forward/backward and prefill, each ring step under a mesh (the carry
+    # kernel), and decode_step's flash-decode kernel (not under
+    # kv_cache_int8, whose dense decode is the int8 contraction)
     use_flash_kernel: bool = False
     # activation recompute: backward re-runs each layer from its input
     # (torch.utils.checkpoint, non-reentrant) instead of storing it
@@ -89,7 +115,7 @@ class TransformerConfig:
 
 # config fields the port does not carry yet, and the slice that brings each
 _LATER = (
-    ("pp_axis", "pipeline stages arrive with the parallel slice (A7)"),
+    ("pp_axis", "pipeline stages arrive with " + NEXT_SLICE),
 )
 
 
@@ -101,11 +127,52 @@ def _check_supported(cfg):
                                                       later))
 
 
-def _check_mesh(mesh):
-    if mesh is not None:
+def _check_mesh(cfg, mesh):
+    """Raise for a mesh this slice cannot run: tp or ep above 1 (not
+    sharded yet), an sp axis above 1 without ring attention, or a mesh
+    without the dp or sp axis the config names (as the JAX package's
+    sharding specs and shard_map refuse a missing axis)."""
+    if mesh is None:
+        return
+    for name in (cfg.tp_axis, cfg.ep_axis):
+        if name and mesh.shape.get(name, 1) > 1:
+            raise NotImplementedError(
+                "mesh axis %r of size %d: tensor and expert sharding arrive "
+                "with %s" % (name, mesh.shape[name], NEXT_SLICE))
+    for field in ("dp_axis", "sp_axis"):
+        name = getattr(cfg, field)
+        if name and name not in mesh.shape:
+            raise ValueError("cfg.%s=%r is not an axis of the mesh %s (set "
+                             "it to None to leave that dimension unsharded)"
+                             % (field, name, mesh.shape))
+    if cfg.sp_axis and mesh.shape[cfg.sp_axis] > 1 \
+            and not cfg.use_ring_attention:
         raise NotImplementedError(
-            "meshes (tp/sp/ep/dp sharding, ring attention) arrive with the "
-            "parallel slice (A7)")
+            "a sequence sharded over %r without ring attention arrives with "
+            "%s" % (cfg.sp_axis, NEXT_SLICE))
+
+
+def _shard_spans(cfg, mesh, shape):
+    """((b0, b1), (t0, t1)): this rank's block of [B, T] tokens, over
+    cfg.dp_axis and cfg.sp_axis (the whole of a dimension with no axis, or
+    with no mesh)."""
+    spans = []
+    for name, size in zip((cfg.dp_axis, cfg.sp_axis), shape):
+        n = mesh.axis_size(name) if mesh is not None and name else 1
+        i = mesh.axis_index(name) if mesh is not None and name else 0
+        if size % n:
+            raise ValueError("dimension of size %d does not split over the "
+                             "%d ranks of axis %r" % (size, n, name))
+        spans.append((i * size // n, (i + 1) * size // n))
+    return spans
+
+
+def shard_params(params, cfg, mesh):
+    """Place the parameters for ``mesh``: with tp and ep at size 1 every
+    rank holds them whole, on its own device (the JAX function's specs
+    replicate every parameter then). tp or ep above 1 raises."""
+    _check_mesh(cfg, mesh)
+    return params.to(mesh.device)
 
 
 def _kvh(cfg):
@@ -348,21 +415,27 @@ def _pos_rows(table, pos):
 
 # ----------------------------------------------------------- training ---
 
-def _attention(x, p, cfg):
+def _attention(x, p, cfg, mesh=None, start=0):
+    """Attention of a layer over x [B, T, D], whose first row sits at
+    global position ``start`` (a rank's sequence offset under a mesh)."""
     q, k, v = _qkv(x, p)
     if cfg.rope:
-        positions = torch.arange(x.shape[1], device=x.device)
+        positions = start + torch.arange(x.shape[1], device=x.device)
         q = _rope(q, positions, cfg.rope_base)
         k = _rope(k, positions, cfg.rope_base)
     # training attends with the repeated view, as the JAX package does
     g = cfg.n_heads // _kvh(cfg)
-    o = _causal_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), cfg,
-                          x.dtype)
+    k, v = _repeat_kv(k, g), _repeat_kv(v, g)
+    if mesh is not None and cfg.use_ring_attention and cfg.sp_axis:
+        o = ring_attention(q, k, v, axis_name=cfg.sp_axis, causal=True,
+                           use_flash_kernel=cfg.use_flash_kernel, mesh=mesh)
+    else:
+        o = _causal_attention(q, k, v, cfg, x.dtype)
     return torch.einsum("bthk,hkd->btd", o, p.wo)
 
 
-def _layer(p, x, cfg):
-    x = x + _attention(_rms_norm(x, p.ln1), p, cfg)
+def _layer(p, x, cfg, mesh=None, start=0):
+    x = x + _attention(_rms_norm(x, p.ln1), p, cfg, mesh, start)
     return x + _ffn(_rms_norm(x, p.ln2), p, cfg)
 
 
@@ -372,34 +445,55 @@ def _tokens(tokens, device):
     return tokens.to(device=device, dtype=torch.long)
 
 
-def forward(params, tokens, cfg, mesh=None):
-    """tokens [B, T] int -> logits [B, T, vocab]. With
-    ``cfg.remat_layers`` each layer is checkpointed: backward re-runs it
-    from its input instead of keeping its activations."""
+def _forward_local(params, tokens, cfg, mesh):
+    """Logits of this rank's block of the global tokens [B, T] (all of
+    them without a mesh): [B_local, T_local, vocab]."""
     _check_supported(cfg)
-    _check_mesh(mesh)
-    tokens = _tokens(tokens, params.device)
-    x = params.embed[tokens]
+    _check_mesh(cfg, mesh)
+    (b0, b1), (t0, t1) = _shard_spans(cfg, mesh, tokens.shape)
+    x = params.embed[tokens[b0:b1, t0:t1]]
     if not cfg.rope:
-        x = x + params.pos[:tokens.shape[1]]
+        x = x + params.pos[t0:t1]
     for p in params.layers:
         if cfg.remat_layers:
-            x = checkpoint(_layer, p, x, cfg, use_reentrant=False)
+            x = checkpoint(_layer, p, x, cfg, mesh, t0, use_reentrant=False)
         else:
-            x = _layer(p, x, cfg)
+            x = _layer(p, x, cfg, mesh, t0)
     x = _rms_norm(x, params.ln_f)
     return torch.einsum("btd,vd->btv", x, params.embed)
 
 
+def forward(params, tokens, cfg, mesh=None):
+    """tokens [B, T] int -> logits [B, T, vocab]. With
+    ``cfg.remat_layers`` each layer is checkpointed: backward re-runs it
+    from its input instead of keeping its activations. Under ``mesh``
+    every rank passes the global tokens and gets the global logits."""
+    tokens = _tokens(tokens, params.device)
+    logits = _forward_local(params, tokens, cfg, mesh)
+    if mesh is not None:
+        for name, dim in ((cfg.sp_axis, 1), (cfg.dp_axis, 0)):
+            if name:
+                logits = all_gather(logits, name, axis=dim, mesh=mesh)
+    return logits
+
+
 def loss_fn(params, tokens, cfg, mesh=None):
     """Next-token cross entropy (mean over B, T-1), as a 0-dim fp32
-    tensor."""
+    tensor: the sum of the losses of this rank's tokens (all of them
+    without a mesh), all-reduced over dp x sp under ``mesh``, over the
+    global count, so every rank returns the global mean."""
     tokens = _tokens(tokens, params.device)
-    # the full sequence goes through the model; the logits are shifted
-    logits = forward(params, tokens, cfg, mesh)[:, :-1]
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
-    return nll.mean()
+    logits = _forward_local(params, tokens, cfg, mesh)
+    (b0, b1), (t0, t1) = _shard_spans(cfg, mesh, tokens.shape)
+    # the next token of each local position; the global last has none
+    targets = tokens[b0:b1, t0 + 1:t1 + 1]
+    logp = torch.log_softmax(logits[:, :targets.shape[1]].float(), dim=-1)
+    total = -logp.gather(-1, targets[..., None])[..., 0].sum()
+    if mesh is not None:
+        total = all_reduce(total, [n for n in (cfg.dp_axis, cfg.sp_axis)
+                                   if n], mesh=mesh)
+    b, t = tokens.shape
+    return total / (b * (t - 1))
 
 
 def init_momentum(params):
@@ -424,7 +518,11 @@ def make_train_step(cfg, mesh=None, lr=1e-2, guard=False):
     is not finite, leaves params and momentum untouched; the select runs
     on the device, with no host sync."""
     _check_supported(cfg)
-    _check_mesh(mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            "training under a mesh (gradients through the ring, a "
+            "differentiable ring_permute, the bucketed all-reduce) arrives "
+            "with " + NEXT_SLICE)
 
     def step(params, momentum, tokens):
         names, ps = zip(*params.named_parameters())

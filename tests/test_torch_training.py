@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from mxnet_tpu_torch import parallel
 from mxnet_tpu_torch.models import convert
 from mxnet_tpu_torch.models import transformer as ttf
 
@@ -195,8 +196,8 @@ def test_init_params_and_momentum_trees_match_jax(variant):
 
 def test_training_entry_points_raise_for_unported_options():
     tcfg = ttf.TransformerConfig(**CFG)
-    tp = ttf.init_params(tcfg, device="cpu")
+    mesh = parallel.make_mesh({"dp": 1, "sp": 1}, device="cpu")
     with pytest.raises(NotImplementedError, match="parallel slice"):
-        ttf.forward(tp, np.zeros((1, 4), np.int32), tcfg, mesh=object())
+        ttf.make_train_step(tcfg, mesh)
     with pytest.raises(NotImplementedError, match="parallel slice"):
         ttf.make_train_step(ttf.TransformerConfig(**dict(CFG, pp_axis="pp")))
