@@ -76,7 +76,24 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ms and tokens/s are printed; and ``sp_flash_decode`` at sp = 1 on the
    serving cache (8 lanes x 8 KV heads x 4096 x 64, bf16), through the
    flash-decode kernel, against its dense route at ``TOL``, both timed;
-8. times each decode step, and each kernel beside its plain version, a
+8. drives the imperative slice on gpu(0) through ``mxnet_tpu_torch.nd``,
+   ``autograd`` and ``rtc`` (B6) alone: the output head of step 6's
+   model at full width (8192 tokens x d_model 1024, bf16, against a
+   1024 x 32000 fp32 W, random from a seed), its mean cross-entropy in
+   ``nd`` reductions and its backward, held against the same expression
+   in plain torch (loss 1e-4 relative, W's gradient 1e-3 relative L2);
+   then five steps of SGD with momentum (lr 1.0, momentum 0.9) whose
+   update is a user kernel, once as CUDA C++ compiled at runtime by
+   NVRTC (``CudaModule``, the template ``sgd_mom_update<float>``) and
+   once as a Triton body (``PallasModule``), each step held against the
+   same update in ``nd`` ops at ``TOL_RTC``, with exactly one rtc launch
+   per step per route and a falling loss; saxpy at 2^28 fp32 elements as
+   a Triton body and MXNet's ``axpy`` template through ``CudaModule``;
+   a one-CTA-per-row sum of the 8192 x 32000 fp32 logits with 64 KB of
+   dynamic shared memory; a source that does not compile and a dtype
+   mismatch, which must raise before any launch; and a kernel writing a
+   reshaped NDArray, which must leave its source as it was;
+9. times each decode step, and each kernel beside its plain version, a
    one-call PyTorch yardstick (``scaled_dot_product_attention``, timed
    here only, forward, and backward through autograd for the flash
    backward kernels; none for the int8 mode or the carry kernel, which
@@ -84,19 +101,19 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    the flash forward's timing shape and at one past-shard step of the
    sp = 8 split of 1 x 8192; the paged kernel is timed on the served
    pool full, each block in one lane's table, in bfloat16 and int8;
-9. traces 16 decode steps of a serve run, of an int8 serve run and of
+10. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
    idle share and the kernels that took the most time;
-10. times the decode kernels (the paged kernel in bfloat16 and int8)
+11. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
-11. prints the kernels' JSON line, then as its last line
-    ``{"ok": true, "device": {...}}``.
+12. prints the card's name and power limit again, the kernels' JSON
+    line, then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
 result line. It imports nothing of JAX or of the JAX package.
@@ -1348,6 +1365,400 @@ def train_sweep(torch, F, kernels, device, tokens=8192, h=8, d=128):
         del q, k, v, do, o, lse, q4, k4, v4, do4
 
 
+# ------------------------------------------------------------- B6, rtc ---
+# The user program of the rtc phase: the flagship's output head (8 x 1024
+# tokens, d_model 1024, vocab 32000) through nd and autograd, its weight
+# updated by user kernels written for rtc. CUDA C++ for CudaModule:
+RTC_CUDA = r"""
+template <typename T>
+__global__ void sgd_mom_update(T *weight, T *mom, const T *grad, T lr,
+                               T momentum, int n) {
+  // mom = momentum * mom - lr * grad; weight += mom (sgd_mom_update, wd 0)
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    T m = momentum * mom[i] - lr * grad[i];
+    mom[i] = m;
+    weight[i] += m;
+  }
+}
+
+template <typename T>
+__global__ void axpy(const T *x, T *y, T alpha, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    y[i] += alpha * x[i];
+}
+
+extern "C" __global__ void row_sum(const float *x, float *out, int cols) {
+  // one CTA per row; the partial sums meet in dynamic shared memory
+  extern __shared__ float partial[];
+  const float *row = x + (size_t)blockIdx.x * cols;
+  float s = 0.f;
+  for (int j = threadIdx.x; j < cols; j += blockDim.x) s += row[j];
+  partial[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) partial[threadIdx.x] += partial[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = partial[0];
+}
+"""
+RTC_SIGNATURES = {
+    "sgd_mom_update<float>": "float *weight, float *mom, const float *grad, "
+                             "float lr, float momentum, int n",
+    "axpy<float>": "const float *x, float *y, float alpha, int n",
+    "row_sum": "const float *x, float *out, int cols",
+}
+RTC_HEAD = dict(tokens=8 * 1024, d_model=1024, vocab=32000)
+RTC_UPDATE = dict(steps=5, lr=1.0, momentum=0.9)
+RTC_SAXPY_N = 2 ** 28                  # 1 GiB per fp32 tensor
+RTC_ROWSUM = dict(block=1024, shared_mem=64 * 1024)
+RTC_THREADS, RTC_BLOCKS = 256, 132 * 32     # grid-stride launches
+RTC_TRITON_BLOCK = 1024
+# a user kernel against the same arithmetic in nd or torch ops, fp32,
+# (atol, rtol): NVRTC (and Triton) contract momentum * mom - lr * grad
+# and y + alpha * x into FMAs, which moves a result by about one ulp of
+# its terms (6e-8 of them); an update is ~1e-4 here and a weight ~0.1
+TOL_RTC = {"float32": (1e-6, 1e-6)}
+# the row sums: 32000 fp32 logits summed in two orders; either order's
+# rounding error stays under ~log2(32000) * 2^-24 = 1e-6 of sum |x| when
+# summed by trees, so allow 1e-5 of a row's sum |x|
+TOL_ROWSUM = 1e-5
+
+# Triton bodies for PallasModule, written as a Pallas body is: the
+# inputs, the scalars, then the fresh outputs. ``tl`` is bound to
+# triton.language by triton_bodies(), which runs on the card only.
+tl = None
+
+
+def saxpy_body(x_ptr, y_ptr, n, BLOCK: "tl.constexpr", o_ptr):
+    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    x = tl.load(x_ptr + offs, mask=mask)
+    y = tl.load(y_ptr + offs, mask=mask)
+    tl.store(o_ptr + offs, 2.0 * x + y, mask=mask)
+
+
+def sgd_mom_body(w_ptr, m_ptr, g_ptr, lr, momentum, n, BLOCK: "tl.constexpr",
+                 w_out, m_out):
+    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    w = tl.load(w_ptr + offs, mask=mask)
+    m = momentum * tl.load(m_ptr + offs, mask=mask) \
+        - lr * tl.load(g_ptr + offs, mask=mask)
+    tl.store(m_out + offs, m, mask=mask)
+    tl.store(w_out + offs, w + m, mask=mask)
+
+
+def triton_bodies():
+    global tl
+    import triton
+    import triton.language as tl
+    return triton, triton.jit(saxpy_body), triton.jit(sgd_mom_body)
+
+
+def head_loss_nd(nd, h, w, labels):
+    """The output head's mean cross-entropy, in nd ops only."""
+    logits = nd.dot(h, w.astype("bfloat16")).astype("float32")
+    top = nd.max(logits, axis=1, keepdims=True)
+    lse = nd.log(nd.sum(nd.exp(logits - top), axis=1, keepdims=True)) + top
+    return nd.mean(lse.reshape((-1,)) - nd.pick(logits, labels, axis=1))
+
+
+def head_loss_torch(torch, h, w, labels):
+    """The same expression written directly in torch ops."""
+    logits = (h @ w.to(torch.bfloat16)).float()
+    top = logits.amax(1, keepdim=True)
+    lse = torch.log(torch.exp(logits - top).sum(1, keepdim=True)) + top
+    return (lse[:, 0] - logits.gather(1, labels[:, None].long())[:, 0]).mean()
+
+
+def host_ms(torch, fn, iters):
+    """Mean host ms of ``fn`` over ``iters`` calls after one warm-up,
+    ending in a device sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def rtc_head(torch, nd, autograd, ctx):
+    """The head's forward and backward through nd/autograd, held against
+    plain torch: loss within 1e-4 relative, W's gradient within 1e-3
+    relative L2. Returns (h, W0, labels, head step ms)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, d, v = RTC_HEAD["tokens"], RTC_HEAD["d_model"], RTC_HEAD["vocab"]
+    h_t = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w_t = torch.randn(d, v, generator=gen, device="cuda") / d ** 0.5
+    labels_t = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    h = nd.array(h_t, ctx=ctx)
+    labels = nd.array(labels_t, ctx=ctx)
+    w = nd.array(w_t, ctx=ctx)
+    w.attach_grad()
+
+    def step():
+        with autograd.record():
+            loss = head_loss_nd(nd, h, w, labels)
+        loss.backward()
+        return loss
+
+    loss = float(step().asscalar())
+    wt = w_t.clone().requires_grad_(True)
+    want = head_loss_torch(torch, h_t, wt, labels_t)
+    want.backward()
+    want = want.detach()
+    rel_loss = abs(loss - float(want)) / abs(float(want))
+    rel_grad = rel_l2(w.grad._data, wt.grad)
+    def plain_step():
+        wt.grad = None
+        head_loss_torch(torch, h_t, wt, labels_t).backward()
+
+    head_ms, plain_ms = (host_ms(torch, fn, 5) for fn in (step, plain_step))
+    log("rtc head (8192 x 1024 bf16 @ 1024 x 32000, fp32 loss) through "
+        "nd/autograd: loss %.6f vs torch %.6f (rel %.3g, tol 1e-4), W.grad "
+        "rel L2 %.3g (tol 1e-3); forward + backward %.3f ms (plain torch "
+        "%.3f ms)" % (loss, float(want), rel_loss, rel_grad, head_ms,
+                      plain_ms))
+    if not rel_loss <= 1e-4 or not rel_grad <= 1e-3:
+        raise AssertionError("the head through nd/autograd disagrees with "
+                             "plain torch")
+    return h, w_t, labels, head_ms
+
+
+def rtc_train(torch, nd, autograd, ctx, h, w0, labels, update, route,
+              in_place):
+    """RTC_UPDATE["steps"] steps of the head, each updated by a user
+    kernel (``update(w, mom, lr, momentum)``; ``in_place``: it writes W
+    where it lies, W's buffer being its own) and held against the same
+    update in nd ops; returns the worst error."""
+    lr, momentum = RTC_UPDATE["lr"], RTC_UPDATE["momentum"]
+    w = nd.array(w0, ctx=ctx)
+    w.attach_grad()
+    mom = nd.zeros(w.shape, ctx=ctx)
+    losses, errs = [], []
+    for _ in range(RTC_UPDATE["steps"]):
+        with autograd.record():
+            loss = head_loss_nd(nd, h, w, labels)
+        loss.backward()
+        losses.append(float(loss.asscalar()))
+        del loss                   # the graph holds W's tensor
+        want_mom = momentum * mom - lr * w.grad
+        want_w = w + want_mom
+        ptr = w._data.data_ptr()
+        update(w, mom, lr, momentum)
+        if in_place and w._data.data_ptr() != ptr:
+            raise AssertionError("the %s update copied W" % route)
+        errs.append(max(
+            compare(w._data.detach(), want_w._data, "float32",
+                    "%s update, weight" % route, TOL_RTC),
+            compare(mom._data, want_mom._data, "float32",
+                    "%s update, momentum" % route, TOL_RTC)))
+    log("rtc %s: head losses %s" % (route, " ".join("%.5f" % x
+                                                    for x in losses)))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("the %s route's loss is not finite and falling"
+                             % route)
+    return max(errs)
+
+
+def rtc_phase(torch, kernels, mt):
+    """The rtc path on gpu(0): compile the user's CUDA source with NVRTC
+    and the Triton bodies, drive the head and its five-step updates
+    through both routes, the saxpy/axpy pair at 2^28 elements and the
+    64 KB shared-memory row sum, each against its plain version, and the
+    error paths. Returns the launch counts, errors and what the timing
+    needs."""
+    nd, autograd, rtc = mt.nd, mt.autograd, mt.rtc
+    ctx = mt.gpu(0)
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(RTC_CUDA, exports=("sgd_mom_update<float>",
+                                            "axpy<float>"))
+    cuda = {name: mod.get_kernel(name, sig)
+            for name, sig in RTC_SIGNATURES.items()}
+    triton, saxpy_jit, sgd_jit = triton_bodies()
+    pallas = rtc.PallasModule(
+        saxpy=(saxpy_jit, lambda x, y, n, block:
+               rtc.ShapeDtypeStruct(x.shape, x.dtype)),
+        sgd_mom_update=(sgd_jit, lambda w, m, g, lr, mo, n, block: [
+            rtc.ShapeDtypeStruct(w.shape, w.dtype),
+            rtc.ShapeDtypeStruct(m.shape, m.dtype)]))
+    log("rtc: NVRTC compiled the module in %.3f s (%s), set-up %.3f s"
+        % (mod.compile_seconds, mod.arch, time.perf_counter() - t0))
+
+    def grid1(n):
+        return (min(triton.cdiv(n, RTC_THREADS), RTC_BLOCKS), 1, 1)
+
+    def cuda_update(w, mom, lr, momentum):
+        cuda["sgd_mom_update<float>"].launch(
+            [w, mom, w.grad, lr, momentum, w.size], ctx, grid1(w.size),
+            (RTC_THREADS, 1, 1))
+
+    def triton_update(w, mom, lr, momentum):
+        new_w, new_mom = pallas.get_kernel("sgd_mom_update").launch(
+            [w, mom, w.grad, lr, momentum, w.size, RTC_TRITON_BLOCK],
+            grid_dims=(triton.cdiv(w.size, RTC_TRITON_BLOCK),))
+        nd.NDArray(new_w, ctx).copyto(w)
+        nd.NDArray(new_mom, ctx).copyto(mom)
+
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    h, w0, labels, head_ms = rtc_head(torch, nd, autograd, ctx)
+    errs = {"rtc:sgd_mom_update<float>": rtc_train(
+        torch, nd, autograd, ctx, h, w0, labels, cuda_update, "CudaModule",
+        True),
+        "rtc:sgd_mom_update": rtc_train(
+        torch, nd, autograd, ctx, h, w0, labels, triton_update,
+        "Triton PallasModule", False)}
+    counts = dict(kernels.launches)
+    steps = RTC_UPDATE["steps"]
+    if counts != {"rtc:sgd_mom_update<float>": steps,
+                  "rtc:sgd_mom_update": steps}:
+        raise AssertionError("the rtc update launched %s, not one launch "
+                             "per step per route" % counts)
+    log("rtc head training, both routes: %s launches in %.1f s"
+        % (counts, time.perf_counter() - t0))
+
+    # saxpy at 2^28 fp32 elements: o = 2x + y (Triton), y += 2x (CUDA)
+    n = RTC_SAXPY_N
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = nd.array(torch.randn(n, generator=gen, device="cuda"), ctx=ctx)
+    y = nd.array(torch.randn(n, generator=gen, device="cuda"), ctx=ctx)
+    saxpy = pallas.get_kernel("saxpy")
+    t0 = time.perf_counter()
+    out = saxpy.launch([x, y, n, RTC_TRITON_BLOCK],
+                       grid_dims=(triton.cdiv(n, RTC_TRITON_BLOCK),))
+    torch.cuda.synchronize()
+    triton_first_s = time.perf_counter() - t0
+    errs["rtc:saxpy"] = compare(out, 2.0 * x._data + y._data, "float32",
+                                "Triton saxpy, 2^28", TOL_RTC)
+    y_before = y._data.clone()
+    cuda["axpy<float>"].launch([x, y, 2.0, n], ctx, grid1(n),
+                               (RTC_THREADS, 1, 1))
+    errs["rtc:axpy<float>"] = compare(y._data, y_before + 2.0 * x._data,
+                                      "float32", "CUDA axpy, 2^28", TOL_RTC)
+    del out, y_before
+
+    # one CTA per row of the fp32 logits, 64 KB of dynamic shared memory
+    logits = nd.dot(h, nd.array(w0, ctx=ctx).astype("bfloat16")).astype(
+        "float32")
+    sums = nd.zeros((logits.shape[0],), ctx=ctx)
+    cuda["row_sum"].launch([logits, sums, logits.shape[1]], ctx,
+                           (logits.shape[0], 1, 1),
+                           (RTC_ROWSUM["block"], 1, 1),
+                           RTC_ROWSUM["shared_mem"])
+    want = logits._data.sum(1)
+    scale = logits._data.abs().sum(1)
+    share = float(((sums._data - want).abs() / (TOL_ROWSUM * scale)).max())
+    errs["rtc:row_sum"] = max_err(sums._data, want)
+    log("row_sum, 8192 x 32000 fp32, 1024 threads, 64 KB shared: max abs "
+        "err %.3g, worst err / (%g sum |x|) = %.3f"
+        % (errs["rtc:row_sum"], TOL_ROWSUM, share))
+    if not share <= 1.0:
+        raise AssertionError("row_sum disagrees with logits.sum(1)")
+    launched = dict(kernels.launches)
+
+    # the error paths, and a write through a view that must not show
+    try:
+        rtc.CudaModule("__global__ void broken(float *x) { x[0] = y; }")
+        raise AssertionError("a source that does not compile was accepted")
+    except mt.MXNetError as exc:
+        if "identifier" not in str(exc):
+            raise AssertionError("the NVRTC log is missing: %s" % exc)
+        log("rtc: a broken source raises MXNetError with NVRTC's log (%s)"
+            % str(exc).strip().splitlines()[-1][:100])
+    small = nd.array(np.arange(8, dtype=np.float32), ctx=ctx)
+    ints = nd.array(np.arange(8, dtype=np.int32), ctx=ctx)
+    try:
+        cuda["axpy<float>"].launch([ints, small, 2.0, 8], ctx, (1, 1, 1),
+                                   (32, 1, 1))
+        raise AssertionError("an int32 NDArray was passed as float *")
+    except mt.MXNetError as exc:
+        log("rtc: a dtype mismatch raises before launch (%s)" % exc)
+    ref_body = rtc.PallasModule(saxpy=(
+        lambda x_ref, y_ref, o_ref: o_ref.__setitem__(
+            Ellipsis, 2.0 * x_ref[...] + y_ref[...]),
+        lambda x, y: rtc.ShapeDtypeStruct(x.shape, x.dtype)))
+    try:
+        ref_body.get_kernel("saxpy").launch([small, small])
+        raise AssertionError("a ref body ran on CUDA tensors, no kernel")
+    except mt.MXNetError as exc:
+        log("rtc: a ref body given CUDA tensors raises (%s)" % exc)
+    view = small.reshape((2, 4))
+    cuda["axpy<float>"].launch([nd.ones((8,), ctx=ctx), view, 1.0, 8], ctx,
+                               (1, 1, 1), (32, 1, 1))
+    if not (np.array_equal(small.asnumpy(), np.arange(8))
+            and np.array_equal(view.asnumpy().reshape(-1),
+                               np.arange(8) + 1)):
+        raise AssertionError("a kernel's write through a view showed "
+                             "through another NDArray")
+    if dict(kernels.launches) != dict(launched, **{
+            "rtc:axpy<float>": launched["rtc:axpy<float>"] + 1}):
+        raise AssertionError("an error path launched a kernel")
+    log("rtc: a kernel writing a reshaped NDArray left its source as it was")
+    return {"launches": launched, "errs": errs, "head_ms": head_ms,
+            "compile_s": mod.compile_seconds,
+            "triton_first_s": triton_first_s,
+            "timing": (mod, cuda, pallas, triton, grid1, x, y, logits, sums,
+                       ctx)}
+
+
+def time_rtc(torch, nd, run):
+    """Each rtc kernel's ms beside its plain version, a one-call library
+    yardstick where one exists, and its bound."""
+    mod, cuda, pallas, triton, grid1, x, y, logits, sums, ctx = run["timing"]
+    n = x.size
+    lr, mo = RTC_UPDATE["lr"], RTC_UPDATE["momentum"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape = (RTC_HEAD["d_model"], RTC_HEAD["vocab"])
+    w, mom, g = (nd.array(torch.randn(shape, generator=gen, device="cuda"),
+                          ctx=ctx) for _ in range(3))
+    m = w.size
+    rows = {}
+    bound_update = bound_ms(5 * 4 * m, 4 * m, "float32")
+    bound_axpy = bound_ms(3 * 4 * n, 2 * n, "float32")
+
+    def plain_update():
+        new_mom = mo * mom._data - lr * g._data
+        return w._data + new_mom, new_mom
+
+    rows["rtc:sgd_mom_update<float>"] = (
+        time_ms(lambda: cuda["sgd_mom_update<float>"].launch(
+            [w, mom, g, lr, mo, m], ctx, grid1(m), (RTC_THREADS, 1, 1)), 20),
+        time_ms(plain_update, 20), None, bound_update)
+    rows["rtc:sgd_mom_update"] = (
+        time_ms(lambda: pallas.get_kernel("sgd_mom_update").launch(
+            [w, mom, g, lr, mo, m, RTC_TRITON_BLOCK],
+            grid_dims=(triton.cdiv(m, RTC_TRITON_BLOCK),)), 20),
+        rows["rtc:sgd_mom_update<float>"][1], None, bound_update)
+    library = time_ms(lambda: torch.add(y._data, x._data, alpha=2.0), 10)
+    rows["rtc:saxpy"] = (
+        time_ms(lambda: pallas.get_kernel("saxpy").launch(
+            [x, y, n, RTC_TRITON_BLOCK],
+            grid_dims=(triton.cdiv(n, RTC_TRITON_BLOCK),)), 10),
+        time_ms(lambda: 2.0 * x._data + y._data, 10), library, bound_axpy)
+    rows["rtc:axpy<float>"] = (
+        time_ms(lambda: cuda["axpy<float>"].launch(
+            [x, y, 2.0, n], ctx, grid1(n), (RTC_THREADS, 1, 1)), 10),
+        time_ms(lambda: y._data + 2.0 * x._data, 10), library, bound_axpy)
+    r, c = logits.shape
+    summed = time_ms(lambda: logits._data.sum(1), 20)
+    rows["rtc:row_sum"] = (
+        time_ms(lambda: cuda["row_sum"].launch(
+            [logits, sums, c], ctx, (r, 1, 1), (RTC_ROWSUM["block"], 1, 1),
+            RTC_ROWSUM["shared_mem"]), 20),
+        summed, summed, bound_ms(4 * r * c + 4 * r, r * c, "float32"))
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1399,6 +1810,7 @@ def main():
     trained = train(torch, tf, kernels, device)
     meshed = mesh_forward(torch, tf, parallel, kernels, device)
     sp_decode = check_sp_decode(torch, ring, kernels, meshed["mesh"], device)
+    rtc_run = rtc_phase(torch, kernels, mxnet_tpu_torch)
 
     rows = []
     for name, timing, run, err in (
@@ -1448,6 +1860,26 @@ def main():
                  "max_abs_err": carry_errs[("main 8x1024", "bfloat16", 128)],
                  "ms": ms, "plain_ms": plain, "bound_ms": bound,
                  "bound_by": bound_by, "library_ms": None})
+    for name, (ms, plain, lib, (bound, bound_by)) in time_rtc(
+            torch, mxnet_tpu_torch.nd, rtc_run).items():
+        route = "triton" if name in ("rtc:saxpy", "rtc:sgd_mom_update") \
+            else "cuda"
+        log("%s (%s): %.4f ms, plain %.4f ms, library %s ms, bound %.4f ms "
+            "(%s), %d launches in the rtc phase"
+            % (name, route, ms, plain, "-" if lib is None else "%.4f" % lib,
+               bound, bound_by, rtc_run["launches"][name]))
+        rows.append({"name": name, "route": route, "source": "chip_smoke.py",
+                     "replaces": "mxnet_tpu/rtc.py:63",
+                     "launches": rtc_run["launches"][name],
+                     "max_abs_err": rtc_run["errs"][name], "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": lib})
+    log("rtc: head forward + backward %.3f ms, NVRTC compile %.3f s, first "
+        "Triton launch (compile included) %.3f s"
+        % (rtc_run["head_ms"], rtc_run["compile_s"],
+           rtc_run["triton_first_s"]))
+    del rtc_run
+    torch.cuda.empty_cache()
     log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms; "
         "mesh forward %.3f ms" % (served["step_ms"], generated["step_ms"],
                                   trained["step_ms"], meshed["forward_ms"]))
@@ -1470,6 +1902,7 @@ def main():
     torch.cuda.empty_cache()
     sweep(torch, F, kernels, device)
     train_sweep(torch, F, kernels, device)
+    log(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,25 @@ in ``models.transformer``), with the flash-attention forward and
 backward kernels (``csrc/flash_attention.cu``), and the forward path
 under a mesh (``parallel``: a mesh over a ``torch.distributed`` world,
 its collectives, and ring attention with the ring-carry kernel of the
-same file). Importing the package needs neither ``nvcc`` nor a GPU:
+same file); and the imperative core: ``nd`` (the NDArray value type
+and the ops of ``ops.elemwise``, ``ops.reduce_ops`` and ``ops.matrix``),
+``autograd`` over torch.autograd, and ``rtc``, which compiles CUDA
+source at runtime with NVRTC (``CudaModule``) and launches Triton or
+plain bodies (``PallasModule``). The default context is ``gpu(0)``:
+without a CUDA device it raises; host callers say ``with cpu():``.
+Importing the package needs neither ``nvcc``, NVRTC, Triton nor a GPU:
 kernels build at first launch.
 """
 
-from .context import cpu, gpu, resolve_device
-from . import kernels, models, parallel
+from .base import MXNetError
+from .context import (Context, cpu, current_context, gpu, gpu_memory_info,
+                      num_gpus, resolve_device)
+from . import (autograd, engine, kernels, models, ndarray, ops, parallel,
+               random, rtc, storage)
 
-__all__ = ["cpu", "gpu", "resolve_device", "kernels", "models", "parallel"]
+nd = ndarray
+
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "gpu_memory_info", "resolve_device", "nd", "ndarray",
+           "autograd", "random", "rtc", "ops", "engine", "storage",
+           "kernels", "models", "parallel"]

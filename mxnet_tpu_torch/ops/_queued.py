@@ -1,0 +1,115 @@
+"""Op names of the JAX package's registry that the port does not have
+yet, by the JAX module that defines them and the ROADMAP queue item that
+ports it (A6: ``ops/nn.py`` and ``ops/optimizer_ops.py``; A9: the rest).
+Calling one raises ``MXNetError`` naming its module and item."""
+
+QUEUED_MODULES = {
+    "operator.py": ("A9", """
+Custom"""),
+    "ops/contrib_ops.py": ("A9", """
+_contrib_AdaptiveAvgPooling2D _contrib_BilinearResize2D
+_contrib_ROIAlign _contrib_RROIAlign _contrib_SparseEmbedding
+_contrib_allclose _contrib_arange_like
+_contrib_bipartite_matching _contrib_box_iou _contrib_box_nms
+_contrib_box_non_maximum_suppression _contrib_count_sketch
+_contrib_div_sqrt_dim _contrib_fft _contrib_gradientmultiplier
+_contrib_hawkesll _contrib_ifft _contrib_index_array
+_contrib_index_copy _contrib_interleaved_matmul_selfatt_qk
+_contrib_interleaved_matmul_selfatt_valatt _contrib_quadratic
+all_finite multi_all_finite quadratic"""),
+    "ops/control_flow_ops.py": ("A9", """
+_cond _foreach _while_loop"""),
+    "ops/image_ops.py": ("A9", """
+_image_adjust_lighting _image_crop _image_flip_left_right
+_image_flip_top_bottom _image_normalize _image_random_brightness
+_image_random_color_jitter _image_random_contrast
+_image_random_flip_left_right _image_random_flip_top_bottom
+_image_random_hue _image_random_lighting
+_image_random_saturation _image_resize _image_to_tensor
+image_adjust_lighting image_crop image_flip_left_right
+image_flip_top_bottom image_normalize image_random_brightness
+image_random_color_jitter image_random_contrast
+image_random_flip_left_right image_random_flip_top_bottom
+image_random_hue image_random_lighting image_random_saturation
+image_resize image_to_tensor"""),
+    "ops/linalg.py": ("A9", """
+_linalg_det _linalg_extractdiag _linalg_extracttrian
+_linalg_gelqf _linalg_gemm _linalg_gemm2 _linalg_inverse
+_linalg_makediag _linalg_maketrian _linalg_potrf _linalg_potri
+_linalg_slogdet _linalg_sumlogdiag _linalg_syevd _linalg_syrk
+_linalg_trmm _linalg_trsm det inverse linalg_det
+linalg_extractdiag linalg_extracttrian linalg_gelqf linalg_gemm
+linalg_gemm2 linalg_inverse linalg_makediag linalg_maketrian
+linalg_potrf linalg_potri linalg_slogdet linalg_sumlogdiag
+linalg_syevd linalg_syrk linalg_trmm linalg_trsm slogdet"""),
+    "ops/nn.py": ("A6", """
+Activation BatchNorm BatchNorm_v1 CTCLoss Convolution
+Deconvolution Dropout FullyConnected GroupNorm
+IdentityAttachKLSparseReg InstanceNorm LRN LayerNorm LeakyReLU
+LinearRegressionOutput LogisticRegressionOutput
+MAERegressionOutput Pooling RNN ROIPooling SVMOutput Softmax
+SoftmaxActivation SoftmaxOutput SpatialTransformer
+_contrib_SyncBatchNorm ctc_loss log_softmax softmax
+softmax_cross_entropy softmin"""),
+    "ops/numpy_ops.py": ("A9", """
+_np_broadcast_to _np_copy _np_cumsum _np_dot _np_ones_like
+_np_prod _np_reshape _np_squeeze _np_sum _np_transpose
+_np_zeros_like _npi_arange _npi_argmax _npi_broadcast_to
+_npi_concatenate _npi_cumsum _npi_log _npi_ones _npi_reshape
+_npi_rtrue_divide_scalar _npi_stack _npi_stack_concat_guard
+_npi_sum _npi_tensordot _npi_tensordot_int_axes _npi_true_divide
+_npi_true_divide_scalar _npi_uniform _npi_zeros"""),
+    "ops/optimizer_ops.py": ("A6", """
+_adamw_update _contrib_adamw_update
+_contrib_group_adagrad_update _contrib_mp_adamw_update
+_mp_adamw_update _sparse_adagrad_update adam_update adamw_update
+ftml_update ftrl_update mp_nag_mom_update mp_sgd_mom_update
+mp_sgd_update multi_mp_sgd_mom_update multi_mp_sgd_update
+multi_sgd_mom_update multi_sgd_update nag_mom_update
+preloaded_multi_sgd_mom_update preloaded_multi_sgd_update
+rmsprop_update rmspropalex_update sgd_mom_update sgd_update
+signsgd_update signum_update"""),
+    "ops/quantization_ops.py": ("A9", """
+_contrib_calibrate_entropy _contrib_dequantize _contrib_quantize
+_contrib_quantize_v2 _contrib_quantized_act
+_contrib_quantized_batch_norm _contrib_quantized_concat
+_contrib_quantized_conv _contrib_quantized_elemwise_add
+_contrib_quantized_flatten _contrib_quantized_fully_connected
+_contrib_quantized_pooling _contrib_requantize"""),
+    "ops/random_ops.py": ("A9", """
+_random_exponential _random_gamma
+_random_generalized_negative_binomial _random_negative_binomial
+_random_normal _random_pdf_dirichlet _random_pdf_exponential
+_random_pdf_gamma _random_pdf_generalized_negative_binomial
+_random_pdf_negative_binomial _random_pdf_normal
+_random_pdf_poisson _random_pdf_uniform _random_poisson
+_random_randint _random_uniform _sample_exponential
+_sample_gamma _sample_generalized_negative_binomial
+_sample_multinomial _sample_negative_binomial _sample_normal
+_sample_poisson _sample_uniform _sample_unique_zipfian
+exponential gamma_sample multinomial normal pdf_dirichlet
+pdf_exponential pdf_gamma pdf_generalized_negative_binomial
+pdf_negative_binomial pdf_normal pdf_poisson pdf_uniform poisson
+randint random_exponential random_gamma
+random_generalized_negative_binomial random_negative_binomial
+random_normal random_poisson random_uniform sample_exponential
+sample_gamma sample_generalized_negative_binomial
+sample_multinomial sample_negative_binomial sample_normal
+sample_poisson sample_uniform uniform"""),
+    "ops/vision_ops.py": ("A9", """
+Correlation DeformableConvolution DeformablePSROIPooling
+MultiBoxDetection MultiBoxPrior MultiBoxTarget MultiProposal
+PSROIPooling Proposal _contrib_DeformableConvolution
+_contrib_DeformablePSROIPooling _contrib_MultiBoxDetection
+_contrib_MultiBoxPrior _contrib_MultiBoxTarget
+_contrib_MultiProposal _contrib_PSROIPooling _contrib_Proposal
+_contrib_dgl_adjacency
+_contrib_dgl_csr_neighbor_non_uniform_sample
+_contrib_dgl_csr_neighbor_uniform_sample
+_contrib_dgl_graph_compact _contrib_dgl_subgraph
+_contrib_edge_id _contrib_getnnz"""),
+}
+
+QUEUED = {name: (module, item)
+          for module, (item, names) in QUEUED_MODULES.items()
+          for name in names.split()}
