@@ -9,7 +9,10 @@ Run from the root of a checkout on a machine with one CUDA GPU and
 1. fails unless ``torch.cuda.is_available()``, and prints the card's name
    and power limit as ``nvidia-smi`` reports them;
 2. builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together) and prints the build seconds;
+   ``nvcc`` per source, started together), prints the build seconds and
+   each kernel's route (``ROUTES``: the bf16 flash forward and ring-carry
+   step run the tensor-core template ``flash_fwd_sm90``, every other
+   kernel and dtype the CUDA cores);
 3. holds each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, each at the tolerance stated by ``TOL`` or
    ``TOL_FLASH``: the paged decode kernel on 32 lanes of 8 KV heads x 64
@@ -96,16 +99,19 @@ Run from the root of a checkout on a machine with one CUDA GPU and
 9. times each decode step, and each kernel beside its plain version, a
    one-call PyTorch yardstick (``scaled_dot_product_attention``, timed
    here only, forward, and backward through autograd for the flash
-   backward kernels; none for the int8 mode or the carry kernel, which
-   gets SDPA's forward beside it) and its bound; the ring-carry kernel at
-   the flash forward's timing shape and at one past-shard step of the
-   sp = 8 split of 1 x 8192; the paged kernel is timed on the served
-   pool full, each block in one lane's table, in bfloat16 and int8;
+   backward kernels; none for the int8 mode; for the carry kernel SDPA's
+   forward, which a fresh carry at equal offsets turns into o / l) and
+   its bound; the ring-carry kernel at the flash forward's timing shape
+   and at one past-shard step of the sp = 8 split of 1 x 8192; the flash
+   forward and the ring-carry kernel again at head dim 64 beside SDPA;
+   the paged kernel is timed on the served pool full, each block in one
+   lane's table, in bfloat16 and int8;
 10. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
-   idle share and the kernels that took the most time;
+   idle share and the kernels that took the most time; the bf16 train
+   step and mesh forward must show the tensor-core template among them;
 11. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, and the
@@ -214,10 +220,10 @@ MESH_CFG = dict(TRAIN_CFG, max_len=8192)
 SOURCE = {"paged_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "paged_decode_int8": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "flash_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
-          "flash_fwd": "mxnet_tpu_torch/csrc/flash_attention.cu",
+          "flash_fwd": "mxnet_tpu_torch/csrc/flash_fwd_sm90.cuh",
           "flash_bwd_dq": "mxnet_tpu_torch/csrc/flash_attention.cu",
           "flash_bwd_dkv": "mxnet_tpu_torch/csrc/flash_attention.cu",
-          "flash_carry": "mxnet_tpu_torch/csrc/flash_attention.cu"}
+          "flash_carry": "mxnet_tpu_torch/csrc/flash_fwd_sm90.cuh"}
 REPLACES = {"paged_decode": "mxnet_tpu/kernels/paged_decode.py:69",
             "paged_decode_int8": "mxnet_tpu/kernels/paged_decode.py:69",
             "flash_decode": "mxnet_tpu/kernels/flash_attention.py:439",
@@ -225,6 +231,19 @@ REPLACES = {"paged_decode": "mxnet_tpu/kernels/paged_decode.py:69",
             "flash_bwd_dq": "mxnet_tpu/kernels/flash_attention.py:253",
             "flash_bwd_dkv": "mxnet_tpu/kernels/flash_attention.py:291",
             "flash_carry": "mxnet_tpu/kernels/flash_attention.py:134"}
+# what each kernel runs on: bf16 B1 and B5 are the tensor-core template
+# (flash_fwd_sm90.cuh); float32 keeps the CUDA-core kernels, whose every
+# dot is fp32 (the fp32 gates and the mesh loss's equality rest on them)
+TEMPLATE = "flash_fwd_sm90"
+ROUTES = {"paged_decode": "CUDA cores (fp32, bf16)",
+          "paged_decode_int8": "CUDA cores (dp4a)",
+          "flash_decode": "CUDA cores (fp32, bf16)",
+          "flash_fwd": "bf16: wgmma template %s (TMA, P split hi + lo); "
+                       "fp32: CUDA cores" % TEMPLATE,
+          "flash_bwd_dq": "CUDA cores (fp32, bf16)",
+          "flash_bwd_dkv": "CUDA cores (fp32, bf16)",
+          "flash_carry": "bf16: wgmma template %s (TMA, P split hi + lo); "
+                         "fp32: CUDA cores" % TEMPLATE}
 
 
 def log(msg):
@@ -681,7 +700,7 @@ def time_flash_carry(torch, F, kernels, device, b=8, h=8, t=1024, d=128):
     plain version and one SDPA forward; then one past-shard step of the
     sp = 8 split of 1 x 8192 (8 batch-heads x 1024 at offsets 7168 and 0,
     an in-flight carry). Returns {label: (ms, plain ms, (bound, bound
-    by))} and logs both rows."""
+    by), SDPA forward ms or None)} and logs both rows."""
     rows = {}
     for label, bh, q_off, kv_off in (("B1 shape", b * h, 0, 0),
                                      ("sp=8 past shard", h, 7 * t, 0)):
@@ -698,7 +717,7 @@ def time_flash_carry(torch, F, kernels, device, b=8, h=8, t=1024, d=128):
             q, k, v, *c, q_off, kv_off, True), 5)
         nbytes, flops = carry_work(bh, t, t, d, 2, q_off, kv_off, True)
         bound = bound_ms(nbytes, flops, "bfloat16")
-        extra = ""
+        extra, sdpa = "", None
         if label == "B1 shape":
             fwd = time_ms(lambda: kernels.flash_attention_with_lse(q, k, v,
                                                                    True), 10)
@@ -706,14 +725,41 @@ def time_flash_carry(torch, F, kernels, device, b=8, h=8, t=1024, d=128):
             with torch.no_grad():
                 sdpa = time_ms(lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=True), 10)
-            extra = ", flash_fwd %.4f ms, sdpa forward %.4f ms" % (fwd, sdpa)
+            extra = ", flash_fwd %.4f ms, sdpa forward %.4f ms (%.2fx)" % (
+                fwd, sdpa, ms / sdpa)
         log("flash_carry %s (%d x %d x %d, offsets %d / %d): %.4f ms, plain "
             "%.4f ms, bound %.4f ms (%s; %.1f MB, %.2f GFLOP)%s"
             % (label, bh, t, d, q_off, kv_off, ms, plain, bound[0], bound[1],
                nbytes / 1e6, flops / 1e9, extra))
-        rows[label] = (ms, plain, bound)
+        rows[label] = (ms, plain, bound, sdpa)
         del q, k, v, c
     return rows
+
+
+def time_flash_d64(torch, F, kernels, device, b=8, h=8, t=1024, d=64):
+    """The bf16 flash forward and ring-carry step (a fresh carry at equal
+    offsets) at head dim 64 (64 batch-heads x 1024, causal), each beside
+    SDPA's forward on the same inputs; logs one line per kernel."""
+    q, k, v, _ = flash_inputs(torch, device, torch.bfloat16, b * h, t, t, d,
+                              seed=86)
+    c = (torch.zeros((b * h, t, d), device=device),
+         torch.full((b * h, t), -1e30, device=device),
+         torch.zeros((b * h, t), device=device))
+    q4, k4, v4 = (x.reshape(b, h, t, d) for x in (q, k, v))
+    with torch.no_grad():
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 10)
+    fwd = time_ms(lambda: kernels.flash_attention_with_lse(q, k, v, True), 10)
+    carry = time_ms(lambda: kernels.flash_carry_block(q, k, v, *c, 0, 0,
+                                                      True), 10)
+    nbytes, flops = train_flash_work(b * h, t, d, 2, "flash_fwd")
+    cbytes, cflops = carry_work(b * h, t, t, d, 2, 0, 0, True)
+    for name, ms, (bound, by) in (
+            ("flash_fwd", fwd, bound_ms(nbytes, flops, "bfloat16")),
+            ("flash_carry", carry, bound_ms(cbytes, cflops, "bfloat16"))):
+        log("%s D=64 (%d x %d x %d, bf16, causal): %.4f ms, sdpa forward "
+            "%.4f ms (%.2fx), bound %.4f ms (%s)"
+            % (name, b * h, t, d, ms, sdpa, ms / sdpa, bound, by))
 
 
 # ------------------------------------------------------ main path runs ---
@@ -1193,13 +1239,14 @@ TRAIN_KINDS = (("flash kernels", ("flash_",)),
 
 
 def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
-                  kinds=()):
+                  kinds=(), expect=()):
     """Run ``step`` ``steps`` times untraced, then as many times under
     torch.profiler (CUDA activity only), and print the host ms per step of
     both runs, the device ms per step of the traced one (the sum of the
     kernels' own times), its idle share, its ``top`` costliest kernels
     and, with ``kinds``, the device ms per step of each kind of kernel
-    (the first kind whose word a kernel's name holds; "other" else)."""
+    (the first kind whose word a kernel's name holds; "other" else).
+    Fails unless each word of ``expect`` is in some kernel's name."""
     from torch.profiler import ProfilerActivity, profile
 
     def host_ms():
@@ -1219,6 +1266,9 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
             and e.self_device_time_total > 0]
     if not rows:
         raise AssertionError("the profiler saw no kernel in " + what)
+    for word in expect:
+        if not any(word in e.key for e in rows):
+            raise AssertionError("no %s kernel ran in %s" % (word, what))
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     log("%s: host %.3f ms per step (%.3f traced), device %.3f ms per step, "
         "idle share %.3f" % (what, untraced, traced, busy, 1 - busy / traced))
@@ -1785,6 +1835,8 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     log("kernels built in %.1f s" % (time.perf_counter() - t0))
+    for name, route in ROUTES.items():
+        log("route %s: %s" % (name, route))
 
     paged_errs = check_paged(torch, kernels, device)
     int8_errs = check_paged_int8(torch, kernels, device)
@@ -1837,9 +1889,10 @@ def main():
             torch, F, kernels, device).items():
         err = max(train_errs[("train", True, "bfloat16", out)]
                   for out in outputs[name])
-        log("%s: %.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.4f ms (%s), "
-            "%d launches in %d train steps"
-            % (name, ms, plain, lib, bound, bound_by,
+        log("%s: %.4f ms, plain %.4f ms, sdpa %.4f ms (%.2fx of it%s), "
+            "bound %.4f ms (%s), %d launches in %d train steps"
+            % (name, ms, plain, lib, ms / lib,
+               "; target 2x" if name == "flash_fwd" else "", bound, bound_by,
                trained["launches"][name], TRAIN["steps"]))
         rows.append({"name": name, "route": "cuda", "source": SOURCE[name],
                      "replaces": REPLACES[name],
@@ -1848,18 +1901,20 @@ def main():
                      "bound_ms": bound, "bound_by": bound_by,
                      "library_ms": lib})
     carry = time_flash_carry(torch, F, kernels, device)
-    ms, plain, (bound, bound_by) = carry["B1 shape"]
-    log("flash_carry: %.4f ms, plain %.4f ms, bound %.4f ms (%s), %d launches "
-        "per mesh forward (bf16, 8 x 1024), sp_flash_decode %d flash_decode "
-        "launch" % (ms, plain, bound, bound_by, meshed["launches"],
-                    sp_decode[0]))
+    ms, plain, (bound, bound_by), sdpa = carry["B1 shape"]
+    log("flash_carry: %.4f ms, plain %.4f ms, sdpa forward %.4f ms (%.2fx "
+        "of it; target 2x), bound %.4f ms (%s), %d launches per mesh forward "
+        "(bf16, 8 x 1024), sp_flash_decode %d flash_decode launch"
+        % (ms, plain, sdpa, ms / sdpa, bound, bound_by, meshed["launches"],
+           sp_decode[0]))
+    time_flash_d64(torch, F, kernels, device)
     rows.append({"name": "flash_carry", "route": "cuda",
                  "source": SOURCE["flash_carry"],
                  "replaces": REPLACES["flash_carry"],
                  "launches": meshed["launches"],
                  "max_abs_err": carry_errs[("main 8x1024", "bfloat16", 128)],
                  "ms": ms, "plain_ms": plain, "bound_ms": bound,
-                 "bound_by": bound_by, "library_ms": None})
+                 "bound_by": bound_by, "library_ms": sdpa})
     for name, (ms, plain, lib, (bound, bound_by)) in time_rtc(
             torch, mxnet_tpu_torch.nd, rtc_run).items():
         route = "triton" if name in ("rtc:saxpy", "rtc:sgd_mom_update") \
@@ -1890,14 +1945,15 @@ def main():
     profile_steps(torch, "train step, bf16, batch 8 x 1024",
                   lambda: trained["step"](trained["params"], trained["mom"],
                                           trained["tokens"]),
-                  steps=3, top=12, kinds=TRAIN_KINDS)
+                  steps=3, top=12, kinds=TRAIN_KINDS, expect=(TEMPLATE,))
     del trained
     tokens = mesh_tokens(torch, meshed["cfg"], *MESH_RUNS[0], device)
     with torch.no_grad():
         profile_steps(torch, "mesh forward, bf16, batch 8 x 1024",
                       lambda: tf.forward(meshed["params"], tokens,
                                          meshed["cfg"], meshed["mesh"]),
-                      steps=3, top=12, kinds=TRAIN_KINDS)
+                      steps=3, top=12, kinds=TRAIN_KINDS,
+                      expect=(TEMPLATE,))
     del meshed
     torch.cuda.empty_cache()
     sweep(torch, F, kernels, device)

@@ -19,9 +19,11 @@ import torch
 from .base import MXNetError
 
 _state = threading.local()
-# every marked variable, so that backward can hand their tensors to
-# torch.autograd.grad; a variable that is collected drops out by itself
-_VARIABLES = weakref.WeakSet()
+# every marked variable by id(), so that backward can hand their tensors
+# to torch.autograd.grad; a variable that is collected drops out by itself.
+# Keyed by identity: a WeakSet would compare NDArrays with their
+# elementwise __eq__.
+_VARIABLES = weakref.WeakValueDictionary()
 _VARIABLES_LOCK = threading.Lock()
 
 
@@ -94,7 +96,16 @@ def set_training(train):
 # ---------------------------------------------------------- variables --
 def _note_variable(arr):
     with _VARIABLES_LOCK:
-        _VARIABLES.add(arr)
+        _VARIABLES[id(arr)] = arr
+
+
+def _leaves(v):
+    """The tensors a variable has been recorded as: its current ``_data``
+    and the earlier leaves it was rebound from (an in-place update,
+    ``__setitem__``, ``copyto`` or a private copy outside ``record()``)
+    that a live graph still holds. Gradients are summed over them, as the
+    reference accumulates by the NDArray whatever its values were."""
+    return [v._data] + v._old_leaves()
 
 
 def mark_variables(variables, gradients, grad_reqs="write"):
@@ -133,16 +144,20 @@ def backward(outputs, head_grads=None, retain_graph=False, train_mode=True):
     variables' ``.grad`` by their ``grad_req``."""
     heads, seeds = _heads(outputs, head_grads)
     with _VARIABLES_LOCK:
-        variables = [v for v in _VARIABLES
+        variables = [v for v in _VARIABLES.values()
                      if v._grad_req != "null" and v._grad is not None
                      and v._data.requires_grad]
     if not variables:
         return
-    grads = torch.autograd.grad(heads, [v._data for v in variables],
+    leaves = [_leaves(v) for v in variables]
+    grads = torch.autograd.grad(heads, [t for ts in leaves for t in ts],
                                 grad_outputs=seeds,
                                 retain_graph=bool(retain_graph),
                                 allow_unused=True)
-    for v, g in zip(variables, grads):
+    at = 0
+    for v, ts in zip(variables, leaves):
+        g = _sum_grads(grads[at:at + len(ts)])
+        at += len(ts)
         if g is None:
             continue
         g = g.to(v._grad.dtype)
@@ -151,6 +166,12 @@ def backward(outputs, head_grads=None, retain_graph=False, train_mode=True):
         else:
             v._grad._data = g
         v._fresh_grad = True
+
+
+def _sum_grads(grads):
+    """The sum of a variable's leaves' gradients; None if none was used."""
+    live = [g for g in grads if g is not None]
+    return sum(live[1:], live[0]) if live else None
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -168,13 +189,19 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     outs, seeds = _heads(heads, head_grads)
     if retain_graph is None:
         retain_graph = create_graph
-    grads = torch.autograd.grad(outs, [v._data for v in variables],
+    leaves = [_leaves(v) for v in variables]
+    grads = torch.autograd.grad(outs, [t for ts in leaves for t in ts],
                                 grad_outputs=seeds,
                                 retain_graph=bool(retain_graph),
                                 create_graph=create_graph,
                                 allow_unused=True)
-    return [NDArray(torch.zeros_like(v._data) if g is None else g, v._ctx)
-            for v, g in zip(variables, grads)]
+    out, at = [], 0
+    for v, ts in zip(variables, leaves):
+        g = _sum_grads(grads[at:at + len(ts)])
+        at += len(ts)
+        out.append(NDArray(torch.zeros_like(v._data) if g is None else g,
+                           v._ctx))
+    return out
 
 
 def get_symbol(x):

@@ -17,6 +17,13 @@
 //                  with the causal mask taken at global positions
 //                  (q_offset + i >= kv_offset + j).
 //
+// Two routes. bfloat16 flash_fwd and flash_carry run flash_fwd_sm90
+// (flash_fwd_sm90.cuh): one template on the tensor cores (wgmma, TMA
+// loads into a ring of shared-memory stages, P kept in registers), which
+// says there what bounds it and what its design does about it. float32,
+// and the two backward kernels in both dtypes, run the CUDA-core kernels
+// below, whose every dot is in fp32 (TF32 would not hold the fp32 gates).
+//
 // delta = rowsum(dO * O) is computed by the caller (a torch expression),
 // as the JAX package computes it outside its kernels.
 //
@@ -30,37 +37,40 @@
 // divide T, the last tile of either axis is bounds-masked, so any Tq and
 // Tk work.
 //
-// Arithmetic: everything in fp32 on CUDA cores, as the reference upcasts
-// every tile to fp32 and dots in fp32. q is pre-scaled by 1/sqrt(D) in
-// fp32 when its tile is staged. Tiles are staged in shared memory as fp32
-// rows padded to D+1 floats (no bank conflicts for the row-wise dots), so
-// a CTA needs 116 KB (forward), 149 KB (dQ) or 166 KB (dK/dV) at D=128,
-// beyond the 48 KB default: each launch opts in with
+// CUDA-core arithmetic: everything in fp32, as the reference upcasts every
+// tile to fp32 and dots in fp32. q is pre-scaled by 1/sqrt(D) in fp32
+// when its tile is staged. Tiles are staged in shared memory as fp32 rows
+// padded to D+1 floats (no bank conflicts for the row-wise dots), so a CTA
+// needs 116 KB (forward), 149 KB (dQ) or 166 KB (dK/dV) at D=128, beyond
+// the 48 KB default: each launch opts in with
 // cudaFuncAttributeMaxDynamicSharedMemorySize. 256 threads form a 16 x 16
 // grid; each thread owns a 4 x 4 block of a 64 x 64 score tile (rows
 // ty + 16 i, columns tx + 16 j) and 4 x D/16 outputs, and row statistics
 // are reduced across the 16 lanes that share a row by warp shuffles.
 //
 // Bound on an H100 SXM (its published 700 W peaks: 3.35 TB/s, 989 TFLOP/s
-// bf16): at the training shape (BH 64, T 1024, D 128, bf16, causal) the
-// bytes (q, k, v, o once: 67 MB, 20 us) and the tensor-core flops (17
-// GFLOP forward, 17 us) are both near 20 us; these fp32 CUDA-core
-// kernels, with shared-memory reads as their limit (8 loads per 16 FMAs in
-// the score dots), sit far above that (PERF.md has their times). Tensor
-// cores (wgmma on bf16 tiles), TMA staging and overlapping loads with
-// compute are a later change. flash_carry does the forward's work and
+// bf16, 67 TFLOP/s fp32 off the tensor cores): at the training shape (BH
+// 64, T 1024, D 128, causal) the bytes (q, k, v, o once: 67 MB in bf16,
+// 20 us) and the tensor-core flops (17 GFLOP forward, 17 us) are both
+// near 20 us; the CUDA-core kernels, with shared-memory reads as their
+// limit (8 loads per 16 FMAs in the score dots), sit far above that
+// (PERF.md has their times). flash_carry does the forward's work and
 // moves the fp32 carry besides (o read and written: 8 D bytes a row
 // against the 2 D of a bf16 q), so its bound is the bytes wherever a step
 // is short or mostly masked.
 //
 // Plain C interface, loaded with ctypes: pointers and the stream arrive as
 // void*, every entry returns cudaGetLastError() (or the error of the
-// shared-memory opt-in) after its launch.
+// shared-memory opt-in, or cudaErrorInvalidValue when a TMA map cannot be
+// made) after its launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -636,8 +646,18 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v,
               void* o, void* lse, int bh, int tq, int tk, int d, int causal,
               float scale, void* stream) {
   if (!args_ok(dtype, d, bh, tq, tk)) return (int)cudaErrorInvalidValue;
-  return DISPATCH(fwd, dtype, d, q, k, v, o, lse, bh, tq, tk, causal, scale,
-                  static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return d == 64
+               ? fwd<float, 64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s)
+               : fwd<float, 128>(q, k, v, o, lse, bh, tq, tk, causal, scale,
+                                 s);
+  sm90::FwdArgs a = {};
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.tq = tq, a.tk = tk, a.causal = causal, a.scale = scale;
+  return d == 64 ? sm90::launch<64, false>(q, k, v, a, bh, s)
+                 : sm90::launch<128, false>(q, k, v, a, bh, s);
 }
 
 // One ring step: q, k, v in `dtype`; the carry o [BH, Tq, D], m and l
@@ -649,9 +669,25 @@ int flash_carry(int dtype, const void* q, const void* k, const void* v,
                 int d, int q_offset, int kv_offset, int causal, float scale,
                 void* stream) {
   if (!args_ok(dtype, d, bh, tq, tk)) return (int)cudaErrorInvalidValue;
-  return DISPATCH(carry, dtype, d, q, k, v, o_in, m_in, l_in, o_out, m_out,
-                  l_out, bh, tq, tk, q_offset, kv_offset, causal, scale,
-                  static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return d == 64 ? carry<float, 64>(q, k, v, o_in, m_in, l_in, o_out, m_out,
+                                      l_out, bh, tq, tk, q_offset, kv_offset,
+                                      causal, scale, s)
+                   : carry<float, 128>(q, k, v, o_in, m_in, l_in, o_out,
+                                       m_out, l_out, bh, tq, tk, q_offset,
+                                       kv_offset, causal, scale, s);
+  sm90::FwdArgs a = {};
+  a.o_in = static_cast<const float*>(o_in);
+  a.m_in = static_cast<const float*>(m_in);
+  a.l_in = static_cast<const float*>(l_in);
+  a.o_out = static_cast<float*>(o_out);
+  a.m_out = static_cast<float*>(m_out);
+  a.l_out = static_cast<float*>(l_out);
+  a.tq = tq, a.tk = tk, a.q_offset = q_offset, a.kv_offset = kv_offset;
+  a.causal = causal, a.scale = scale;
+  return d == 64 ? sm90::launch<64, true>(q, k, v, a, bh, s)
+                 : sm90::launch<128, true>(q, k, v, a, bh, s);
 }
 
 int flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,

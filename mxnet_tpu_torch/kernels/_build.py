@@ -3,8 +3,9 @@
 Every ``mxnet_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/mxnet_tpu_torch/`` at the root of the checkout, named by the hash
-of its source and flags, so an edited source rebuilds and an unchanged
-one loads at once. The libraries are loaded with ``ctypes``; no PyTorch
+of its source, of every ``csrc/`` header it includes, and of the flags,
+so an edited source or header rebuilds and an unchanged one loads at
+once. The libraries are loaded with ``ctypes``; no PyTorch
 header is compiled, so a build takes seconds. Nothing here runs at
 import time: this module imports on a machine without ``nvcc``.
 
@@ -17,6 +18,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -81,11 +83,31 @@ def nvcc_path():
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name):
+    """csrc/<name>.cu and every csrc/ file it includes with ``#include
+    "..."``, directly or through another such file, in include order."""
+    found, todo = [], [CSRC / (name + ".cu")]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(
+            path.read_bytes()) if (CSRC / inc.decode()).is_file()]
+    return found
+
+
 def library_path(name):
-    """Where the library of csrc/<name>.cu lands for its current source."""
-    src = (CSRC / (name + ".cu")).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / ("%s_%s.so" % (name, digest[:16]))
+    """Where the library of csrc/<name>.cu lands for its current source
+    and headers."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("%s_%s.so" % (name, digest.hexdigest()[:16]))
 
 
 def _start_build(name):

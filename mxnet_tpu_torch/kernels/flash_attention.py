@@ -17,7 +17,11 @@ backward are the kernels of ``csrc/flash_attention.cu`` on CUDA tensors:
 The autograd function saves (q, k, v, o, lse) as ``_flash_bh_fwd`` does.
 Causal masking is top-left aligned (query i attends key j iff i >= j);
 any Tq and Tk are taken. The kernels take float32 and bfloat16 at head
-dims 64 and 128 and compute in fp32; anything else raises.
+dims 64 and 128; anything else raises. Two routes: bfloat16
+``flash_fwd`` and ``flash_carry`` run one tensor-core template
+(``csrc/flash_fwd_sm90.cuh``: TMA loads, wgmma with fp32 accumulation,
+S scaled after the product, P split into two bf16 parts for PV); float32,
+and both backward kernels, run CUDA-core kernels that dot in fp32.
 ``dense_attention_with_lse`` and ``dense_attention_bwd`` are the plain
 versions, and what CPU tensors run: the same formulas by plain tensor
 ops (q pre-scaled in fp32, every dot in fp32, masked scores at the
@@ -38,8 +42,9 @@ of ``csrc/flash_attention.cu`` on CUDA tensors. It replaces the TPU
 kernel ``_carry_kernel`` (reached via the JAX ``flash_carry_block``): one
 ring step folds a K/V shard into an unnormalised fp32 (o, m, l) carry,
 with the causal mask at global positions. ``carry_block_reference`` is
-its plain version, with the kernel's arithmetic (q pre-scaled in fp32,
-masked scores at the finite -1e30). It is forward-only, as in JAX.
+its plain version, with the fp32 kernel's arithmetic (q pre-scaled in
+fp32, masked scores at the finite -1e30), which the bf16 tensor-core
+route meets at the fp32 tolerance. It is forward-only, as in JAX.
 """
 
 import math

@@ -30,6 +30,7 @@ import io
 import json
 import struct
 import sys
+import weakref
 
 import numpy as np
 import torch
@@ -82,7 +83,7 @@ class NDArray:
     """Multi-dimensional array on a device (include/mxnet/ndarray.h)."""
 
     __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_ag_leaf",
-                 "_fresh_grad", "__weakref__")
+                 "_ag_old", "_fresh_grad", "__weakref__")
 
     def __init__(self, data, ctx=None, stype="default"):
         if stype != "default":
@@ -94,14 +95,27 @@ class NDArray:
         self._grad = None
         self._grad_req = "null"
         self._ag_leaf = False
+        self._ag_old = ()
         self._fresh_grad = False
 
     def _set_data(self, tensor):
-        """Rebind ``_data``; a variable's new tensor requires grad."""
+        """Rebind ``_data``; a variable's new tensor requires grad. When a
+        variable's leaf is replaced by a new leaf (a rebinding outside
+        ``record()``), the old one is remembered weakly: a graph recorded
+        from it still owes this variable its gradient."""
         if self._ag_leaf and not tensor.requires_grad and (
                 tensor.dtype.is_floating_point):
             tensor = tensor.detach().requires_grad_(True)
+            old = self._data
+            if old is not tensor and old.requires_grad and old.is_leaf:
+                self._ag_old = tuple(r for r in self._ag_old
+                                     if r() is not None) + (weakref.ref(old),)
         self._data = tensor
+
+    def _old_leaves(self):
+        """Earlier leaves of this variable that are still alive (a tensor
+        outlives its last Python reference while a graph holds it)."""
+        return [t for t in (r() for r in self._ag_old) if t is not None]
 
     def _own_buffer(self):
         """Make ``_data`` a contiguous tensor that no other tensor shares,

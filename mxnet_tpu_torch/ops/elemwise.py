@@ -108,11 +108,27 @@ def _abs(x):
 
 
 def _mod(a, b):
-    """Floor-mod with the divisor's sign (jnp.mod)."""
+    """Floor-mod with the divisor's sign (jnp.mod); an integer mod by
+    zero is 0, as in JAX (torch would raise)."""
+    b = b if isinstance(b, torch.Tensor) else _scalar_like(a, b)
+    zero = None
+    if not (a.dtype.is_floating_point or b.dtype.is_floating_point):
+        zero = b == 0
+        b = torch.where(zero, torch.ones_like(b), b)
     r = torch.fmod(a, b)
-    b = b if isinstance(b, torch.Tensor) else _scalar_like(r, b)
     fix = (r != 0) & ((r < 0) != (b < 0))
-    return torch.where(fix, r + b, r)
+    r = torch.where(fix, r + b, r)
+    return r if zero is None else torch.where(zero, torch.zeros_like(r), r)
+
+
+def _float(x):
+    """x itself if it is a float tensor, else as float32: the ops JAX
+    computes in floating point promote integers so."""
+    return x if x.dtype.is_floating_point else x.to(torch.float32)
+
+
+def _hypot(a, b):
+    return torch.hypot(*_promote(_float(a), _float(b)))
 
 
 def _cmp(fn):
@@ -140,7 +156,7 @@ for _n, _f in [
     ("broadcast_mul", torch.mul), ("broadcast_div", torch.div),
     ("broadcast_mod", _mod), ("broadcast_power", torch.pow),
     ("broadcast_maximum", maximum), ("broadcast_minimum", minimum),
-    ("broadcast_hypot", torch.hypot),
+    ("broadcast_hypot", _hypot),
     ("broadcast_equal", _cmp(torch.eq)),
     ("broadcast_not_equal", _cmp(torch.ne)),
     ("broadcast_greater", _cmp(torch.gt)),
@@ -191,8 +207,8 @@ for _n, _f in [
     ("_lesser_scalar", lambda x, s: (x < s).to(x.dtype)),
     ("_lesser_equal_scalar", lambda x, s: (x <= s).to(x.dtype)),
     ("_hypot_scalar",
-     lambda x, s: torch.hypot(x, torch.as_tensor(s, dtype=x.dtype,
-                                                 device=x.device))),
+     lambda x, s: _hypot(x, torch.as_tensor(s, dtype=x.dtype,
+                                            device=x.device))),
 ]:
     def _mks(n=_n, f=_f):
         @register(name=n)
@@ -208,13 +224,15 @@ def _cbrt(x):
 
 def _softrelu(x):
     # log(1+exp(x)), numerically stable (mshadow_op.h softrelu)
+    x = _float(x)
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
 _UNARY = [
     ("negative", torch.neg), ("reciprocal", torch.reciprocal),
     ("abs", _abs), ("sign", torch.sign),
-    ("round", torch.round), ("rint", torch.round), ("ceil", torch.ceil),
+    ("round", torch.round), ("rint", lambda x: torch.round(_float(x))),
+    ("ceil", torch.ceil),
     ("floor", torch.floor), ("trunc", torch.trunc), ("fix", torch.trunc),
     ("square", torch.square), ("sqrt", torch.sqrt),
     ("rsqrt", torch.rsqrt), ("cbrt", _cbrt),

@@ -483,7 +483,9 @@ def size_array(data):
           differentiable=False, num_outputs=2)
 def histogram(data, bins=10, range=None):
     """Counts (float32) and edges, binned as jnp.histogram does: bins
-    closed on the left, the last one on both sides."""
+    closed on the left, the last one on both sides; the edges in the
+    input's float dtype (float32 for integers), and the data binned
+    against those rounded edges."""
     x = data.reshape(-1).to(torch.float32)
     if range is None:
         lo, hi = float(x.min()), float(x.max())
@@ -491,12 +493,14 @@ def histogram(data, bins=10, range=None):
         lo, hi = float(range[0]), float(range[1])
     if lo == hi:
         lo, hi = lo - 0.5, hi + 0.5
-    edges = torch.linspace(lo, hi, bins + 1, device=x.device)
+    dtype = data.dtype if data.dtype.is_floating_point else torch.float32
+    out_edges = torch.linspace(lo, hi, bins + 1, device=x.device).to(dtype)
+    edges = out_edges.to(torch.float32)
     idx = torch.searchsorted(edges, x, right=True)
     idx = torch.where(x == edges[-1], bins, idx)
     counts = torch.zeros(bins + 2, device=x.device).index_add_(
         0, idx, torch.ones_like(x))
-    return counts[1:-1], edges
+    return counts[1:-1], out_edges
 
 
 @register(name="diag")
@@ -520,10 +524,12 @@ def upsampling(*data, scale=1, sample_type="nearest", num_args=1,
 
 @register(name="GridGenerator")
 def grid_generator(data, transform_type="affine", target_shape=(0, 0)):
-    """grid_generator.cc, affine only."""
+    """grid_generator.cc, affine only; float32 whatever ``data``'s
+    dtype, as JAX's einsum promotes it against its float32 grid."""
     h, w = target_shape
-    ys = torch.linspace(-1.0, 1.0, h, dtype=data.dtype, device=data.device)
-    xs = torch.linspace(-1.0, 1.0, w, dtype=data.dtype, device=data.device)
+    data = data.to(torch.float32)
+    ys = torch.linspace(-1.0, 1.0, h, device=data.device)
+    xs = torch.linspace(-1.0, 1.0, w, device=data.device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     grid = torch.stack([gx.reshape(-1), gy.reshape(-1),
                         torch.ones_like(gx).reshape(-1)], dim=0)

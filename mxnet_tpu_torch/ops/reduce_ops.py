@@ -3,9 +3,12 @@
 
 Axis, keepdims and ``exclude`` follow the reference
 (broadcast_reduce_op.h). Dtypes follow the JAX package: an integer sum
-or product keeps its input's type (torch would widen it to int64), a
-mean of integers is float32, and ``argmax``/``argmin`` return float32
-positions. ``max``/``min`` divide the gradient among ties, as JAX does
+or product (``sum``, ``prod``, ``nansum``, ``nanprod``) accumulates as
+``jnp.sum`` does — bool, int8 and int16 as int32, uint8 and uint16 as
+uint32, int32 and uint32 in their own type, wrapping as 32-bit integers
+do — where torch would keep a narrow type or widen to int64; a mean of
+integers, and ``moments``, are float32; ``argmax``/``argmin`` return
+float32 positions. ``max``/``min`` divide the gradient among ties, as JAX does
 (``torch.amax``/``amin``).
 """
 
@@ -26,12 +29,20 @@ def _norm_axes(axis, ndim, exclude=False):
     return axes
 
 
-def _keep_int(x):
-    """The accumulation type jnp uses: an integer input keeps its type,
-    a bool one sums as int32."""
-    if x.dtype == torch.bool:
-        return torch.int32
-    return None if x.dtype.is_floating_point else x.dtype
+# the type jnp.sum and jnp.prod give an integer input
+_INT_ACC = {torch.bool: torch.int32, torch.int8: torch.int32,
+            torch.int16: torch.int32, torch.int32: torch.int32,
+            torch.uint8: torch.uint32, torch.uint16: torch.uint32,
+            torch.uint32: torch.uint32}
+
+
+def _int_reduce(fn, x):
+    """``fn`` over an integer or bool ``x`` in JAX's accumulation type:
+    summed in int64 (torch has no uint32 sum), whose low 32 bits are the
+    wrapped 32-bit result; None for a float ``x``."""
+    if x.dtype.is_floating_point:
+        return None
+    return fn(x.to(torch.int64)).to(_INT_ACC.get(x.dtype, x.dtype))
 
 
 def _over_last(fn, x, axes, keepdims):
@@ -48,7 +59,10 @@ def _over_last(fn, x, axes, keepdims):
 
 
 def _sum(x, axes, keepdims):
-    return torch.sum(x, dim=axes, keepdim=keepdims, dtype=_keep_int(x))
+    def fn(y):
+        return torch.sum(y, dim=axes, keepdim=keepdims)
+    out = _int_reduce(fn, x)
+    return fn(x) if out is None else out
 
 
 def _mean(x, axes, keepdims):
@@ -58,9 +72,11 @@ def _mean(x, axes, keepdims):
 
 
 def _prod(x, axes, keepdims):
-    dt = _keep_int(x)
-    return _over_last(lambda y, d: torch.prod(y, dim=d, dtype=dt), x, axes,
-                      keepdims)
+    def fn(y):
+        return _over_last(lambda z, d: torch.prod(z, dim=d), y, axes,
+                          keepdims)
+    out = _int_reduce(fn, x)
+    return fn(x) if out is None else out
 
 
 def _max(x, axes, keepdims):
@@ -72,12 +88,15 @@ def _min(x, axes, keepdims):
 
 
 def _nansum(x, axes, keepdims):
+    if not x.dtype.is_floating_point:
+        return _sum(x, axes, keepdims)
     return torch.nansum(x, dim=axes, keepdim=keepdims)
 
 
 def _nanprod(x, axes, keepdims):
-    return _prod(torch.where(torch.isnan(x), torch.ones_like(x), x), axes,
-                 keepdims)
+    if x.dtype.is_floating_point:
+        x = torch.where(torch.isnan(x), torch.ones_like(x), x)
+    return _prod(x, axes, keepdims)
 
 
 for _n, _f in [
@@ -184,6 +203,8 @@ def l2_normalization(data, eps=1e-10, mode="instance"):
 def moments(data, axes=None, keepdims=False):
     """Mean and population variance over ``axes`` (nn/moments.cc)."""
     ax = _norm_axes(axes, data.dim())
+    if not data.dtype.is_floating_point:
+        data = data.to(torch.float32)
     mean = torch.mean(data, dim=ax, keepdim=keepdims)
     centered = data - torch.mean(data, dim=ax, keepdim=True)
     var = torch.mean(torch.square(centered), dim=ax, keepdim=keepdims)

@@ -221,3 +221,58 @@ def test_ops_outside_record_build_no_graph():
     assert z._requires_tape() and not w._requires_tape()
     with pytest.raises(mt.MXNetError):
         y.backward()
+
+
+def test_marking_a_variable_again_resets_it():
+    """Marking an array a second time (here with grad_req="add") resets
+    its gradient and request, as the reference's attach_grad does; it
+    must not compare the array with itself elementwise."""
+    def f(nd, ag):
+        x = nd.array(np.array([1.0, 2.0, 3.0], np.float32))
+        x.attach_grad()
+        x.attach_grad(grad_req="add")
+        for _ in range(2):
+            with ag.record():
+                y = (x * x).sum()
+            y.backward()
+        return [x.grad.asnumpy()]
+    (g,) = _both(f)
+    _close(g, [4.0, 8.0, 12.0])
+
+
+@pytest.mark.parametrize("rebind", ["iadd", "setitem", "copyto"])
+def test_variable_rebound_after_recording_gets_its_recorded_gradient(rebind):
+    """A variable rebound outside record() after its graph was recorded
+    (an in-place operator, __setitem__ or copyto) still receives the
+    gradient at the values that were recorded, as the reference writes
+    it by the NDArray on the tape; its .grad is never left stale."""
+    def f(nd, ag):
+        x = nd.array(np.array([1.0, 2.0, 3.0], np.float32))
+        x.attach_grad()
+        with ag.record():
+            y = (x * x).sum()
+        if rebind == "iadd":
+            x += 1
+        elif rebind == "setitem":
+            x[:] = 5.0
+        else:
+            nd.array(np.array([7.0, 8.0, 9.0], np.float32)).copyto(x)
+        y.backward()
+        return [x.grad.asnumpy(), x.asnumpy()]
+    g, _ = _both(f)
+    _close(g, [2.0, 4.0, 6.0])
+
+
+def test_private_copy_after_recording_keeps_the_gradient():
+    """NDArray._own_buffer (a kernel about to write the array) rebinds a
+    shared variable to a private copy; the recorded graph's gradient
+    still reaches the variable."""
+    x = tnd.array(np.array([1.0, 2.0, 3.0], np.float32))
+    x.attach_grad()
+    with tag.record():
+        y = (x * x).sum()
+    shared = x._data
+    x._own_buffer()
+    assert x._data is not shared
+    y.backward()
+    _close(x.grad.asnumpy(), [2.0, 4.0, 6.0])

@@ -203,6 +203,30 @@ def test_build_is_keyed_by_source_and_reports_nvcc_failure(tmp_path,
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def test_build_is_keyed_by_every_header_the_source_includes(tmp_path,
+                                                            monkeypatch):
+    """A header the source includes (directly or through another header)
+    is part of the library's key, so an edited template rebuilds; a
+    header it does not include, or a system include, is not."""
+    (tmp_path / "flash_attention.cu").write_text(
+        '#include <cuda.h>\n#include "tile.cuh"\n// body\n')
+    (tmp_path / "tile.cuh").write_text('#include "mma.cuh"\n// v1\n')
+    (tmp_path / "mma.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert [p.name for p in _build.sources("flash_attention")] == [
+        "flash_attention.cu", "tile.cuh", "mma.cuh"]
+    first = _build.library_path("flash_attention")
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert _build.library_path("flash_attention") == first
+    (tmp_path / "mma.cuh").write_text("// v2\n")
+    second = _build.library_path("flash_attention")
+    assert second != first
+    (tmp_path / "tile.cuh").write_text('#include "mma.cuh"\n// v2\n')
+    assert _build.library_path("flash_attention") not in (first, second)
+
+
 def _chip_smoke():
     root = Path(__file__).resolve().parent.parent
     spec = importlib.util.spec_from_file_location("chip_smoke",

@@ -10,8 +10,12 @@ from ``OWN`` below. Values, dtypes and shapes are compared at fp32
 rtol = atol = 1e-6 unless a case states its own tolerance
 (``test_torch_op_grads.py`` holds the gradients of the same cases). The
 ties and kinks where torch's own gradient differs from JAX's are pinned
-here. A gate fails if an op of those modules in the JAX registry is
-missing from the port's, or has no case.
+here, and so are JAX's dtypes on integer and bf16 inputs: an integer sum
+or product accumulates as ``jnp.sum`` does (bool, int8 and int16 as
+int32, uint8 and uint16 as uint32, int32 as int32, wrapping), the ops
+JAX computes in floating point promote integers to float32, and an
+integer mod by zero is 0. A gate fails if an op of those modules in the
+JAX registry is missing from the port's, or has no case.
 """
 
 import numpy as np
@@ -370,3 +374,77 @@ def test_infer_shape_runs_on_meta_tensors():
     (shape, dtype), = tops.infer_shape("argmax", ((4, 6), torch.float32),
                                        axis=1)
     assert shape == (4,) and dtype == torch.float32
+
+
+def _narrow(dtype, seed):
+    """[4, 100] of one narrow integer (or bool) dtype: its largest
+    positive value then seeded values, so sums and products overflow the
+    input type."""
+    if dtype == "bool":
+        x = np.random.RandomState(seed).rand(4, 100) > 0.3
+        x[0] = True
+        return x
+    info = np.iinfo(dtype)
+    x = np.random.RandomState(seed).randint(info.min, info.max + 1,
+                                             (4, 100), dtype=np.int64)
+    x[0] = info.max
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize("name", ["sum", "prod", "nansum"])
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "int16", "uint16",
+                                   "bool"])
+@pytest.mark.parametrize("axis", [1, None])
+def test_narrow_integer_reduction_accumulates_as_jax(name, dtype, axis):
+    """Narrow integer and bool sums and products take JAX's dtype and
+    its exact (wrapped 32-bit) value."""
+    x = _narrow(dtype, seed=len(name) + 7 * len(dtype))
+    jout, _ = _call(jnd, name, [x], {"axis": axis}, None)
+    tout, _ = _call(tnd, name, [x], {"axis": axis}, mt.cpu())
+    assert dtype_name(tout.dtype) == _jdt(jout)
+    assert _jdt(jout) in ("int32", "uint32")
+    np.testing.assert_array_equal(tout.asnumpy(), jout.asnumpy())
+
+
+I32 = np.arange(-5, 7, dtype=np.int32).reshape(3, 4)
+# (op, inputs, attrs): integer inputs to float-valued ops, JAX's integer
+# mod by zero, and the dtypes GridGenerator and histogram return
+INT_CASES = [
+    ("moments", [I32], {"axes": (1,)}),
+    ("broadcast_hypot", [I32, I32[:, :1]], {}),
+    ("_hypot_scalar", [I32], {"scalar": 2.5}),
+    ("softrelu", [I32], {}),
+    ("rint", [I32], {}),
+    ("broadcast_mod", [np.array([[5, -7, 0], [3, 4, -2]], np.int32),
+                       np.array([[0, 2, 3], [-2, 0, 5]], np.int32)], {}),
+    ("_mod_scalar", [I32], {"scalar": 0}),
+    ("_rmod_scalar", [I32], {"scalar": 3}),
+    ("GridGenerator", [np.arange(12, dtype=np.int32).reshape(2, 6)],
+     {"target_shape": (3, 4)}),
+    ("GridGenerator", [U((2, 6), 5)], {"target_shape": (3, 4), "bf16": 1}),
+    ("histogram", [U((40,), 6, -1.3, 2.7)], {"bins": 5, "bf16": 1}),
+    ("histogram", [I32], {"bins": 3}),
+]
+
+
+@pytest.mark.parametrize("name, inputs, attrs", INT_CASES,
+                         ids=["%s-%d" % (c[0], i)
+                              for i, c in enumerate(INT_CASES)])
+def test_integer_and_bf16_inputs_take_jax_dtypes(name, inputs, attrs):
+    """JAX's output dtypes, and its values at the fp32 tolerance; bf16
+    histogram edges within one bf16 ulp (2^-7 of a value): JAX rounds its
+    linspace to bf16 after each operation, the port once."""
+    attrs = dict(attrs)
+    if attrs.pop("bf16", 0):
+        inputs = [jnd.array(x).astype("bfloat16").asnumpy() for x in inputs]
+    jout, _ = _call(jnd, name, inputs, attrs, None)
+    tout, _ = _call(tnd, name, inputs, attrs, mt.cpu())
+    if name == "histogram" and _jdt(inputs[0]) == "bfloat16":
+        (jc, je), (tc, te) = jout, tout
+        assert (_jdt(je), dtype_name(te.dtype)) == ("bfloat16", "bfloat16")
+        np.testing.assert_array_equal(tc.asnumpy(), jc.asnumpy())
+        np.testing.assert_allclose(te.asnumpy().astype(np.float64),
+                                   je.asnumpy().astype(np.float64),
+                                   rtol=2.0 ** -7, atol=0)
+        return
+    _compare(name, jout, tout, TOL)
