@@ -11,8 +11,9 @@ Run from the root of a checkout on a machine with one CUDA GPU and
 2. builds the port's CUDA kernels from ``mxnet_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together), prints the build seconds and
    each kernel's route (``ROUTES``: the bf16 flash forward and ring-carry
-   step run the tensor-core template ``flash_fwd_sm90``, every other
-   kernel and dtype the CUDA cores);
+   step run the tensor-core template ``flash_fwd_sm90``, the bf16 flash
+   backward the templates ``flash_bwd_dq_sm90`` and
+   ``flash_bwd_dkv_sm90``, every other kernel and dtype the CUDA cores);
 3. holds each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, each at the tolerance stated by ``TOL`` or
    ``TOL_FLASH``: the paged decode kernel on 32 lanes of 8 KV heads x 64
@@ -22,7 +23,9 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    lengths including 0 and 4096; the flash forward (o and lse) and the
    two flash backward kernels (dq, and dk/dv), causal and not, at the
    training shape (64 batch-heads x 1024 positions x 128 dims), at head
-   dim 64, and at one ragged cross-length case; and the paged kernel's
+   dim 64, and at one ragged cross-length case; the bf16 backward kernels
+   again at 8 batch-heads x 8192 x 128, causal (a row sums 128 key tiles,
+   a key 128 query tiles), at the same gate; and the paged kernel's
    int8 mode on int8 pools (codes and fp32 scales quantised from seeded
    rows) with float32 and bfloat16 queries, at the paged cases above and
    at head dim 128, allowing one probability code beside ``TOL`` in at
@@ -103,7 +106,8 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    forward, which a fresh carry at equal offsets turns into o / l) and
    its bound; the ring-carry kernel at the flash forward's timing shape
    and at one past-shard step of the sp = 8 split of 1 x 8192; the flash
-   forward and the ring-carry kernel again at head dim 64 beside SDPA;
+   forward, the ring-carry kernel and the two backward kernels again at
+   head dim 64 beside SDPA's forward and backward;
    the paged kernel is timed on the served pool full, each block in one
    lane's table, in bfloat16 and int8;
 10. traces 16 decode steps of a serve run, of an int8 serve run and of
@@ -111,7 +115,8 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
    idle share and the kernels that took the most time; the bf16 train
-   step and mesh forward must show the tensor-core template among them;
+   step must show the three tensor-core kernels among them, and the mesh
+   forward the forward template;
 11. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, and the
@@ -190,6 +195,10 @@ TRAIN = dict(batch=8, steps=10, lr=1e-2)
 # (label, batch*heads, Tq, Tk, head dim) of the flash kernel checks
 FLASH_CHECKS = (("train", 64, 1024, 1024, 128), ("d64", 64, 1024, 1024, 64),
                 ("ragged", 6, 333, 200, 128))
+# (batch*heads, T, head dim) of the long bf16 backward check, causal: the
+# backward kernels sum dQ, dK and dV across tiles inside the tensor cores'
+# accumulators, whose truncation would show over 128 tiles
+FLASH_BWD_LONG = (8, 8192, 128)
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_SWEEP = (1024, 4096, 8192)        # sequence lengths at 8192 tokens
 
@@ -221,8 +230,8 @@ SOURCE = {"paged_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "paged_decode_int8": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "flash_decode": "mxnet_tpu_torch/csrc/decode_attention.cu",
           "flash_fwd": "mxnet_tpu_torch/csrc/flash_fwd_sm90.cuh",
-          "flash_bwd_dq": "mxnet_tpu_torch/csrc/flash_attention.cu",
-          "flash_bwd_dkv": "mxnet_tpu_torch/csrc/flash_attention.cu",
+          "flash_bwd_dq": "mxnet_tpu_torch/csrc/flash_bwd_sm90.cuh",
+          "flash_bwd_dkv": "mxnet_tpu_torch/csrc/flash_bwd_sm90.cuh",
           "flash_carry": "mxnet_tpu_torch/csrc/flash_fwd_sm90.cuh"}
 REPLACES = {"paged_decode": "mxnet_tpu/kernels/paged_decode.py:69",
             "paged_decode_int8": "mxnet_tpu/kernels/paged_decode.py:69",
@@ -232,16 +241,21 @@ REPLACES = {"paged_decode": "mxnet_tpu/kernels/paged_decode.py:69",
             "flash_bwd_dkv": "mxnet_tpu/kernels/flash_attention.py:291",
             "flash_carry": "mxnet_tpu/kernels/flash_attention.py:134"}
 # what each kernel runs on: bf16 B1 and B5 are the tensor-core template
-# (flash_fwd_sm90.cuh); float32 keeps the CUDA-core kernels, whose every
-# dot is fp32 (the fp32 gates and the mesh loss's equality rest on them)
+# flash_fwd_sm90.cuh, bf16 B2a and B2b the two kernels of
+# flash_bwd_sm90.cuh; float32 keeps the CUDA-core kernels, whose every dot
+# is fp32 (the fp32 gates, the fp32 train step's and the mesh loss's
+# equalities rest on them)
 TEMPLATE = "flash_fwd_sm90"
+BWD_TEMPLATES = ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 ROUTES = {"paged_decode": "CUDA cores (fp32, bf16)",
           "paged_decode_int8": "CUDA cores (dp4a)",
           "flash_decode": "CUDA cores (fp32, bf16)",
           "flash_fwd": "bf16: wgmma template %s (TMA, P split hi + lo); "
                        "fp32: CUDA cores" % TEMPLATE,
-          "flash_bwd_dq": "CUDA cores (fp32, bf16)",
-          "flash_bwd_dkv": "CUDA cores (fp32, bf16)",
+          "flash_bwd_dq": "bf16: wgmma template %s (TMA, dS split hi + "
+                          "lo); fp32: CUDA cores" % BWD_TEMPLATES[0],
+          "flash_bwd_dkv": "bf16: wgmma template %s (TMA, P and dS split "
+                           "hi + lo); fp32: CUDA cores" % BWD_TEMPLATES[1],
           "flash_carry": "bf16: wgmma template %s (TMA, P split hi + lo); "
                          "fp32: CUDA cores" % TEMPLATE}
 
@@ -563,6 +577,58 @@ def check_flash_attention(torch, kernels, device):
     return errs
 
 
+def check_flash_bwd_long(torch, kernels, device):
+    """The bf16 backward kernels at FLASH_BWD_LONG, causal, against
+    dense_attention_bwd at the bf16 TOL_FLASH (the kernels' forward gives
+    both versions o and lse). Returns the max abs errors by output."""
+    bh, t, d = FLASH_BWD_LONG
+    q, k, v, do = flash_inputs(torch, device, torch.bfloat16, bh, t, t, d,
+                               seed=33)
+    o, lse = kernels.flash_attention_with_lse(q, k, v, True)
+    got = kernels.flash_attention_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    want = kernels.dense_attention_bwd(q, k, v, o, lse, do, True)
+    errs = {}
+    for out, g, w in zip(("dq", "dk", "dv"), got, want):
+        kernel = "flash_bwd_dq" if out == "dq" else "flash_bwd_dkv"
+        errs[out] = compare(g, w, "bfloat16", "%s long %d x %d x %d bfloat16 "
+                            "causal=1 %s" % (kernel, bh, t, d, out),
+                            TOL_FLASH)
+    del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def device_ms(torch, fn, iters=5):
+    """ms per call of the kernels ``fn`` launches, their own device times
+    under torch.profiler: a call whose host work outlasts its kernels
+    reads more by ``time_ms`` than the card spent on it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+
+def sdpa_bwd_ms(torch, F, q, k, v, do, b, h, iters=10):
+    """(ms by CUDA events, device ms of its kernels) of SDPA's whole
+    backward (dq, dk and dv through autograd) on [b * h, T, D] inputs,
+    causal."""
+    t, d = q.shape[1:]
+    q4, k4, v4 = (x.reshape(b, h, t, d).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(b, h, t, d)
+
+    def grad():
+        torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+    return time_ms(grad, iters), device_ms(torch, grad)
+
+
 # ---------------------------------------------------------------- B5 ---
 
 def check_flash_carry(torch, kernels, device):
@@ -739,9 +805,10 @@ def time_flash_carry(torch, F, kernels, device, b=8, h=8, t=1024, d=128):
 def time_flash_d64(torch, F, kernels, device, b=8, h=8, t=1024, d=64):
     """The bf16 flash forward and ring-carry step (a fresh carry at equal
     offsets) at head dim 64 (64 batch-heads x 1024, causal), each beside
-    SDPA's forward on the same inputs; logs one line per kernel."""
-    q, k, v, _ = flash_inputs(torch, device, torch.bfloat16, b * h, t, t, d,
-                              seed=86)
+    SDPA's forward on the same inputs, and the two backward kernels beside
+    SDPA's whole backward; logs one line per kernel and one for B2a + B2b."""
+    q, k, v, do = flash_inputs(torch, device, torch.bfloat16, b * h, t, t, d,
+                               seed=86)
     c = (torch.zeros((b * h, t, d), device=device),
          torch.full((b * h, t), -1e30, device=device),
          torch.zeros((b * h, t), device=device))
@@ -760,6 +827,31 @@ def time_flash_d64(torch, F, kernels, device, b=8, h=8, t=1024, d=64):
         log("%s D=64 (%d x %d x %d, bf16, causal): %.4f ms, sdpa forward "
             "%.4f ms (%.2fx), bound %.4f ms (%s)"
             % (name, b * h, t, d, ms, sdpa, ms / sdpa, bound, by))
+    o, lse = kernels.flash_attention_with_lse(q, k, v, True)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    bwd = {"flash_bwd_dq": time_ms(
+               lambda: kernels.flash_bwd_dq(q, k, v, do, lse, delta, True), 10),
+           "flash_bwd_dkv": time_ms(
+               lambda: kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True),
+               10)}
+    sdpa_bwd, sdpa_dev = sdpa_bwd_ms(torch, F, q, k, v, do, b, h)
+    for name, ms in bwd.items():
+        bound, by = bound_ms(*train_flash_work(b * h, t, d, 2, name),
+                             "bfloat16")
+        log("%s D=64 (%d x %d x %d, bf16, causal): %.4f ms, bound %.4f ms "
+            "(%s)" % (name, b * h, t, d, ms, bound, by))
+    log_bwd_pair(torch, kernels, "D=64 ", sum(bwd.values()), sdpa_bwd,
+                 sdpa_dev, (q, k, v, do, lse, delta))
+
+
+def log_bwd_pair(torch, kernels, label, both, sdpa, sdpa_dev, args):
+    """Log B2a + B2b beside SDPA's backward, each by CUDA events and by
+    the device time of its kernels."""
+    dev = device_ms(torch, lambda: (kernels.flash_bwd_dq(*args, True),
+                                    kernels.flash_bwd_dkv(*args, True)))
+    log("flash backward %s(B2a + B2b): %.4f ms (device %.4f), sdpa backward "
+        "%.4f ms (device %.4f); %.2fx of it (device %.2fx; target 2x)"
+        % (label, both, dev, sdpa, sdpa_dev, both / sdpa, dev / sdpa_dev))
 
 
 # ------------------------------------------------------ main path runs ---
@@ -1203,15 +1295,13 @@ def time_flash_attention(torch, F, kernels, device, b=8, h=8, t=1024,
         lambda: kernels.dense_attention_with_lse(q, k, v, True), 5)
     plain_bwd = time_ms(
         lambda: kernels.dense_attention_bwd(q, k, v, o, lse, do, True), 5)
-    q4, k4, v4 = (x.reshape(b, h, t, d).detach().requires_grad_(True)
-                  for x in (q, k, v))
+    q4, k4, v4 = (x.reshape(b, h, t, d) for x in (q, k, v))
     with torch.no_grad():
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), 10)
-    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-    do4 = do.reshape(b, h, t, d)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (q4, k4, v4), do4, retain_graph=True), 10)
+    lib_bwd, lib_bwd_dev = sdpa_bwd_ms(torch, F, q, k, v, do, b, h)
+    log_bwd_pair(torch, kernels, "", ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+                 lib_bwd, lib_bwd_dev, (q, k, v, do, lse, delta))
     rows = {}
     for name in TRAIN_KERNELS:
         fwd = name == "flash_fwd"
@@ -1843,6 +1933,7 @@ def main():
     torch.cuda.empty_cache()
     flash_errs = check_flash(torch, kernels, device)
     train_errs = check_flash_attention(torch, kernels, device)
+    check_flash_bwd_long(torch, kernels, device)
     carry_errs = check_flash_carry(torch, kernels, device)
     check_ring_schedule(torch, ring, kernels, device)
     torch.cuda.empty_cache()
@@ -1885,8 +1976,8 @@ def main():
                      "bound_by": bound_by, "library_ms": lib})
     outputs = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
-    for name, (ms, plain, lib, (bound, bound_by)) in time_flash_attention(
-            torch, F, kernels, device).items():
+    timed = time_flash_attention(torch, F, kernels, device)
+    for name, (ms, plain, lib, (bound, bound_by)) in timed.items():
         err = max(train_errs[("train", True, "bfloat16", out)]
                   for out in outputs[name])
         log("%s: %.4f ms, plain %.4f ms, sdpa %.4f ms (%.2fx of it%s), "
@@ -1945,7 +2036,8 @@ def main():
     profile_steps(torch, "train step, bf16, batch 8 x 1024",
                   lambda: trained["step"](trained["params"], trained["mom"],
                                           trained["tokens"]),
-                  steps=3, top=12, kinds=TRAIN_KINDS, expect=(TEMPLATE,))
+                  steps=3, top=12, kinds=TRAIN_KINDS,
+                  expect=(TEMPLATE,) + BWD_TEMPLATES)
     del trained
     tokens = mesh_tokens(torch, meshed["cfg"], *MESH_RUNS[0], device)
     with torch.no_grad():

@@ -17,19 +17,22 @@
 //                  with the causal mask taken at global positions
 //                  (q_offset + i >= kv_offset + j).
 //
-// Two routes. bfloat16 flash_fwd and flash_carry run flash_fwd_sm90
-// (flash_fwd_sm90.cuh): one template on the tensor cores (wgmma, TMA
-// loads into a ring of shared-memory stages, P kept in registers), which
-// says there what bounds it and what its design does about it. float32,
-// and the two backward kernels in both dtypes, run the CUDA-core kernels
-// below, whose every dot is in fp32 (TF32 would not hold the fp32 gates).
+// Two routes. bfloat16 runs the tensor-core templates (wgmma, TMA loads
+// into a ring of shared-memory stages, P kept in registers), which say
+// there what bounds them and what their design does about it:
+// flash_fwd and flash_carry run flash_fwd_sm90 (flash_fwd_sm90.cuh),
+// flash_bwd_dq and flash_bwd_dkv run flash_bwd_dq_sm90 and
+// flash_bwd_dkv_sm90 (flash_bwd_sm90.cuh); both include the primitives of
+// sm90_common.cuh. float32 runs the CUDA-core kernels below, whose every
+// dot is in fp32 (TF32 would not hold the fp32 gates).
 //
 // delta = rowsum(dO * O) is computed by the caller (a torch expression),
 // as the JAX package computes it outside its kernels.
 //
-// Decomposition, as the TPU kernels: one CTA per (bh, 64-row query tile)
-// for the forward, the carry step and dQ, looping over key tiles; one CTA
-// per (bh, 64-row key tile) for dK/dV, looping over query tiles. Causal
+// The CUDA-core kernels' decomposition, as the TPU kernels: one CTA per
+// (bh, 64-row query tile) for the forward, the carry step and dQ, looping
+// over key tiles; one CTA per (bh, 64-row key tile) for dK/dV, looping
+// over query tiles. Causal
 // masking is top-left aligned (query i attends key j iff i >= j; the
 // carry step shifts both by their global offsets); tiles wholly above
 // the diagonal are skipped, and masked scores inside a live tile take the
@@ -70,6 +73,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -81,32 +85,15 @@ constexpr int kPS = kTile + 1;      // padded row of a score tile
 
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
 
 __device__ __forceinline__ void load_vec(const float* p, float (&out)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
 
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&out)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Stage rows [row0, row0 + kTile) of a [rows, D] matrix into dst as fp32
@@ -629,13 +616,6 @@ bool args_ok(int dtype, int d, int bh, int tq, int tk) {
          (tk + kTile - 1) / kTile <= 65535;
 }
 
-// Instantiate FN for the runtime (dtype, d) pair checked by args_ok.
-#define DISPATCH(FN, DTYPE, D, ...)                                        \
-  ((DTYPE) == 0 ? ((D) == 64 ? FN<float, 64>(__VA_ARGS__)                  \
-                             : FN<float, 128>(__VA_ARGS__))                \
-                : ((D) == 64 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)          \
-                             : FN<__nv_bfloat16, 128>(__VA_ARGS__)))
-
 }  // namespace
 
 extern "C" {
@@ -695,8 +675,19 @@ int flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                  void* dq, int bh, int tq, int tk, int d, int causal,
                  float scale, void* stream) {
   if (!args_ok(dtype, d, bh, tq, tk)) return (int)cudaErrorInvalidValue;
-  return DISPATCH(bwd_dq, dtype, d, q, k, v, dout, lse, delta, dq, bh, tq,
-                  tk, causal, scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return d == 64 ? bwd_dq<float, 64>(q, k, v, dout, lse, delta, dq, bh, tq,
+                                       tk, causal, scale, s)
+                   : bwd_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh,
+                                        tq, tk, causal, scale, s);
+  sm90::BwdArgs a = {};
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.tq = tq, a.tk = tk, a.causal = causal, a.scale = scale;
+  return d == 64 ? sm90::launch_bwd<64>(true, q, k, v, dout, a, bh, s)
+                 : sm90::launch_bwd<128>(true, q, k, v, dout, a, bh, s);
 }
 
 int flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
@@ -704,8 +695,20 @@ int flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                   void* dk, void* dv, int bh, int tq, int tk, int d,
                   int causal, float scale, void* stream) {
   if (!args_ok(dtype, d, bh, tq, tk)) return (int)cudaErrorInvalidValue;
-  return DISPATCH(bwd_dkv, dtype, d, q, k, v, dout, lse, delta, dk, dv, bh,
-                  tq, tk, causal, scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return d == 64 ? bwd_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv,
+                                        bh, tq, tk, causal, scale, s)
+                   : bwd_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv,
+                                         bh, tq, tk, causal, scale, s);
+  sm90::BwdArgs a = {};
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.tq = tq, a.tk = tk, a.causal = causal, a.scale = scale;
+  return d == 64 ? sm90::launch_bwd<64>(false, q, k, v, dout, a, bh, s)
+                 : sm90::launch_bwd<128>(false, q, k, v, dout, a, bh, s);
 }
 
 }  // extern "C"

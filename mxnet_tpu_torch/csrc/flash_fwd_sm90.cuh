@@ -55,22 +55,11 @@
 // cannot do that: each SM sub-partition keeps its own registers, and the
 // freed ones would sit in one of the four.)
 
-namespace sm90 {
+#pragma once
 
-constexpr int kRows = 64;                 // rows of a group's and a K/V tile
-constexpr int kGroups = 2;                // consumer warpgroups of a CTA
-constexpr int kCtaRows = kGroups * kRows; // query rows of a CTA
-constexpr int kConsumers = 128 * kGroups;
-constexpr int kThreads = kConsumers + 128; // and the producer warpgroup
-// registers a thread of each role keeps (setmaxnreg): 3 warpgroups start
-// at 168 each (16384 per SM sub-partition over its 3 warps); the
-// producer gives back all but 24, which lets each consumer hold 240
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-constexpr int kBox = 64;                  // bf16 columns of a TMA box (128 B)
-constexpr int kBoxBytes = kRows * kBox * 2;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kMasked = -1e30f;         // finite mask value, as the reference
+#include "sm90_common.cuh"
+
+namespace sm90 {
 
 template <int D> struct Cfg {
   static constexpr int kBoxes = D / kBox;             // boxes of a tile
@@ -81,174 +70,6 @@ template <int D> struct Cfg {
   static constexpr int kSmem =
       1024 + kTileBytes * (kGroups + 2 * kStages);
 };
-
-// ---------------------------------------------------------------- PTX ---
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 3-D map to shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
-      "r"(row), "r"(head) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand (start
-// address, leading and stride byte offsets; layout type 1 = SWIZZLE_128B).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of products are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous product.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// ------------------------------------------------------------- wgmma ---
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A in registers (the
-// accumulator layout of a score tile), B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                                              uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A in registers (the
-// accumulator layout of a score tile), B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
-                                              uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
-                                         uint64_t db, int acc) {
-  if constexpr (D == 128) wgmma_rs_n128(o, a, db, acc);
-  else wgmma_rs_n64(o, a, db, acc);
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 struct FwdArgs {
   __nv_bfloat16* o;          // !kCarry: o [BH, Tq, D] and lse [BH, Tq]
@@ -378,29 +199,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   float pv[NO];                           // one tile's P V
   float alpha[2], alpha_next[2];
 
-  // S = Q K^T of tile kt into sc: D / 16 steps of k16; a step advances 32
-  // bytes inside a 128-byte swizzled row, and the fifth starts the second
-  // box. The first step overwrites sc.
-  auto issue_qk = [&](int kt) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      wgmma_ss_n64(sc, desc_sw128(q_s(g) + off, 16, 1024),
-                   desc_sw128(k_s(kt % S) + off, 16, 1024), kk > 0);
-    }
-  };
-  // pv = P_hi V + P_lo V of tile kt alone (a k16 step is 16 rows of V,
-  // 2048 bytes; the next 64 columns of V lie one box, 8 KB, further).
+  // S = Q K^T of tile kt into sc (the first step overwrites sc)
+  auto issue_qk = [&](int kt) { product_ss<D>(sc, q_s(g), k_s(kt % S)); };
+  // pv = P_hi V + P_lo V of tile kt alone
   auto issue_pv = [&](int kt) {
-    const uint32_t vs = v_s(kt % S);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(pv, p_hi + 4 * kk,
-                  desc_sw128(vs + kk * 2048, kBoxBytes, 1024), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(pv, p_lo + 4 * kk,
-                  desc_sw128(vs + kk * 2048, kBoxBytes, 1024), 1);
+    product_rs<D>(pv, p_hi, p_lo, v_s(kt % S), 0);
   };
   // scale, mask and the online softmax of tile kt on the fragments: sc
   // becomes the fp32 p, (m, l) move on, and `al` gets the factor that
@@ -444,18 +247,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       l[h] = al[h] * l[h] + ps[h];
     }
   };
-  // P split in two bf16 parts: k16 step kk takes p registers 8 kk ..
-  // 8 kk + 7 as four bf16 pairs.
-  auto pack = [&]() {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[2 * i], sc[2 * i + 1]);
-      const float2 hf = __bfloat1622float2(hi);
-      p_hi[i] = bf16x2_bits(hi);
-      p_lo[i] = bf16x2_bits(__floats2bfloat162_rn(sc[2 * i] - hf.x,
-                                                  sc[2 * i + 1] - hf.y));
-    }
-  };
 
   // Software pipeline over this group's live tiles: while the tensor
   // cores run tile kt's P V, the warpgroup runs tile kt + 1's softmax
@@ -482,7 +273,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait<0>();
     fence_regs(sc);
     softmax(0, alpha);
-    pack();
+    split_bf16(sc, p_hi, p_lo);
     for (int kt = 0; kt + 1 < my_kt; ++kt) {
       mbar_wait(full((kt + 1) % S), ((kt + 1) / S) & 1);
       wgmma_fence();
@@ -494,7 +285,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       fence_regs(sc);
       softmax(kt + 1, alpha_next);
       finish_pv(kt);
-      pack();
+      split_bf16(sc, p_hi, p_lo);
       alpha[0] = alpha_next[0];
       alpha[1] = alpha_next[1];
     }
@@ -534,49 +325,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       if (lane % 4 == 0) a.lse[r] = m[h] + logf(ll);
     }
   }
-}
-
-// --------------------------------------------------------------- host ---
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D map over a contiguous bf16 [bh, t, d] tensor with 64-row x
-// 64-column boxes of one head, 128-byte swizzled; rows past t read zero.
-inline bool make_map(CUtensorMap* map, const void* ptr, int bh, int t, int d) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {kBox, kRows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, bool kCarry>

@@ -17,11 +17,14 @@ backward are the kernels of ``csrc/flash_attention.cu`` on CUDA tensors:
 The autograd function saves (q, k, v, o, lse) as ``_flash_bh_fwd`` does.
 Causal masking is top-left aligned (query i attends key j iff i >= j);
 any Tq and Tk are taken. The kernels take float32 and bfloat16 at head
-dims 64 and 128; anything else raises. Two routes: bfloat16
-``flash_fwd`` and ``flash_carry`` run one tensor-core template
-(``csrc/flash_fwd_sm90.cuh``: TMA loads, wgmma with fp32 accumulation,
-S scaled after the product, P split into two bf16 parts for PV); float32,
-and both backward kernels, run CUDA-core kernels that dot in fp32.
+dims 64 and 128; anything else raises. Two routes by dtype: bfloat16
+runs the tensor-core templates (TMA loads, wgmma with fp32 accumulation,
+S scaled after the product): ``flash_fwd`` and ``flash_carry`` run
+``csrc/flash_fwd_sm90.cuh`` (P split into two bf16 parts for PV),
+``flash_bwd_dq`` and ``flash_bwd_dkv`` run ``csrc/flash_bwd_sm90.cuh``
+(P and dS split into two bf16 parts each, dQ, dK and dV summed in the
+tensor cores' accumulators); float32 runs CUDA-core kernels that dot in
+fp32.
 ``dense_attention_with_lse`` and ``dense_attention_bwd`` are the plain
 versions, and what CPU tensors run: the same formulas by plain tensor
 ops (q pre-scaled in fp32, every dot in fp32, masked scores at the
@@ -182,7 +185,8 @@ def flash_attention_with_lse(q, k, v, causal=False):
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=False):
     """dq in q.dtype from the ``flash_bwd_dq`` kernel (CUDA tensors
-    only): lse and delta are fp32 [BH, Tq]."""
+    only): lse and delta are fp32 [BH, Tq]. bfloat16 runs the tensor-core
+    kernel ``flash_bwd_dq_sm90``, float32 the CUDA-core kernel."""
     _check_qkv(q, k, v)
     _check_flash_inputs((q, k, v, do), (lse, delta))
     bh, tq, d = q.shape
@@ -199,7 +203,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False):
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False):
     """(dk, dv) in k.dtype from the ``flash_bwd_dkv`` kernel (CUDA
-    tensors only)."""
+    tensors only). bfloat16 runs the tensor-core kernel
+    ``flash_bwd_dkv_sm90``, float32 the CUDA-core kernel."""
     _check_qkv(q, k, v)
     _check_flash_inputs((q, k, v, do), (lse, delta))
     bh, tq, d = q.shape

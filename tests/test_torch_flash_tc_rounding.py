@@ -1,6 +1,8 @@
 """The rounding of the tensor-core flash kernels (``flash_fwd_sm90`` in
-``mxnet_tpu_torch/csrc/flash_fwd_sm90.cuh``: bf16 B1 and B5) against the
-plain versions they are held to on the card, on the CPU.
+``mxnet_tpu_torch/csrc/flash_fwd_sm90.cuh``: bf16 B1 and B5;
+``flash_bwd_dq_sm90`` and ``flash_bwd_dkv_sm90`` in
+``csrc/flash_bwd_sm90.cuh``: bf16 B2a and B2b) against the plain versions
+they are held to on the card, on the CPU.
 
 The CUDA template cannot run here, so ``emulate`` repeats its arithmetic
 in plain torch: bf16 q, k and v whose products are exact in fp32; S = Q K^T
@@ -15,6 +17,17 @@ fp32. Its outputs must hold the gates of ``chip_smoke.py`` unchanged:
 ``carry_block_reference`` on the rows the carry's contract specifies. A
 single bf16 P (no P_lo) breaks the carry's gate, which is why the kernel
 splits P.
+
+``emulate_bwd`` does the same for the backward template: S and dP summed
+in fp32 from bf16 operands, S scaled after the product, P = exp2(S scale
+log2e - lse log2e) and dS = P (dP - delta) on 64-row tiles; keys past Tk
+(dQ) and query columns past Tq (dK/dV) read as zero rows, as TMA fills
+them, and get p = 0; causal masked scores p = 0, tiles wholly past the
+diagonal skipped; P and dS split into bf16 hi + lo parts, and dQ, dK, dV
+summed across tiles in fp32 in the kernels' tile order, dQ and dK scaled
+by 1/sqrt(D) at the end. Its gradients must hold ``TOL_FLASH["bfloat16"]``
+against ``dense_attention_bwd``; a single bf16 P and dS breaks that gate,
+which is why the backward splits both.
 """
 
 import importlib.util
@@ -187,3 +200,131 @@ def test_a_single_bf16_p_breaks_the_carry_gate(q_offset, kv_offset):
     want = kernels.carry_block_reference(q, k, v, *carry, q_offset,
                                          kv_offset, True)
     assert _carry_share(got, want, carry, q_offset, kv_offset, True) > 10.0
+
+
+# ------------------------------------------------------------- backward ---
+
+def _pad_rows(x, rows, fill):
+    """x [BH, T, ...] padded to ``rows`` rows with ``fill`` (a tensor of
+    the padded shape), or zeros, as TMA fills the rows past T."""
+    pad = torch.zeros((x.shape[0], rows - x.shape[1]) + tuple(x.shape[2:]))
+    if fill is not None:
+        pad = fill(pad.shape)
+    return torch.cat([x.float(), pad], 1)
+
+
+def emulate_bwd(q, k, v, do, lse, delta, causal=True, split=True,
+                junk=None):
+    """The backward template's arithmetic over bf16 q, do [BH, Tq, D],
+    k, v [BH, Tk, D] with the fp32 lse and delta [BH, Tq]: (dq, dk, dv)
+    in bf16. ``junk(shape)``, if given, fills the rows past Tq and Tk (and
+    their lse and delta) instead of the zeros the kernels read there,
+    to show that the mask, not the data, keeps them out."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    nq, nk = -(-tq // TILE), -(-tk // TILE)
+    qf, dof = (_pad_rows(x, nq * TILE, junk) for x in (q, do))
+    kf, vf = (_pad_rows(x, nk * TILE, junk) for x in (k, v))
+    lse2, dl = (_pad_rows(x[..., None], nq * TILE, junk)[..., 0]
+                for x in (lse * LOG2E, delta))
+    sl = 1.0 / math.sqrt(d) * LOG2E
+    qpos, kpos = torch.arange(nq * TILE), torch.arange(nk * TILE)
+
+    def parts(x):
+        hi = x.to(torch.bfloat16).float()
+        if not split:
+            return (hi,)
+        return hi, (x - hi).to(torch.bfloat16).float()
+
+    def tile_p_ds(qs, ks, s, dp):
+        """P and dS of the score tile s [BH, queries qs, keys ks]."""
+        live = (qpos[qs, None] < tq) & (kpos[None, ks] < tk)
+        if causal:
+            live &= qpos[qs, None] >= kpos[None, ks]
+        p = torch.where(live, torch.exp2(s * sl - lse2[:, qs, None]), 0.0)
+        return p, p * (dp - dl[:, qs, None])
+
+    dq = torch.zeros((bh, nq * TILE, d))
+    for qt in range(nq):
+        qs = slice(qt * TILE, (qt + 1) * TILE)
+        for kt in range(min(nk, qt + 1) if causal else nk):
+            ks = slice(kt * TILE, (kt + 1) * TILE)
+            _, ds = tile_p_ds(qs, ks, qf[:, qs] @ kf[:, ks].transpose(1, 2),
+                              dof[:, qs] @ vf[:, ks].transpose(1, 2))
+            for part in parts(ds):
+                dq[:, qs] += part @ kf[:, ks]
+    dk = torch.zeros((bh, nk * TILE, d))
+    dv = torch.zeros((bh, nk * TILE, d))
+    for kt in range(nk):
+        ks = slice(kt * TILE, (kt + 1) * TILE)
+        for qt in range(kt if causal else 0, nq):
+            qs = slice(qt * TILE, (qt + 1) * TILE)
+            # the transposed frame of the kernel: P^T, dS^T [BH, keys, queries]
+            pt, dst = (x.transpose(1, 2) for x in tile_p_ds(
+                qs, ks, (kf[:, ks] @ qf[:, qs].transpose(1, 2)).transpose(1, 2),
+                (vf[:, ks] @ dof[:, qs].transpose(1, 2)).transpose(1, 2)))
+            for part in parts(pt):
+                dv[:, ks] += part @ dof[:, qs]
+            for part in parts(dst):
+                dk[:, ks] += part @ qf[:, qs]
+    scale = 1.0 / math.sqrt(d)
+    return ((scale * dq[:, :tq]).to(torch.bfloat16),
+            (scale * dk[:, :tk]).to(torch.bfloat16),
+            dv[:, :tk].to(torch.bfloat16))
+
+
+def _bwd_case(bh, tq, tk, d, causal):
+    """Seeded bf16 q, k, v, do, the plain forward's (o, lse) and the
+    wrapper's delta = rowsum(dO O) in fp32, as chip_smoke's checks."""
+    q, k, v, do = (_bf16((bh, t, d), 40 + seed) for seed, t in
+                   enumerate((tq, tk, tk, tq)))
+    o, lse = kernels.dense_attention_with_lse(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, o, lse, delta
+
+
+def _bwd_shares(bh, tq, tk, d, causal, split):
+    q, k, v, do, o, lse, delta = _bwd_case(bh, tq, tk, d, causal)
+    got = emulate_bwd(q, k, v, do, lse, delta, causal, split)
+    want = kernels.dense_attention_bwd(q, k, v, o, lse, do, causal)
+    return [_share(g, w, *cs.TOL_FLASH["bfloat16"])
+            for g, w in zip(got, want)]
+
+
+BWD_CASES = [(2, 1024, 1024, 128, True), (2, 1024, 1024, 128, False),
+             (2, 1024, 1024, 64, True), (2, 1024, 1024, 64, False),
+             (6, 333, 200, 128, True), (6, 333, 200, 128, False)]
+
+
+@pytest.mark.parametrize("bh, tq, tk, d, causal", BWD_CASES)
+def test_backward_rounding_holds_the_bf16_gate(bh, tq, tk, d, causal):
+    """dq, dk and dv of the split template against dense_attention_bwd
+    at chip_smoke's bf16 TOL_FLASH."""
+    assert max(_bwd_shares(bh, tq, tk, d, causal, split=True)) <= 1.0
+
+
+@pytest.mark.parametrize("d", [128, 64])
+def test_a_single_bf16_p_and_ds_breaks_the_bf16_gate(d):
+    """Why the backward splits P and dS: with each rounded to one bf16
+    operand before its product, every gradient misses the bf16 gate by a
+    clear margin."""
+    shares = _bwd_shares(2, 1024, 1024, d, True, split=False)
+    assert min(shares) > 1.5, shares
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_rows_of_a_ragged_tile_add_nothing(causal):
+    """The query columns past Tq of a dK/dV tile (and the keys past Tk of
+    a dQ tile) get p = 0 from the mask, so whatever those rows hold, even
+    values whose exp(S - lse) overflows, the gradients are the same."""
+    q, k, v, do, _, lse, delta = _bwd_case(6, 333, 200, 128, causal)
+    gen = torch.Generator().manual_seed(7)
+
+    def junk(shape):
+        return 1e4 * torch.randn(shape, generator=gen)
+
+    zero = emulate_bwd(q, k, v, do, lse, delta, causal)
+    filled = emulate_bwd(q, k, v, do, lse, delta, causal, junk=junk)
+    for a, b in zip(zero, filled):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)

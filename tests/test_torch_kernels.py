@@ -227,6 +227,29 @@ def test_build_is_keyed_by_every_header_the_source_includes(tmp_path,
     assert _build.library_path("flash_attention") not in (first, second)
 
 
+FLASH_SOURCES = ("flash_attention.cu", "sm90_common.cuh",
+                 "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh")
+
+
+def test_flash_library_is_keyed_by_both_tensor_core_templates(tmp_path,
+                                                              monkeypatch):
+    """The flash library's source list holds the shared Hopper primitives
+    and both tensor-core templates, so an edit to any of them (in a copy
+    of the real sources) rebuilds the library."""
+    assert set(FLASH_SOURCES) <= {
+        p.name for p in _build.sources("flash_attention")}
+    for path in _build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    seen = {_build.library_path("flash_attention")}
+    for name in FLASH_SOURCES:
+        with open(tmp_path / name, "a") as f:
+            f.write("// edited\n")
+        seen.add(_build.library_path("flash_attention"))
+    assert len(seen) == 1 + len(FLASH_SOURCES)
+
+
 def _chip_smoke():
     root = Path(__file__).resolve().parent.parent
     spec = importlib.util.spec_from_file_location("chip_smoke",
