@@ -18,9 +18,15 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    float32 and bfloat16, each at the tolerance stated by ``TOL`` or
    ``TOL_FLASH``: the paged decode kernel on 32 lanes of 8 KV heads x 64
    dims, a pool of 2049 16-position blocks, 256-entry tables, live
-   lengths in [1, 4096], spans 1 and 4, groups 1 and 2; the flash-decode
-   kernel on 8 lanes x 8 heads against a 4096-position cache with
-   lengths including 0 and 4096; the flash forward (o and lse) and the
+   lengths in [1, 4096], spans 1 and 4, groups 1 and 2, and again with
+   lanes on the edges of the split plan (``paged_edge_case``: a parked
+   lane, windows ending at the chunk C - 1, C and C + 1, one across a
+   chunk boundary, one at the table's capacity); the flash-decode kernel
+   on 8 lanes x 8 heads against a 4096-position cache with lengths
+   including 0 and 4096, and again with lengths 0, 1, C - 1, C, C + 1
+   and 4096 and with every lane longer than one chunk; both split
+   kernels must give bitwise equal results on two calls; the flash
+   forward (o and lse) and the
    two flash backward kernels (dq, and dk/dv), causal and not, at the
    training shape (64 batch-heads x 1024 positions x 128 dims), at head
    dim 64, and at one ragged cross-length case; the bf16 backward kernels
@@ -109,17 +115,22 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    forward, the ring-carry kernel and the two backward kernels again at
    head dim 64 beside SDPA's forward and backward;
    the paged kernel is timed on the served pool full, each block in one
-   lane's table, in bfloat16 and int8;
+   lane's table, in bfloat16 and int8; each decode kernel also by its
+   device time under torch.profiler beside SDPA's, with its split plan,
+   and the wrapper's host microseconds per call;
 10. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
-   idle share and the kernels that took the most time; the bf16 train
-   step must show the three tensor-core kernels among them, and the mesh
-   forward the forward template;
+   idle share and the kernels that took the most time; the serve step
+   must show the three split kernels of the paged decode, the
+   ``generate()`` decode step the two of flash decode, the bf16 train
+   step the three tensor-core kernels, and the mesh forward the forward
+   template;
 11. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
-    lanes and lengths 256 and 4096, and the
+    lanes and lengths 256 and 4096, by CUDA events and by device time
+    with each kernel's GB/s of live bytes, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
@@ -128,12 +139,19 @@ Run from the root of a checkout on a machine with one CUDA GPU and
 
 Any failed check raises, so the script exits nonzero and prints no
 result line. It imports nothing of JAX or of the JAX package.
+
+    python3 chip_smoke.py --decode-host OTHER
+
+compares the decode path's host cost with the port in the checkout at
+``OTHER`` (``decode_host``), in one process on the same card.
 """
 
 import collections
 import dataclasses
 import json
+import os
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -247,9 +265,16 @@ REPLACES = {"paged_decode": "mxnet_tpu/kernels/paged_decode.py:69",
 # equalities rest on them)
 TEMPLATE = "flash_fwd_sm90"
 BWD_TEMPLATES = ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
-ROUTES = {"paged_decode": "CUDA cores (fp32, bf16)",
-          "paged_decode_int8": "CUDA cores (dp4a)",
-          "flash_decode": "CUDA cores (fp32, bf16)",
+# the split-K decode kernels, by the words the profiler shows
+PAGED_SPLIT = ("paged_scores_kernel", "paged_pv_kernel",
+               "paged_combine_kernel")
+FLASH_SPLIT = ("flash_decode_split_kernel", "flash_decode_combine_kernel")
+ROUTES = {"paged_decode": "CUDA cores, split-K over the sequence: %s "
+                          "(fp32, bf16)" % " + ".join(PAGED_SPLIT),
+          "paged_decode_int8": "CUDA cores (dp4a), one CTA per lane and "
+                               "KV head",
+          "flash_decode": "CUDA cores, split-K over the sequence: %s "
+                          "(fp32, bf16)" % " + ".join(FLASH_SPLIT),
           "flash_fwd": "bf16: wgmma template %s (TMA, P split hi + lo); "
                        "fp32: CUDA cores" % TEMPLATE,
           "flash_bwd_dq": "bf16: wgmma template %s (TMA, dS split hi + "
@@ -417,6 +442,64 @@ def check_paged(torch, kernels, device):
     return errs
 
 
+def paged_edge_case(torch, device, dtype, span, g, seed, lanes=32, bs=16,
+                    nbl=256, nb=SERVE["num_blocks"]):
+    """A check case at the served shapes whose lanes sit on the split
+    plan's edges (C = the plan's largest chunk, S its split count): lane
+    0 parked at position 0 on an all-null table; lanes 1-3 with their
+    last attended position at C - 1, C and C + 1; lane 4's window over
+    2C - 2 .. 2C + span - 3 (across a chunk boundary when span > 2); lane
+    5 ending at the table's capacity; lanes 6 and 7 attending S * bs and
+    S * bs + 1 positions (where a lane's own chunk grows by one block);
+    the others uniform, as ``paged_case``. Returns the case and the
+    plan."""
+    from mxnet_tpu_torch import kernels
+    splits, chunk = kernels.paged_decode_splits(lanes, 8, nbl, bs)
+    rng = np.random.RandomState(seed)
+    tables = np.stack([rng.choice(np.arange(1, nb), nbl, replace=False)
+                       for _ in range(lanes)])
+    pos = rng.randint(0, nbl * bs - span + 1, size=lanes)
+    tables[0], pos[0] = 0, 0
+    for i, last in enumerate((chunk - 1, chunk, chunk + 1), 1):
+        pos[i] = last - span + 1
+    pos[4] = 2 * chunk - 2
+    pos[5] = nbl * bs - span
+    pos[6], pos[7] = splits * bs - span, splits * bs + 1 - span
+    return paged_tensors(torch, device, dtype, tables, pos, span, g,
+                         seed), (splits, chunk)
+
+
+def check_bitwise(torch, run, what):
+    """Two calls of ``run`` on the same inputs must be bitwise equal: the
+    split kernels merge in a fixed order, with no atomics."""
+    first, second = run(), run()
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            raise AssertionError("%s: two calls on the same inputs differ"
+                                 % what)
+
+
+def check_paged_splits(torch, kernels, device):
+    """The paged kernel at the split plan's edges (``paged_edge_case``),
+    in float32 and bfloat16, spans 1 and 4, groups 1 and 2, at TOL, and
+    two calls bitwise equal."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        for span, g in ((1, 1), (4, 1), (1, 2), (4, 2)):
+            (q, pool, tables, pos), (splits, chunk) = paged_edge_case(
+                torch, device, dtype, span, g, seed=30 + 10 * span + g)
+            what = "paged_decode edges %-8s span=%d G=%d (%d splits of %d)" \
+                % (name, span, g, splits, chunk)
+            got = kernels.paged_attention(q, pool, tables, pos)
+            want = kernels.paged_attention_reference(q, pool, tables, pos)
+            errs[(name, span, g)] = compare(got, want, name, what)
+            check_bitwise(torch, lambda: (kernels.paged_attention(
+                q, pool, tables, pos),), what)
+            del pool
+    return errs
+
+
 def int8_code_step(torch, q, pool, tables, pos):
     """127 * as_ of every output row of the int8 plain version, as
     [B, C, H, 1]: as_ is the row's probability scale (max over the
@@ -488,17 +571,20 @@ def check_paged_int8(torch, kernels, device):
 
 # ---------------------------------------------------------------- B4 ---
 
-def flash_case(torch, device, dtype, g, seed, b=8, kvh=8, tmax=4096, d=64):
+def flash_case(torch, device, dtype, g, seed, b=8, kvh=8, tmax=4096, d=64,
+               lengths=None):
     """Inputs of one flash-decode case, made from ``seed``; lane 0 has
-    no valid key and lane 1 a full cache."""
+    no valid key and lane 1 a full cache, unless ``lengths`` are given."""
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     k, v = (randn(torch, (b, tmax, kvh, d), gen, device, dtype)
             for _ in range(2))
     q = randn(torch, (b, kvh * g, d), gen, device, dtype)
-    lengths = rng.randint(1, tmax, size=b)
-    lengths[0], lengths[1] = 0, tmax
-    return q, k, v, torch.from_numpy(lengths.astype(np.int32)).to(device)
+    if lengths is None:
+        lengths = rng.randint(1, tmax, size=b)
+        lengths[0], lengths[1] = 0, tmax
+    return q, k, v, torch.from_numpy(
+        np.asarray(lengths, np.int32)).to(device)
 
 
 def flash_work(q, k, lengths):
@@ -527,6 +613,50 @@ def check_flash(torch, kernels, device):
             if not err_lse <= TOL_LSE:
                 raise AssertionError("flash_decode's lse disagrees with its "
                                      "plain version")
+    return errs
+
+
+def check_flash_splits(torch, kernels, device, b=8, kvh=8, tmax=4096):
+    """The flash-decode kernels at the split plan's edges (C = the plan's
+    largest chunk, S its split count, g the granule of a lane's own
+    chunk), in float32 and bfloat16, G 1 and 2, at TOL and TOL_LSE:
+    lengths 0, 1, C - 1, C, C + 1, tmax, S * g and S * g + 1 (where a
+    lane's chunk grows by one granule); then every lane longer than C
+    (each spans more than one split); two calls bitwise equal."""
+    from mxnet_tpu_torch.kernels.flash_attention import (
+        FLASH_DECODE_GRANULE as granule)
+    splits, chunk = kernels.flash_decode_splits(b, kvh, tmax)
+    rng = np.random.RandomState(25)
+    edges = [0, 1, chunk - 1, chunk, chunk + 1, tmax, splits * granule,
+             splits * granule + 1][:b]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        for g in (1, 2):
+            for label, lens in (("edges", edges), ("all split", rng.randint(
+                    chunk + 1, tmax + 1, size=b))):
+                q, k, v, lengths = flash_case(torch, device, dtype, g,
+                                              seed=26 + g, b=b, kvh=kvh,
+                                              tmax=tmax, lengths=lens)
+                what = "flash_decode %-9s %-8s G=%d (%d splits of %d)" % (
+                    label, name, g, splits, chunk)
+                o, lse = kernels.flash_decode_with_lse(q, k, v, lengths)
+                o_ref, lse_ref = kernels.dense_decode_with_lse(q, k, v,
+                                                               lengths)
+                errs[(label, name, g)] = compare(o, o_ref.to(dtype), name,
+                                                 what)
+                err_lse = max_err(lse, lse_ref)
+                log("%s: lse max abs err %.3g (tol %g)"
+                    % (what, err_lse, TOL_LSE))
+                if not err_lse <= TOL_LSE:
+                    raise AssertionError("flash_decode's lse disagrees with "
+                                         "its plain version")
+                if label == "edges" and not (
+                        (o[0] == 0).all() and (lse[0] < -1e29).all()):
+                    raise AssertionError("a length-0 lane must give o = 0 "
+                                         "and lse ~ -1e30")
+                check_bitwise(torch, lambda: kernels.flash_decode_with_lse(
+                    q, k, v, lengths), what)
     return errs
 
 
@@ -599,19 +729,64 @@ def check_flash_bwd_long(torch, kernels, device):
     return errs
 
 
+PROFILE_ATTEMPTS = 5     # sessions tried before a trace with no kernel fails
+
+
+def traced(torch, run, what):
+    """``run()``'s profiler result, tried again (and logged) when a
+    session records no kernel at all: torch.profiler on the card now and
+    then drops every kernel of a session (seen on calls whose kernels the
+    autograd thread launches and on plain launches alike). A session
+    empty PROFILE_ATTEMPTS times fails."""
+    for attempt in range(PROFILE_ATTEMPTS):
+        result = run()
+        if result:
+            return result
+        log("profiler: no kernel recorded for %s (session %d of %d)"
+            % (what, attempt + 1, PROFILE_ATTEMPTS))
+    raise AssertionError("the profiler saw no kernel of " + what)
+
+
 def device_ms(torch, fn, iters=5):
     """ms per call of the kernels ``fn`` launches, their own device times
     under torch.profiler: a call whose host work outlasts its kernels
     reads more by ``time_ms`` than the card spent on it."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    return sum(device_ms_each(torch, {0: fn}, iters)[0].values())
+
+
+def device_ms_each(torch, fns, iters=5):
+    """{label: {kernel name: ms per call}} for several calls timed in ONE
+    torch.profiler session: each label's ``iters`` calls run inside their
+    own record_function range that ends in a sync, and a kernel (a CUDA
+    event) counts for the range its start falls in."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    device_type = torch.autograd.DeviceType.CUDA
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+    labels = dict(enumerate(fns))
+
+    def run():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i, label in labels.items():
+                with record_function("timed: %d" % i):
+                    for _ in range(iters):
+                        fns[label]()
+                    torch.cuda.synchronize()
+        events = prof.events()
+        spans = {labels[int(e.name[len("timed: "):])]: e.time_range
+                 for e in events if e.name.startswith("timed: ")}
+        out = {label: collections.Counter() for label in fns}
+        for e in events:
+            if e.device_type != device_type or e.name.startswith("timed: "):
+                continue
+            for label, span in spans.items():
+                if span.start <= e.time_range.start <= span.end:
+                    out[label][e.name] += \
+                        e.time_range.elapsed_us() / 1e3 / iters
+        return out if all(out.values()) else None
+    return traced(torch, run, "the calls %s" % ", ".join(map(str, fns)))
 
 
 def sdpa_bwd_ms(torch, F, q, k, v, do, b, h, iters=10):
@@ -1207,25 +1382,51 @@ def check_sp_decode(torch, ring, kernels, mesh, device):
 
 # ------------------------------------------------------------ timings ---
 
+def host_us(torch, fn, calls=100):
+    """Host µs per call of ``fn``: time.perf_counter around ``calls``
+    calls before the sync that waits for their kernels (a warm call
+    first). What a host-bound decode step pays per wrapper call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * spent / calls
+
+
 def time_paged(torch, F, kernels, device):
     q, pool, tables, pos = full_pool_case(torch, device, torch.bfloat16,
                                           seed=11)
     lanes, _, h, d = q.shape
-    ms = time_ms(lambda: kernels.paged_attention(q, pool, tables, pos), 20)
+    bs, kvh = pool["k"].shape[1:3]
+    splits, chunk = kernels.paged_decode_splits(lanes, kvh, tables.shape[1],
+                                                bs)
+
+    def run():
+        return kernels.paged_attention(q, pool, tables, pos)
+    ms, dev, host = time_ms(run, 20), device_ms(torch, run), host_us(torch,
+                                                                     run)
     plain = time_ms(
         lambda: kernels.paged_attention_reference(q, pool, tables, pos), 5)
     # yardstick: SDPA on the gathered dense K/V (gather not timed)
     idx = tables.long()
-    t = tables.shape[1] * pool["k"].shape[1]
+    t = tables.shape[1] * bs
     kd, vd = (pool[n][idx].reshape(lanes, t, h, d).transpose(1, 2)
               for n in ("k", "v"))
     mask = (torch.arange(t, device=device)[None, :]
             <= pos.long()[:, None])[:, None, None, :]
     qd = q.transpose(1, 2)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
-                                                         attn_mask=mask), 20)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+    lib, lib_dev = time_ms(sdpa, 20), device_ms(torch, sdpa)
     nbytes, flops = paged_work(q, pool, tables, pos)
-    return ms, plain, lib, bound_ms(nbytes, flops, "bfloat16")
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain, "library_ms": lib,
+            "library_device_ms": lib_dev, "host_us": host,
+            "splits": splits, "chunk": chunk,
+            "bound": bound_ms(nbytes, flops, "bfloat16")}
 
 
 def time_paged_int8(torch, F, kernels, device):
@@ -1234,28 +1435,44 @@ def time_paged_int8(torch, F, kernels, device):
     it has no library time."""
     q, pool, tables, pos = full_pool_case(torch, device, torch.bfloat16,
                                           seed=11, int8=True)
-    ms = time_ms(lambda: kernels.paged_attention(q, pool, tables, pos), 20)
+
+    def run():
+        return kernels.paged_attention(q, pool, tables, pos)
+    ms, dev, host = time_ms(run, 20), device_ms(torch, run), host_us(torch,
+                                                                     run)
     plain = time_ms(
         lambda: kernels.paged_attention_reference(q, pool, tables, pos), 5)
     nbytes, ops = paged_work(q, pool, tables, pos)
-    return ms, plain, None, bound_ms(nbytes, ops, "int8")
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain,
+            "library_ms": None, "library_device_ms": None, "host_us": host,
+            "bound": bound_ms(nbytes, ops, "int8")}
 
 
 def time_flash(torch, F, kernels, device):
     q, k, v, lengths = flash_case(torch, device, torch.bfloat16, 1, seed=21)
     b, h, d = q.shape
-    t = k.shape[1]
-    ms = time_ms(lambda: kernels.flash_decode_with_lse(q, k, v, lengths), 20)
+    t, kvh = k.shape[1:3]
+    splits, chunk = kernels.flash_decode_splits(b, kvh, t)
+
+    def run():
+        return kernels.flash_decode_with_lse(q, k, v, lengths)
+    ms, dev, host = time_ms(run, 20), device_ms(torch, run), host_us(torch,
+                                                                     run)
     plain = time_ms(
         lambda: kernels.dense_decode_with_lse(q, k, v, lengths), 5)
     kd, vd = k.transpose(1, 2), v.transpose(1, 2)
     mask = (torch.arange(t, device=device)[None, :]
             < lengths.long()[:, None])[:, None, None, :]
     qd = q[:, :, None]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd,
-                                                         attn_mask=mask), 20)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+    lib, lib_dev = time_ms(sdpa, 20), device_ms(torch, sdpa)
     nbytes, flops = flash_work(q, k, lengths)
-    return ms, plain, lib, bound_ms(nbytes, flops, "bfloat16")
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain, "library_ms": lib,
+            "library_device_ms": lib_dev, "host_us": host,
+            "splits": splits, "chunk": chunk,
+            "bound": bound_ms(nbytes, flops, "bfloat16")}
 
 
 def train_flash_work(bh, t, d, item, kernel):
@@ -1376,15 +1593,15 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
             "%s %.3f" % kv for kv in by_kind.most_common()))
 
 
-def profile_serve(torch, sv, params, cfg, device, what):
+def profile_serve(torch, sv, params, cfg, device, what, expect=()):
     """Where a serve step's time goes: the serve job mix on 16 lanes of
-    32, warmed up by two steps."""
+    32, warmed up by two steps; ``expect`` as ``profile_steps``."""
     srv = batcher(sv, params, cfg, device)
     for prompt, n_new in serve_jobs(cfg, 2 * PROFILE_STEPS + 4):
         srv.admit(prompt, n_new)
     for _ in range(2):
         srv.step()
-    profile_steps(torch, what, srv.step)
+    profile_steps(torch, what, srv.step, expect=expect)
 
 
 def profile_decode(torch, tf, sv, params, cfg, device):
@@ -1392,7 +1609,7 @@ def profile_decode(torch, tf, sv, params, cfg, device):
     32, then generate()'s decode step at batch 8 after a 256-token
     prefill, each warmed up by two steps."""
     profile_serve(torch, sv, params, cfg, device,
-                  "serve step, 16 live lanes of 32")
+                  "serve step, 16 live lanes of 32", expect=PAGED_SPLIT)
 
     b, t_p = GENERATE["batch"], GENERATE["prompt"]
     prompt = torch.from_numpy(np.random.RandomState(2).randint(
@@ -1411,7 +1628,8 @@ def profile_decode(torch, tf, sv, params, cfg, device):
 
         for _ in range(2):
             decode()
-        profile_steps(torch, "generate decode step, batch 8", decode)
+        profile_steps(torch, "generate decode step, batch 8", decode,
+                      expect=FLASH_SPLIT)
 
 
 # -------------------------------------------------------------- sweep ---
@@ -1419,9 +1637,11 @@ def profile_decode(torch, tf, sv, params, cfg, device):
 def sweep(torch, F, kernels, device, kvh=8, d=64, bs=16):
     """The decode kernels and the yardstick with every lane at one
     length, in bfloat16 (and the paged kernel on the same rows quantised
-    to int8), over lane counts and lengths. The time follows the total
-    bytes where bandwidth limits a kernel, and the per-lane length at a
-    fixed lane count where one CTA's walk along its lane does."""
+    to int8), over lane counts and lengths, by CUDA events and by device
+    time, with each kernel's GB/s of live bytes (the K/V rows its lanes
+    attend, over its device time). The time follows the total bytes
+    where bandwidth limits a kernel, and the per-lane length at a fixed
+    lane count where one CTA's walk along its lane does."""
     from mxnet_tpu_torch.kernels.common import kv_quant
     gen = torch.Generator(device=device).manual_seed(3)
 
@@ -1434,12 +1654,7 @@ def sweep(torch, F, kernels, device, kvh=8, d=64, bs=16):
             k, v = rand(lanes, length, kvh, d), rand(lanes, length, kvh, d)
             lens = torch.full((lanes,), length, dtype=torch.int32,
                               device=device)
-            flash = time_ms(
-                lambda: kernels.flash_decode_with_lse(q, k, v, lens), 20)
             kd, vd = k.transpose(1, 2), v.transpose(1, 2)
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kd, vd), 20)
-            del k, v, kd, vd
             nbl = length // bs
             pool = {n: rand(lanes * nbl + 1, bs, kvh, d) for n in "kv"}
             tables = (1 + torch.randperm(lanes * nbl, generator=gen,
@@ -1448,21 +1663,41 @@ def sweep(torch, F, kernels, device, kvh=8, d=64, bs=16):
             pos = torch.full((lanes,), length - 1, dtype=torch.int32,
                              device=device)
             qp = q[:, None]
-            paged = time_ms(
-                lambda: kernels.paged_attention(qp, pool, tables, pos), 20)
             pool8 = {}
             for n in "kv":
-                pool8[n], pool8[n + "s"] = kv_quant(pool.pop(n))
-            paged8 = time_ms(
-                lambda: kernels.paged_attention(qp, pool8, tables, pos), 20)
-            del pool8
+                pool8[n], pool8[n + "s"] = kv_quant(pool[n])
+            calls = {
+                "flash_decode": lambda: kernels.flash_decode_with_lse(
+                    q, k, v, lens),
+                "sdpa": lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kd, vd),
+                "paged_decode": lambda: kernels.paged_attention(
+                    qp, pool, tables, pos),
+                "paged_decode_int8": lambda: kernels.paged_attention(
+                    qp, pool8, tables, pos)}
+            ms = {name: time_ms(fn, 20) for name, fn in calls.items()}
+            dev = {name: sum(parts.values()) for name, parts in
+                   device_ms_each(torch, calls).items()}
+            del k, v, kd, vd, pool, pool8, calls
             cells = lanes * length * kvh
-            bound, _ = bound_ms(2 * cells * d * 2, 4 * cells * d, "bfloat16")
-            bound8, _ = bound_ms(cells * (2 * d + 8), 4 * cells * d, "int8")
+            live = {"flash_decode": 2 * cells * d * 2, "sdpa": 2 * cells * d
+                    * 2, "paged_decode": 2 * cells * d * 2,
+                    "paged_decode_int8": cells * (2 * d + 8)}
+            bound, _ = bound_ms(live["paged_decode"], 4 * cells * d,
+                                "bfloat16")
+            bound8, _ = bound_ms(live["paged_decode_int8"], 4 * cells * d,
+                                 "int8")
             log("sweep %3d lanes x %4d: flash_decode %.4f ms, paged_decode "
                 "%.4f ms (bound %.4f), paged_decode_int8 %.4f ms (bound "
                 "%.4f), sdpa %.4f ms"
-                % (lanes, length, flash, paged, bound, paged8, bound8, lib))
+                % (lanes, length, ms["flash_decode"], ms["paged_decode"],
+                   bound, ms["paged_decode_int8"], bound8, ms["sdpa"]))
+            log("sweep %3d lanes x %4d, device ms (GB/s of live bytes): %s"
+                % (lanes, length, ", ".join(
+                    "%s %.4f (%.0f)" % (name, dev[name],
+                                        live[name] / dev[name] / 1e6)
+                    for name in ("flash_decode", "paged_decode",
+                                 "paged_decode_int8", "sdpa"))))
 
 
 def train_sweep(torch, F, kernels, device, tokens=8192, h=8, d=128):
@@ -1929,9 +2164,11 @@ def main():
         log("route %s: %s" % (name, route))
 
     paged_errs = check_paged(torch, kernels, device)
+    check_paged_splits(torch, kernels, device)
     int8_errs = check_paged_int8(torch, kernels, device)
     torch.cuda.empty_cache()
     flash_errs = check_flash(torch, kernels, device)
+    check_flash_splits(torch, kernels, device)
     train_errs = check_flash_attention(torch, kernels, device)
     check_flash_bwd_long(torch, kernels, device)
     carry_errs = check_flash_carry(torch, kernels, device)
@@ -1963,17 +2200,28 @@ def main():
              int8_errs[("bfloat16", 1, 1, 64)]),
             ("flash_decode", time_flash, generated,
              flash_errs[("bfloat16", 1)])):
-        ms, plain, lib, (bound, bound_by) = timing(torch, F, kernels,
-                                                   device)
-        log("%s: %.4f ms, plain %.4f ms, sdpa %s ms, bound %.4f ms, "
-            "%.2f launches per decode step"
-            % (name, ms, plain, "-" if lib is None else "%.4f" % lib, bound,
-               run["launches"] / run["steps"]))
+        res = timing(torch, F, kernels, device)
+        lib, lib_dev = res["library_ms"], res["library_device_ms"]
+        bound, bound_by = res["bound"]
+        log("%s: %.4f ms (device %.4f ms), plain %.4f ms, sdpa %s ms "
+            "(device %s ms), bound %.4f ms, %.2f launches per decode step, "
+            "host %.1f us per wrapper call"
+            % (name, res["ms"], res["device_ms"], res["plain_ms"],
+               "-" if lib is None else "%.4f" % lib,
+               "-" if lib_dev is None else "%.4f" % lib_dev, bound,
+               run["launches"] / run["steps"], res["host_us"]))
+        if lib is not None:
+            log("%s: %d splits of %d positions; kernel / sdpa %.3f by "
+                "events, %.3f by device time; device ms / bound %.2f"
+                % (name, res["splits"], res["chunk"], res["ms"] / lib,
+                   res["device_ms"] / lib_dev, res["device_ms"] / bound))
         rows.append({"name": name, "route": "cuda", "source": SOURCE[name],
                      "replaces": REPLACES[name],
                      "launches": run["launches"], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain, "bound_ms": bound,
-                     "bound_by": bound_by, "library_ms": lib})
+                     "ms": res["ms"], "plain_ms": res["plain_ms"],
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "library_ms": lib, "device_ms": res["device_ms"],
+                     "library_device_ms": lib_dev})
     outputs = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
     timed = time_flash_attention(torch, F, kernels, device)
@@ -2057,5 +2305,112 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def import_package_as(path, name):
+    """The package in directory ``path`` imported under the top-level
+    ``name``: its relative imports resolve inside it, so it runs beside
+    the package of the same name that this checkout holds."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(path, "__init__.py"),
+        submodule_search_locations=[path])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def decode_path(torch, pkg, device, rounds):
+    """{label: fn} of the decode path of the port package ``pkg``: its
+    wrappers on the paged kernel's full served pool (bfloat16 and int8,
+    seed 11) and on flash decode at ``time_flash``'s shape (seed 21), a
+    serve step of its batcher (16 live lanes of 32, admitted and warmed
+    up by two steps, with tokens enough for ``rounds`` timed rounds) and
+    a generate() decode step at batch 8 after a 256-token prefill."""
+    kernels, sv, tf = pkg.kernels, pkg.models.serving, pkg.models.transformer
+    q, pool, tables, pos = full_pool_case(torch, device, torch.bfloat16,
+                                          seed=11)
+    q8, pool8, tables8, pos8 = full_pool_case(torch, device, torch.bfloat16,
+                                              seed=11, int8=True)
+    fq, fk, fv, flen = flash_case(torch, device, torch.bfloat16, 1, seed=21)
+    cfg = tf.TransformerConfig(dtype=torch.bfloat16, **SERVE_CFG)
+    params = tf.init_params(cfg, seed=0, device=device)
+    srv = batcher(sv, params, cfg, device)
+    for prompt, n_new in serve_jobs(cfg, (rounds + 1) * (PROFILE_STEPS + 1)):
+        srv.admit(prompt, n_new)
+    b, t_p = GENERATE["batch"], GENERATE["prompt"]
+    prompt = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (b, t_p))).to(device)
+    state = {"cache": tf.init_cache(cfg, b, device), "pos": t_p}
+    with torch.no_grad():
+        logits, state["cache"] = tf.prefill(params, state["cache"], prompt,
+                                            cfg)
+    state["tok"] = torch.argmax(logits, -1)
+
+    def decode():
+        with torch.no_grad():
+            out, state["cache"] = tf.decode_step(
+                params, state["cache"], state["tok"], state["pos"], cfg)
+        state["tok"] = torch.argmax(out, -1)
+        state["pos"] += 1
+
+    for _ in range(2):
+        srv.step()
+        decode()
+    return {
+        "paged_decode": lambda: kernels.paged_attention(q, pool, tables, pos),
+        "paged_decode_int8": lambda: kernels.paged_attention(
+            q8, pool8, tables8, pos8),
+        "flash_decode": lambda: kernels.flash_decode_with_lse(fq, fk, fv,
+                                                              flen),
+        "serve_step": srv.step, "generate_step": decode}
+
+
+def decode_host(other, rounds=10):
+    """The decode path's host cost, this checkout's port against the one
+    in the checkout at ``other``, both in one process on one card:
+    ``rounds`` rounds, each timing both packages (in turn first) on the
+    same inputs: the host µs per wrapper call (``host_us``) of
+    ``decode_path``'s three wrappers and the host ms per step
+    (``host_ms`` over PROFILE_STEPS, no profiler) of its serve and
+    generate() steps. Logs each metric's minimum and median over the
+    rounds for both and the median of the per-round differences, and one
+    JSON line with every value:
+    ``python3 chip_smoke.py --decode-host OTHER``."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    import mxnet_tpu_torch
+    pkgs = {"this": mxnet_tpu_torch, "other": import_package_as(
+        os.path.join(os.path.abspath(other), "mxnet_tpu_torch"),
+        "mxnet_tpu_torch_other")}
+    device = torch.device("cuda", 0)
+    log(card_line())
+    paths = {}
+    for who, pkg in pkgs.items():
+        pkg.kernels._build.build_all()
+        paths[who] = decode_path(torch, pkg, device, rounds)
+    out = {who: collections.defaultdict(list) for who in pkgs}
+    for r in range(rounds):
+        for who in (("this", "other") if r % 2 else ("other", "this")):
+            for name, fn in paths[who].items():
+                out[who][name].append(
+                    host_ms(torch, fn, PROFILE_STEPS) if name.endswith(
+                        "_step") else host_us(torch, fn))
+    for name in paths["this"]:
+        unit = "ms per step" if name.endswith("_step") else "us per call"
+        a, b = out["other"][name], out["this"][name]
+        log("host %s, %s: other min %.3f median %.3f; this min %.3f median "
+            "%.3f; this - other, median of %d rounds %.3f"
+            % (name, unit, min(a), float(np.median(a)), min(b),
+               float(np.median(b)), rounds,
+               float(np.median(np.subtract(b, a)))))
+    log(json.dumps({"decode_host": out, "other": os.path.abspath(other)}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--decode-host"] and len(sys.argv) == 3:
+        decode_host(sys.argv[2])
+    elif len(sys.argv) > 1:
+        raise SystemExit("usage: chip_smoke.py [--decode-host OTHER]")
+    else:
+        main()

@@ -15,23 +15,55 @@
 // (G query rows per KV head; 2G integer operations per byte of int8
 // codes), far below the ~295 flop/byte ridge, so the bytes of live K/V
 // read from HBM are the bound (live bytes / 3.35 TB/s; an int8 pool
-// holds 2D + 8 bytes per position and KV head against 4D in bf16). The
-// design keeps every other byte off HBM: one CTA per (lane, KV head)
-// reads each live cache row once per pass for all of its G (or span*G)
-// query rows, the query rows and the cross-warp partials live in shared
-// memory, and each thread loads one 16-byte vector of a float key row (8
-// bytes of an int8 one). Positions past a lane's length are never read,
-// so a short lane costs its live length and not the table capacity. The
-// paged kernels make two passes over K (statistics, then normalised
-// probabilities x V) because the reference quantises the NORMALISED
-// probabilities before PV (to the cache dtype, or to int8 codes with the
-// row's own scale); a single-pass online softmax would change the
-// numbers. Not done yet: split-K over the sequence (B*KVH CTAs under-fill
-// 132 SMs at small batch), TMA / cp.async staging, and tensor-core dots
-// (bf16, and s8 MMA for the int8 mode).
+// holds 2D + 8 bytes per position and KV head against 4D in bf16). To
+// reach it the card needs bytes in flight on every SM, and a serving
+// batch has few (lane, KV head) pairs: 8 lanes x 8 heads is 64 CTAs for
+// 132 SMs. So paged_decode and flash_decode are split-K over the
+// sequence: a grid of (splits, KVH, B) CTAs, the split count and the
+// largest chunk chosen on the host from the shapes alone
+// (kernels/common.py decode_splits; no device value is read back, so a
+// decode step gains no sync). Served lanes are mostly far shorter than
+// the cache's capacity, so each CTA sizes its lane's chunk from the
+// length it reads anyway (lane_chunk: the live length over the splits,
+// rounded up to a granule, at most the host's chunk; the granule is
+// kFlashGranule positions for flash_decode and one block for
+// paged_decode, so a paged CTA reads whole table entries), and CTA s walks
+// [s * C, (s + 1) * C): a short lane spreads over the splits as a full
+// one does, instead of leaving one CTA to walk it in series. A chunk at
+// or past a lane's live length exits at once. Each CTA reads each of its
+// cache rows once for all of its G (or span * G) query rows, keeps the
+// query rows and the cross-warp partials in shared memory, and each
+// thread loads one 16-byte vector of a float key row (8 bytes of an int8
+// one); with the grid full, loading two keys a thread before using them
+// measured no faster (PERF.md), so each takes one. The splits' partials
+// go to one fp32 scratch buffer that the wrapper allocates (Partials
+// below) and are merged in a fixed order, with no atomics, so two calls
+// are bitwise equal:
+//
+//   flash_decode   flash_decode_split_kernel writes each row's (m, l,
+//                  unnormalised acc) over its chunk (one pass, online
+//                  softmax, q pre-scaled by 1/sqrt(D) in fp32);
+//                  flash_decode_combine_kernel merges them into (o, lse).
+//   paged_decode   the reference quantises the NORMALISED probabilities
+//                  before PV (it rounds them to the cache dtype), which
+//                  needs each row's global (m, l) before any probability
+//                  exists, so it keeps two passes. paged_scores_kernel
+//                  writes each split's (m, l) and every score to scratch
+//                  (a row of the table capacity per query row, which
+//                  stays in L2); paged_pv_kernel merges all splits'
+//                  (m, l), forms p = round_to<T>(exp(s - m) / l) from the
+//                  stored scores, bitwise the ones pass 1 computed, and
+//                  writes its chunk's PV; paged_combine_kernel sums the
+//                  splits. K is read once and V once.
+//
+// paged_decode_int8 keeps one CTA per (lane, KV head), walking the lane
+// alone, with two passes over K. Not done yet: split-K for the int8 mode,
+// TMA / cp.async staging, and tensor-core dots (bf16, and s8 MMA for the
+// int8 mode).
 //
 // Plain C interface, loaded with ctypes: pointers and the stream arrive
-// as void*, every entry returns cudaGetLastError() after its launch.
+// as void*, every entry checks cudaGetLastError() after each of its
+// launches and returns the first error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +76,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRows = 16;        // query rows per CTA (span * G)
 constexpr int kMaxDim = 128;        // head dim
+constexpr int kMaxSplits = 64;      // splits of a split-K launch
+constexpr int kFlashGranule = 32;   // flash_decode's lane chunks: multiples
 
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
@@ -101,29 +135,80 @@ __device__ __forceinline__ int quant_code(float x) {
 }
 
 // ----------------------------------------------------------------------
-// paged_decode: grid (KVH, B), kThreads threads.
-// q / out: [B, span, H, D] with H = KVH * G; packed row r = c * G + g
-// reads q[b, c, h * G + g]. pools: [NB, bs, KVH, D]. tables: [B, nbl].
-// Row r attends key positions t <= pos[b] + r / G.
+// Split-K partials. Query rows are numbered (b * kvh + h) * rows + r for
+// the r-th row of lane b and KV head h; the wrapper's fp32 scratch holds,
+// in this order, m [R, splits], l [R, splits], `extra` floats per row
+// (paged_decode's scores [R, cap]; none for flash_decode) and acc
+// [R, splits, d]. A split that attends no position of a row leaves
+// (m, l) = (-1e30, 0) there, and acc is then never read (taken as 0).
+struct Partials {
+  float* m;
+  float* l;
+  float* extra;
+  float* acc;
+  int splits;
+
+  __device__ Partials(float* base, size_t nrows, int splits_, size_t per_row)
+      : m(base),
+        l(base + nrows * splits_),
+        extra(base + 2 * nrows * splits_),
+        acc(base + 2 * nrows * splits_ + nrows * per_row),
+        splits(splits_) {}
+  __device__ size_t at(size_t row, int split) const {
+    return row * splits + split;
+  }
+  __device__ void empty(size_t row, int split) const {
+    m[at(row, split)] = kNegInf;
+    l[at(row, split)] = 0.f;
+  }
+};
+
+// The chunk of a lane with `live` positions to attend: its live length
+// spread evenly over the splits, rounded up to a multiple of `granule`,
+// and at most the host's `chunk` (whose splits cover the capacity). A
+// lane with nothing live gets 0, so every split of it is empty.
+__device__ __forceinline__ int lane_chunk(int live, int splits, int chunk,
+                                          int granule) {
+  const int even = (max(live, 0) + splits - 1) / splits;
+  return min(chunk, (even + granule - 1) / granule * granule);
+}
+
+// ----------------------------------------------------------------------
+// paged_decode, pass 1: grid (splits, KVH, B), kThreads threads.
+// q: [B, span, H, D] with H = KVH * G; packed row r = c * G + g reads
+// q[b, c, h * G + g]. kpool: [NB, bs, KVH, D]. tables: [B, nbl].
+// Row r attends key positions t <= pos[b] + r / G, and no position past
+// the table's capacity nbl * bs. With C = lane_chunk(last + 1, ...), the
+// CTA of split s covers positions [s * C, min((s + 1) * C, last + 1)); it
+// writes every score of its positions (all rows, masked or not) and each
+// row's (m, l).
 template <typename T, int ROWS>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                    const T* __restrict__ vpool,
+paged_scores_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                     const int32_t* __restrict__ tables,
-                    const int32_t* __restrict__ pos, T* __restrict__ out,
-                    int kvh, int d, int bs, int nbl, int span, int g) {
+                    const int32_t* __restrict__ pos,
+                    float* __restrict__ scratch, int kvh, int d, int bs,
+                    int nbl, int span, int g, int chunk) {
   constexpr int V = Vec<T>::N;
   extern __shared__ float smem[];
   float* q_s = smem;                          // [ROWS, d]
-  float* red = q_s + ROWS * d;                // [kWarps, ROWS, d]
-  float* st_m = red + kWarps * ROWS * d;      // [kWarps, ROWS]
+  float* st_m = q_s + ROWS * d;               // [kWarps, ROWS]
   float* st_l = st_m + kWarps * ROWS;         // [kWarps, ROWS]
-  float* m_g = st_l + kWarps * ROWS;          // [ROWS]
-  float* l_g = m_g + ROWS;                    // [ROWS]
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int rows = span * g;
-  const int heads = kvh * g;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int rows = span * g, heads = kvh * g, cap = nbl * bs;
+  const Partials part(scratch, (size_t)gridDim.z * kvh * rows, gridDim.x,
+                      cap);
+  const size_t row0 = ((size_t)b * kvh + h) * rows;
+  const int p0 = pos[b];
+  const int last = min(p0 + span - 1, cap - 1);
+  const int lane_c = lane_chunk(last + 1, gridDim.x, chunk, bs);
+  const int start = split * lane_c;
+  const int end = min(start + lane_c, last + 1);
+  if (start >= end) {
+    if (threadIdx.x < rows) part.empty(row0 + threadIdx.x, split);
+    return;
+  }
   for (int i = threadIdx.x; i < rows * d; i += kThreads) {
     const int r = i / d, j = i % d;
     q_s[i] = to_float(
@@ -134,21 +219,18 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int tpk = d / V;             // threads per key row
   const int kpw = 32 / tpk;          // key rows per warp step
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int part = lane % tpk, sub = lane / tpk;
-  const int p0 = pos[b];
-  const int last = min(p0 + span - 1, nbl * bs - 1);
+  const int part_i = lane % tpk, sub = lane / tpk;
   const float sqrt_d = sqrtf((float)d);
   const int32_t* table = tables + (size_t)b * nbl;
-  const size_t head_off = (size_t)h * d + part * V;
+  const size_t head_off = (size_t)h * d + part_i * V;
   const int key_step = kWarps * kpw;
 
-  // ---- pass 1: row max and sum over the live positions
   float m[ROWS], l[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) { m[r] = kNegInf; l[r] = 0.f; }
-  for (int tb = warp * kpw; tb <= last; tb += key_step) {
+  for (int tb = start + warp * kpw; tb < end; tb += key_step) {
     const int t = tb + sub;
-    const bool live = t <= last;
+    const bool live = t < end;
     float kv[V];
     if (live) {
       const size_t cell = (size_t)table[t / bs] * bs + t % bs;
@@ -162,12 +244,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       if (r >= rows) break;
       float dot = 0.f;
 #pragma unroll
-      for (int j = 0; j < V; ++j) dot += q_s[r * d + part * V + j] * kv[j];
+      for (int j = 0; j < V; ++j) dot += q_s[r * d + part_i * V + j] * kv[j];
       const float s = key_group_sum(dot, tpk) / sqrt_d;
-      if (live && t <= p0 + r / g) {
-        const float mn = fmaxf(m[r], s);
-        l[r] = l[r] * expf(m[r] - mn) + expf(s - mn);
-        m[r] = mn;
+      if (live) {
+        if (part_i == 0) part.extra[(row0 + r) * cap + t] = s;
+        if (t <= p0 + r / g) {
+          const float mn = fmaxf(m[r], s);
+          l[r] = l[r] * expf(m[r] - mn) + expf(s - mn);
+          m[r] = mn;
+        }
       }
     }
   }
@@ -196,38 +281,86 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       ll = ll * expf(mm - mn) + ol * expf(om - mn);
       mm = mn;
     }
-    m_g[r] = mm;
-    l_g[r] = ll;
+    part.m[part.at(row0 + r, split)] = mm;
+    part.l[part.at(row0 + r, split)] = ll;
+  }
+}
+
+// paged_decode, pass 2: grid (splits, KVH, B), kThreads threads; the
+// layout of pass 1. Merges every split's (m, l) of its rows in split
+// order (each CTA of a lane and head computes the same), then sums
+// round_to<T>(exp(s - m) / l) * v over its chunk's attended positions
+// from the stored scores, and writes that PV partial in fp32.
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+paged_pv_kernel(const T* __restrict__ vpool,
+                const int32_t* __restrict__ tables,
+                const int32_t* __restrict__ pos, float* __restrict__ scratch,
+                int kvh, int d, int bs, int nbl, int span, int g,
+                int chunk) {
+  constexpr int V = Vec<T>::N;
+  extern __shared__ float smem[];
+  float* red = smem;                          // [kWarps, ROWS, d]
+  float* m_g = red + kWarps * ROWS * d;       // [ROWS]
+  float* l_g = m_g + ROWS;                    // [ROWS]
+  float* ml = l_g + ROWS;                     // [2, rows, splits]
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int rows = span * g, cap = nbl * bs;
+  const Partials part(scratch, (size_t)gridDim.z * kvh * rows, splits, cap);
+  const size_t row0 = ((size_t)b * kvh + h) * rows;
+  const int p0 = pos[b];
+  const int last = min(p0 + span - 1, cap - 1);
+  const int lane_c = lane_chunk(last + 1, splits, chunk, bs);
+  const int start = split * lane_c;
+  const int end = min(start + lane_c, last + 1);
+  if (start >= end) return;
+  // every split's (m, l) of the CTA's rows, loaded at once, then merged
+  // in split order by one thread a row
+  for (int i = threadIdx.x; i < rows * splits; i += kThreads) {
+    ml[i] = part.m[row0 * splits + i];
+    ml[rows * splits + i] = part.l[row0 * splits + i];
+  }
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    const float* m_r = ml + threadIdx.x * splits;
+    const float* l_r = m_r + rows * splits;
+    float mm = kNegInf;
+    for (int s = 0; s < splits; ++s) mm = fmaxf(mm, m_r[s]);
+    float ll = 0.f;
+    for (int s = 0; s < splits; ++s) ll += l_r[s] * expf(m_r[s] - mm);
+    m_g[threadIdx.x] = mm;
+    l_g[threadIdx.x] = ll;
   }
   __syncthreads();
 
-  // ---- pass 2: normalised probabilities, rounded to T, times V
+  const int tpk = d / V;
+  const int kpw = 32 / tpk;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int part_i = lane % tpk, sub = lane / tpk;
+  const int32_t* table = tables + (size_t)b * nbl;
+  const size_t head_off = (size_t)h * d + part_i * V;
+  const int key_step = kWarps * kpw;
+  const float* scores = part.extra + row0 * cap;
+
   float acc[ROWS][V];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[r][j] = 0.f;
-  for (int tb = warp * kpw; tb <= last; tb += key_step) {
+  for (int tb = start + warp * kpw; tb < end; tb += key_step) {
     const int t = tb + sub;
-    const bool live = t <= last;
-    float kv[V], vv[V];
-    if (live) {
-      const size_t cell = (size_t)table[t / bs] * bs + t % bs;
-      load_vec(kpool + cell * kvh * d + head_off, kv);
-      load_vec(vpool + cell * kvh * d + head_off, vv);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) kv[j] = vv[j] = 0.f;
-    }
+    if (t >= end) continue;
+    float vv[V];
+    const size_t cell = (size_t)table[t / bs] * bs + t % bs;
+    load_vec(vpool + cell * kvh * d + head_off, vv);
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       if (r >= rows) break;
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < V; ++j) dot += q_s[r * d + part * V + j] * kv[j];
-      const float s = key_group_sum(dot, tpk) / sqrt_d;
-      if (live && t <= p0 + r / g) {
-        const float p = round_to<T>(expf(s - m_g[r]) / l_g[r]);
+      if (t <= p0 + r / g) {
+        const float p = round_to<T>(
+            expf(scores[(size_t)r * cap + t] - m_g[r]) / l_g[r]);
 #pragma unroll
         for (int j = 0; j < V; ++j) acc[r][j] += p * vv[j];
       }
@@ -241,7 +374,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       float a = acc[r][j];
       for (int off = tpk; off < 32; off <<= 1)
         a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (sub == 0) red[(warp * ROWS + r) * d + part * V + j] = a;
+      if (sub == 0) red[(warp * ROWS + r) * d + part_i * V + j] = a;
     }
   }
   __syncthreads();
@@ -249,7 +382,37 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
     const int r = i / d, j = i % d;
     float o = 0.f;
     for (int w = 0; w < kWarps; ++w) o += red[(w * ROWS + r) * d + j];
-    out[((size_t)(b * span + r / g) * heads + h * g + r % g) * d + j] =
+    part.acc[part.at(row0 + r, split) * d + j] = o;
+  }
+}
+
+// paged_decode, combine: grid (KVH, B), kThreads threads, one thread a
+// (row, d) element of the CTA's rows; the splits' PV partials summed in
+// split order (a split whose l is 0 left no partial), cast to T and
+// written to out [B, span, H, D]. The loads of all splits are issued
+// before their sum, with no branch between them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_combine_kernel(float* __restrict__ scratch, T* __restrict__ out,
+                     int splits, int d, int cap, int span, int g) {
+  extern __shared__ float live[];             // [rows, splits]: l > 0
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = gridDim.x, rows = span * g;
+  const Partials part(scratch, (size_t)gridDim.y * kvh * rows, splits, cap);
+  const size_t row0 = ((size_t)b * kvh + h) * rows;
+  for (int i = threadIdx.x; i < rows * splits; i += kThreads)
+    live[i] = part.l[row0 * splits + i] > 0.f ? 1.f : 0.f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
+    const int r = i / d, j = i % d;
+    const float* acc = part.acc + (row0 + r) * splits * d + j;
+    float o = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float a = acc[(size_t)s * d];
+      o += live[r * splits + s] != 0.f ? a : 0.f;
+    }
+    out[((size_t)(b * span + r / g) * kvh * g + h * g + r % g) * d + j] =
         from_float<T>(o);
   }
 }
@@ -460,17 +623,19 @@ paged_decode_int8_kernel(const T* __restrict__ q,
 }
 
 // ----------------------------------------------------------------------
-// flash_decode: grid (KVH, B), kThreads threads.
-// q / out: [B, H, D] with H = KVH * G; lse: [B, H] fp32.
-// k / v: [B, tmax, KVH, D]; row b attends positions t < lengths[b].
-// Single pass: q is pre-scaled by 1/sqrt(D) in fp32, online softmax.
+// flash_decode, split pass: grid (splits, KVH, B), kThreads threads.
+// q: [B, H, D] with H = KVH * G; k / v: [B, tmax, KVH, D]; row b attends
+// positions t < len = lengths[b]. With C = lane_chunk(len, ...), the CTA
+// of split s covers positions [s * C, min((s + 1) * C, len)) in one
+// pass (q pre-scaled by 1/sqrt(D) in fp32, an online softmax) and writes
+// each of its G rows' (m, l, unnormalised acc).
 template <typename T, int ROWS>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc,
-                    const int32_t* __restrict__ lengths, T* __restrict__ out,
-                    float* __restrict__ lse, int kvh, int tmax, int d,
-                    int g, float scale) {
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                          const T* __restrict__ vc,
+                          const int32_t* __restrict__ lengths,
+                          float* __restrict__ scratch, int kvh, int tmax,
+                          int d, int g, int chunk, float scale) {
   constexpr int V = Vec<T>::N;
   extern __shared__ float smem[];
   float* q_s = smem;                          // [ROWS, d]
@@ -478,21 +643,31 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float* st_m = red + kWarps * ROWS * d;      // [kWarps, ROWS]
   float* st_l = st_m + kWarps * ROWS;         // [kWarps, ROWS]
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int heads = kvh * g;
-  const size_t q_base = ((size_t)b * heads + h * g) * d;
+  const Partials part(scratch, (size_t)gridDim.z * heads, gridDim.x, 0);
+  const size_t row0 = (size_t)b * heads + h * g;
+  const int len = min(lengths[b], tmax);
+  const int lane_c = lane_chunk(len, gridDim.x, chunk, kFlashGranule);
+  const int start = split * lane_c;
+  const int end = min(start + lane_c, len);
+  if (start >= end) {         // the chunk starts at or past the length
+    if (threadIdx.x < g) part.empty(row0 + threadIdx.x, split);
+    return;
+  }
   for (int i = threadIdx.x; i < g * d; i += kThreads)
-    q_s[i] = to_float(q[q_base + i]) * scale;
+    q_s[i] = to_float(q[row0 * d + i]) * scale;
   __syncthreads();
 
   const int tpk = d / V;
   const int kpw = 32 / tpk;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int part = lane % tpk, sub = lane / tpk;
-  const int len = min(lengths[b], tmax);
-  const size_t head_off = (size_t)h * d + part * V;
-  const T* kb = kc + (size_t)b * tmax * kvh * d;
-  const T* vb = vc + (size_t)b * tmax * kvh * d;
+  const int part_i = lane % tpk, sub = lane / tpk;
+  const size_t head_off = (size_t)h * d + part_i * V;
+  const size_t t_stride = (size_t)kvh * d;
+  const T* kb = kc + (size_t)b * tmax * t_stride;
+  const T* vb = vc + (size_t)b * tmax * t_stride;
+  const int key_step = kWarps * kpw;
 
   float m[ROWS], l[ROWS], acc[ROWS][V];
 #pragma unroll
@@ -502,13 +677,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[r][j] = 0.f;
   }
-  for (int tb = warp * kpw; tb < len; tb += kWarps * kpw) {
+  for (int tb = start + warp * kpw; tb < end; tb += key_step) {
     const int t = tb + sub;
-    const bool live = t < len;
+    const bool live = t < end;
     float kv[V], vv[V];
     if (live) {
-      load_vec(kb + (size_t)t * kvh * d + head_off, kv);
-      load_vec(vb + (size_t)t * kvh * d + head_off, vv);
+      load_vec(kb + t * t_stride + head_off, kv);
+      load_vec(vb + t * t_stride + head_off, vv);
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j) kv[j] = vv[j] = 0.f;
@@ -518,7 +693,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       if (r >= g) break;
       float dot = 0.f;
 #pragma unroll
-      for (int j = 0; j < V; ++j) dot += q_s[r * d + part * V + j] * kv[j];
+      for (int j = 0; j < V; ++j) dot += q_s[r * d + part_i * V + j] * kv[j];
       const float s = key_group_sum(dot, tpk);
       if (live) {
         const float mn = fmaxf(m[r], s);
@@ -555,7 +730,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     if (sub == 0) {
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        red[(warp * ROWS + r) * d + part * V + j] = acc[r][j];
+        red[(warp * ROWS + r) * d + part_i * V + j] = acc[r][j];
     }
   }
   __syncthreads();
@@ -569,30 +744,97 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       ll += st_l[w * ROWS + r] * a;
       o += red[(w * ROWS + r) * d + j] * a;
     }
-    ll = fmaxf(ll, 1e-30f);
-    out[q_base + i] = from_float<T>(o / ll);
-    if (j == 0) lse[(size_t)b * heads + h * g + r] = mm + logf(ll);
+    const size_t at = part.at(row0 + r, split);
+    part.acc[at * d + j] = o;
+    if (j == 0) {
+      part.m[at] = mm;
+      part.l[at] = ll;
+    }
   }
 }
 
-template <int ROWS>
-size_t smem_bytes(int d, bool stats_g) {
-  return sizeof(float) *
-         ((size_t)ROWS * d + (size_t)kWarps * ROWS * d + 2 * kWarps * ROWS +
-          (stats_g ? 2 * ROWS : 0));
+// flash_decode, combine: grid (KVH, B), kThreads threads. Each of the
+// CTA's G rows merges its splits' (m, l, acc) in split order into o (in
+// T) and lse = m + log(max(l, 1e-30)) (fp32); a row with no valid key
+// gets o = 0 and lse ~ -1e30. The splits' (m, l) are loaded at once and
+// turned into weights (0 for a split that attended nothing, whose acc is
+// never used) before the acc loads, which are issued with no branch
+// between them.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_combine_kernel(float* __restrict__ scratch, T* __restrict__ out,
+                            float* __restrict__ lse, int splits, int d,
+                            int g) {
+  extern __shared__ float smem[];
+  float* w = smem;                            // [g, splits]: m, then weights
+  float* l_s = w + g * splits;                // [g, splits]
+  float* l_sum = l_s + g * splits;            // [g]
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int heads = gridDim.x * g;
+  const Partials part(scratch, (size_t)gridDim.y * heads, splits, 0);
+  const size_t row0 = (size_t)b * heads + h * g;
+  for (int i = threadIdx.x; i < g * splits; i += kThreads) {
+    w[i] = part.m[row0 * splits + i];
+    l_s[i] = part.l[row0 * splits + i];
+  }
+  __syncthreads();
+  if (threadIdx.x < g) {
+    const int r = threadIdx.x;
+    const float* l_r = l_s + r * splits;
+    float mm = kNegInf;
+    for (int s = 0; s < splits; ++s) mm = fmaxf(mm, w[r * splits + s]);
+    float ll = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float ls = l_r[s];
+      const float a = ls > 0.f ? expf(w[r * splits + s] - mm) : 0.f;
+      ll += ls * a;
+      w[r * splits + s] = a;
+    }
+    ll = fmaxf(ll, 1e-30f);
+    l_sum[r] = ll;
+    lse[row0 + r] = mm + logf(ll);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < g * d; i += kThreads) {
+    const int r = i / d, j = i % d;
+    const float* acc = part.acc + (row0 + r) * splits * d + j;
+    float o = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float a = acc[(size_t)s * d], ws = w[r * splits + s];
+      o += ws != 0.f ? a * ws : 0.f;
+    }
+    out[(row0 + r) * d + j] = from_float<T>(o / l_sum[r]);
+  }
 }
 
 template <typename T, int ROWS>
-void launch_paged(const void* q, const void* kp, const void* vp,
-                  const void* tables, const void* pos, void* out, int b,
-                  int kvh, int d, int bs, int nbl, int span, int g,
-                  cudaStream_t stream) {
-  paged_decode_kernel<T, ROWS>
-      <<<dim3(kvh, b), kThreads, smem_bytes<ROWS>(d, true), stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(kp),
-          static_cast<const T*>(vp), static_cast<const int32_t*>(tables),
-          static_cast<const int32_t*>(pos), static_cast<T*>(out), kvh, d,
-          bs, nbl, span, g);
+int launch_paged(const void* q, const void* kp, const void* vp,
+                 const void* tables, const void* pos, void* out,
+                 void* scratch, int b, int kvh, int d, int bs, int nbl,
+                 int span, int g, int splits, int chunk,
+                 cudaStream_t stream) {
+  const dim3 grid(splits, kvh, b);
+  const size_t smem1 = sizeof(float) * ((size_t)ROWS * d + 2 * kWarps * ROWS);
+  const size_t smem2 = sizeof(float) * ((size_t)kWarps * ROWS * d + 2 * ROWS +
+                                        2 * ROWS * splits);
+  const T* qt = static_cast<const T*>(q);
+  const int32_t* tb = static_cast<const int32_t*>(tables);
+  const int32_t* ps = static_cast<const int32_t*>(pos);
+  float* sc = static_cast<float*>(scratch);
+  paged_scores_kernel<T, ROWS><<<grid, kThreads, smem1, stream>>>(
+      qt, static_cast<const T*>(kp), tb, ps, sc, kvh, d, bs, nbl, span, g,
+      chunk);
+  int status = (int)cudaGetLastError();
+  if (status) return status;
+  paged_pv_kernel<T, ROWS><<<grid, kThreads, smem2, stream>>>(
+      static_cast<const T*>(vp), tb, ps, sc, kvh, d, bs, nbl, span, g, chunk);
+  status = (int)cudaGetLastError();
+  if (status) return status;
+  paged_combine_kernel<T><<<dim3(kvh, b), kThreads,
+                            sizeof(float) * span * g * splits, stream>>>(
+      sc, static_cast<T*>(out), splits, d, nbl * bs, span, g);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int ROWS>
@@ -614,15 +856,28 @@ void launch_paged_int8(const void* q, const void* kp, const void* vp,
 }
 
 template <typename T, int ROWS>
-void launch_flash(const void* q, const void* k, const void* v,
-                  const void* lengths, void* out, void* lse, int b, int kvh,
-                  int tmax, int d, int g, cudaStream_t stream) {
-  flash_decode_kernel<T, ROWS>
-      <<<dim3(kvh, b), kThreads, smem_bytes<ROWS>(d, false), stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const int32_t*>(lengths),
-          static_cast<T*>(out), static_cast<float*>(lse), kvh, tmax, d, g,
-          1.0f / sqrtf((float)d));
+int launch_flash(const void* q, const void* k, const void* v,
+                 const void* lengths, void* out, void* lse, void* scratch,
+                 int b, int kvh, int tmax, int d, int g, int splits,
+                 int chunk, cudaStream_t stream) {
+  const dim3 grid(splits, kvh, b);
+  const size_t smem = sizeof(float) * ((size_t)ROWS * d * (1 + kWarps) +
+                                       2 * kWarps * ROWS);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const int32_t* lens = static_cast<const int32_t*>(lengths);
+  float* sc = static_cast<float*>(scratch);
+  const float scale = 1.0f / sqrtf((float)d);
+  flash_decode_split_kernel<T, ROWS><<<grid, kThreads, smem, stream>>>(
+      qt, kt, vt, lens, sc, kvh, tmax, d, g, chunk, scale);
+  const int status = (int)cudaGetLastError();
+  if (status) return status;
+  flash_decode_combine_kernel<T><<<dim3(kvh, b), kThreads,
+                                   sizeof(float) * g * (2 * splits + 1),
+                                   stream>>>(
+      sc, static_cast<T*>(out), static_cast<float*>(lse), splits, d, g);
+  return (int)cudaGetLastError();
 }
 
 // Smallest instantiated row count that holds `rows`, or 0.
@@ -651,27 +906,52 @@ bool shape_ok(int dtype, int d) {
     default: LAUNCH<T, kMaxRows>(__VA_ARGS__); break;        \
   }
 
+
+// DISPATCH_ROWS for a launcher that returns a CUDA status.
+#define DISPATCH_ROWS_STATUS(STATUS, LAUNCH, T, ROWS_RUNTIME, ...)  \
+  switch (row_bucket(ROWS_RUNTIME)) {                               \
+    case 1: STATUS = LAUNCH<T, 1>(__VA_ARGS__); break;              \
+    case 2: STATUS = LAUNCH<T, 2>(__VA_ARGS__); break;              \
+    case 4: STATUS = LAUNCH<T, 4>(__VA_ARGS__); break;              \
+    case 8: STATUS = LAUNCH<T, 8>(__VA_ARGS__); break;              \
+    default: STATUS = LAUNCH<T, kMaxRows>(__VA_ARGS__); break;      \
+  }
+
+// A split plan the kernels can run: its chunks cover [0, capacity).
+bool splits_ok(int splits, int chunk, int capacity) {
+  return splits >= 1 && splits <= kMaxSplits && chunk >= 1 &&
+         (long long)splits * chunk >= capacity &&
+         (long long)(splits - 1) * chunk < capacity;
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
+// scratch: fp32, b * kvh * span * g * (splits * (d + 2) + nbl * bs)
+// floats (Partials). Launches pass 1, pass 2 and the combine.
 int paged_decode(int dtype, const void* q, const void* kpool,
                  const void* vpool, const void* tables, const void* pos,
-                 void* out, int b, int kvh, int d, int bs, int nbl, int span,
-                 int g, void* stream) {
+                 void* out, void* scratch, int b, int kvh, int d, int bs,
+                 int nbl, int span, int g, int splits, int chunk,
+                 void* stream) {
   if (!shape_ok(dtype, d) || row_bucket(span * g) == 0 || b < 1 ||
-      kvh < 1 || span < 1 || g < 1)
+      kvh < 1 || span < 1 || g < 1 || bs < 1 || nbl < 1 ||
+      !splits_ok(splits, chunk, nbl * bs))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int status = 0;
   if (dtype == 0) {
-    DISPATCH_ROWS(launch_paged, float, span * g, q, kpool, vpool, tables,
-                  pos, out, b, kvh, d, bs, nbl, span, g, s)
+    DISPATCH_ROWS_STATUS(status, launch_paged, float, span * g, q, kpool,
+                         vpool, tables, pos, out, scratch, b, kvh, d, bs,
+                         nbl, span, g, splits, chunk, s)
   } else {
-    DISPATCH_ROWS(launch_paged, __nv_bfloat16, span * g, q, kpool, vpool,
-                  tables, pos, out, b, kvh, d, bs, nbl, span, g, s)
+    DISPATCH_ROWS_STATUS(status, launch_paged, __nv_bfloat16, span * g, q,
+                         kpool, vpool, tables, pos, out, scratch, b, kvh, d,
+                         bs, nbl, span, g, splits, chunk, s)
   }
-  return (int)cudaGetLastError();
+  return status;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out); pools int8, scales fp32.
@@ -697,21 +977,27 @@ int paged_decode_int8(int dtype, const void* q, const void* kpool,
   return (int)cudaGetLastError();
 }
 
+// scratch: fp32, b * kvh * g * splits * (d + 2) floats (Partials).
+// Launches the split pass and the combine.
 int flash_decode(int dtype, const void* q, const void* k, const void* v,
-                 const void* lengths, void* out, void* lse, int b, int kvh,
-                 int tmax, int d, int g, void* stream) {
+                 const void* lengths, void* out, void* lse, void* scratch,
+                 int b, int kvh, int tmax, int d, int g, int splits,
+                 int chunk, void* stream) {
   if (!shape_ok(dtype, d) || row_bucket(g) == 0 || b < 1 || kvh < 1 ||
-      tmax < 1)
+      tmax < 1 || !splits_ok(splits, chunk, tmax))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int status = 0;
   if (dtype == 0) {
-    DISPATCH_ROWS(launch_flash, float, g, q, k, v, lengths, out, lse, b,
-                  kvh, tmax, d, g, s)
+    DISPATCH_ROWS_STATUS(status, launch_flash, float, g, q, k, v, lengths,
+                         out, lse, scratch, b, kvh, tmax, d, g, splits,
+                         chunk, s)
   } else {
-    DISPATCH_ROWS(launch_flash, __nv_bfloat16, g, q, k, v, lengths, out,
-                  lse, b, kvh, tmax, d, g, s)
+    DISPATCH_ROWS_STATUS(status, launch_flash, __nv_bfloat16, g, q, k, v,
+                         lengths, out, lse, scratch, b, kvh, tmax, d, g,
+                         splits, chunk, s)
   }
-  return (int)cudaGetLastError();
+  return status;
 }
 
 }  // extern "C"

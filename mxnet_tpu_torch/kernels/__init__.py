@@ -8,10 +8,13 @@ from .flash_attention import (carry_block_reference, dense_attention_bwd,
                               dense_decode_with_lse, flash_attention,
                               flash_attention_bwd, flash_attention_with_lse,
                               flash_bwd_dkv, flash_bwd_dq, flash_carry_block,
-                              flash_decode, flash_decode_with_lse)
-from .paged_decode import paged_attention, paged_attention_reference
+                              flash_decode, flash_decode_splits,
+                              flash_decode_with_lse)
+from .paged_decode import (paged_attention, paged_attention_reference,
+                           paged_decode_splits)
 
 __all__ = ["launches", "paged_attention", "paged_attention_reference",
+           "paged_decode_splits", "flash_decode_splits",
            "flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "dense_attention_with_lse",

@@ -38,14 +38,15 @@ _c_int, _ptr, _c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # argument types of each C entry point, by source name
 SIGNATURES = {
     "decode_attention": {
-        # dtype, q, kpool, vpool, tables, pos, out,
-        # b, kvh, d, bs, nbl, span, g, stream
-        "paged_decode": [_c_int] + [_ptr] * 6 + [_c_int] * 7 + [_ptr],
+        # dtype, q, kpool, vpool, tables, pos, out, scratch,
+        # b, kvh, d, bs, nbl, span, g, splits, chunk, stream
+        "paged_decode": [_c_int] + [_ptr] * 7 + [_c_int] * 9 + [_ptr],
         # dtype, q, kpool, vpool, ks, vs, tables, pos, out,
         # b, kvh, d, bs, nbl, span, g, stream
         "paged_decode_int8": [_c_int] + [_ptr] * 8 + [_c_int] * 7 + [_ptr],
-        # dtype, q, k, v, lengths, out, lse, b, kvh, tmax, d, g, stream
-        "flash_decode": [_c_int] + [_ptr] * 6 + [_c_int] * 5 + [_ptr],
+        # dtype, q, k, v, lengths, out, lse, scratch,
+        # b, kvh, tmax, d, g, splits, chunk, stream
+        "flash_decode": [_c_int] + [_ptr] * 7 + [_c_int] * 7 + [_ptr],
     },
     "flash_attention": {
         # dtype, q, k, v, o, lse, bh, tq, tk, d, causal, scale, stream
@@ -172,4 +173,7 @@ def check(status, kernel):
 
 
 def current_stream_ptr(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The raw cudaStream_t of ``device``'s current stream, as an int (a
+    ctypes ``c_void_p`` argument takes it): read without building a
+    ``torch.cuda.Stream``, which costs a wrapper call microseconds."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -7,6 +7,7 @@ and the paged kernel's plain version. The TPU layout rule for row
 statistics (128 equal lanes) has no counterpart here: the CUDA kernels
 keep their statistics in registers and shared memory."""
 
+import functools
 import math
 import warnings
 
@@ -20,6 +21,44 @@ MAX_ROWS = 16           # query rows per (lane, KV head) in one CTA
 MAX_HEAD_DIM = 128
 
 MIN_BLOCK = 8           # below this the grid is degenerate, not tiled
+
+# split-K of the decode kernels (B3's fp32/bf16 mode and B4)
+SM_COUNT = 132                  # streaming multiprocessors of an H100 SXM
+DECODE_CTAS = 16 * SM_COUNT     # CTAs a decode launch aims for
+DECODE_MIN_CHUNK = 256          # positions one split walks at the least
+DECODE_MAX_SPLITS = 64          # the kernels' kMaxSplits
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def decode_splits(lanes, kvh, capacity, multiple=1):
+    """(splits, chunk) of a split-K decode launch over ``lanes`` x ``kvh``
+    (lane, KV head) pairs whose caches hold ``capacity`` positions: split
+    s walks positions [s * chunk, (s + 1) * chunk), chunk is a multiple of
+    ``multiple``, and the chunks cover [0, capacity) with none starting at
+    or past it.
+
+    Pure arithmetic on Python ints: it never sees the lanes' lengths, so
+    a decode step that calls it reads nothing back from the device. It
+    takes as many splits as bring the grid to DECODE_CTAS CTAs, but no
+    chunk shorter than DECODE_MIN_CHUNK positions (a split's fixed cost,
+    its query rows and its partial written and merged, stays small beside
+    the cache rows it reads) and at most DECODE_MAX_SPLITS. ``chunk`` is
+    the largest chunk: each CTA takes for its lane the live length over
+    the splits, rounded up to a granule, at most ``chunk``, so a lane
+    shorter than the capacity spreads over the splits too. The query rows
+    per CTA (G, or span * G) do not enter: they change the arithmetic per
+    key, not the bytes in flight. Cached by its arguments (``typed``, so
+    4096.0 is not taken for 4096): a decode step pays one lookup."""
+    for name, value in (("lanes", lanes), ("kvh", kvh),
+                        ("capacity", capacity), ("multiple", multiple)):
+        if not isinstance(value, int) or value < 1:
+            raise TypeError("decode_splits takes positive Python ints "
+                            "(%s=%r)" % (name, value))
+    most = min(DECODE_MAX_SPLITS, max(1, capacity // DECODE_MIN_CHUNK))
+    want = -(-DECODE_CTAS // (lanes * kvh))
+    chunk = -(-capacity // max(1, min(most, want)))
+    chunk = -(-chunk // multiple) * multiple
+    return -(-capacity // chunk), chunk
 
 
 def adjust_block(block, seq, name, family="flash_attention"):
@@ -101,6 +140,19 @@ def int8_cache_attention(qg, layer_cache, mask, out_dtype):
     return (o * as_[..., None]).to(out_dtype)
 
 
+def lane_ints(x, b, device):
+    """``x`` (an int, a scalar or a [B] tensor) as a contiguous int32 [B]
+    tensor on ``device``: the decode kernels' positions and lengths. One
+    already so is returned as it is, without a new view, since a decode
+    step hands its [B] positions to every layer's wrapper."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.int32 \
+            and x.shape == (b,) and x.device == device \
+            and x.is_contiguous():
+        return x
+    return torch.as_tensor(x, dtype=torch.int32,
+                           device=device).expand(b).contiguous()
+
+
 def check_cuda_inputs(tensors, int_tensors, head_dim, rows):
     """Validate what a decode kernel is handed: contiguous tensors on one
     CUDA device, the floats (``tensors[0]``'s dtype, float32 or bfloat16)
@@ -120,13 +172,16 @@ def check_cuda_inputs(tensors, int_tensors, head_dim, rows):
     if not 1 <= rows <= MAX_ROWS:
         raise ValueError("%d query rows per KV head (span * group) exceed "
                          "the kernels' %d" % (rows, MAX_ROWS))
+    # a decode step runs this once per layer: plain int and identity
+    # tests only (get_device, id), no torch.device objects in the loop
+    index, ints = tensors[0].get_device(), [id(t) for t in int_tensors]
     for t in tensors:
-        if t.device != device:
+        if t.get_device() != index:
             raise ValueError("all tensors must be on %s (got %s)"
                              % (device, t.device))
         if not t.is_contiguous():
             raise ValueError("the decode kernels take contiguous tensors")
-        if any(t is i for i in int_tensors):
+        if id(t) in ints:
             if t.dtype != torch.int32:
                 raise TypeError("indices and lengths must be int32")
         elif t.dtype != dtype:

@@ -31,14 +31,21 @@ ops (q pre-scaled in fp32, every dot in fp32, masked scores at the
 finite -1e30).
 
 Decode: ``flash_decode`` / ``flash_decode_with_lse`` launch the
-``flash_decode`` kernel of ``csrc/decode_attention.cu`` on CUDA tensors.
-It replaces the TPU kernel ``_decode_kernel``: one CTA per (lane, KV
-head) streams the lane's first ``lengths[b]`` cache rows once, for all G
-query heads of the group, with q pre-scaled by 1/sqrt(D) in fp32 and a
-single-pass online softmax. Its bound is the live K/V bytes (about G
-flops per byte of bf16 cache); the cache is read once and nothing but
-(o, lse) is written. ``dense_decode_with_lse`` is its plain version: the
-same contract by plain tensor ops, PV accumulated in fp32.
+``flash_decode`` kernels of ``csrc/decode_attention.cu`` on CUDA tensors.
+They replace the TPU kernel ``_decode_kernel``. Their bound is the live
+K/V bytes (about G flops per byte of bf16 cache), and a serving batch
+has too few (lane, KV head) pairs to keep those bytes in flight on 132
+SMs, so the work is split over the sequence as well: a grid of (splits,
+KVH, B) CTAs, each streaming one chunk of its lane's first
+``lengths[b]`` cache rows once for all G query heads of the group (q
+pre-scaled by 1/sqrt(D) in fp32, a single-pass online softmax) into an
+fp32 (m, l, acc) partial; a second kernel merges the splits in a fixed
+order into (o, lse). The split count comes from the shapes alone
+(``common.decode_splits``), never from ``lengths``, so a decode step
+reads nothing back from the card; each CTA sizes its lane's chunk from
+the length it reads (the length over the splits, rounded up to
+FLASH_DECODE_GRANULE), so a short lane spreads over the splits too. ``dense_decode_with_lse`` is the plain
+version: the same contract by plain tensor ops, PV accumulated in fp32.
 
 Ring attention: ``flash_carry_block`` launches the ``flash_carry`` kernel
 of ``csrc/flash_attention.cu`` on CUDA tensors. It replaces the TPU
@@ -55,15 +62,23 @@ import math
 import torch
 
 from . import _build
-from .common import DTYPE_CODE, NEG_INF, check_cuda_inputs
+from .common import (DTYPE_CODE, NEG_INF, check_cuda_inputs, decode_splits,
+                     lane_ints)
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd", "flash_bwd_dq", "flash_bwd_dkv",
            "dense_attention_with_lse", "dense_attention_bwd",
            "flash_decode", "flash_decode_with_lse", "dense_decode_with_lse",
+           "flash_decode_splits",
            "flash_carry_block", "carry_block_reference"]
 
 FLASH_HEAD_DIMS = (64, 128)     # head dims the training kernels are built for
+# a flash-decode split's largest chunk is a multiple of this many
+# positions, and the chunk a CTA takes for its lane a multiple of the
+# granule (the kernel's kFlashGranule), so every warp step of a walk is
+# whole but a lane's last
+FLASH_DECODE_MULTIPLE = 64
+FLASH_DECODE_GRANULE = 32
 
 
 # ----------------------------------------------------------- training ---
@@ -349,11 +364,6 @@ def flash_carry_block(q, k, v, o, m, l, q_offset, kv_offset, causal):
 # ------------------------------------------------------------- decode ---
 
 
-def _lengths(lengths, b, device):
-    return torch.as_tensor(lengths, dtype=torch.int32,
-                           device=device).expand(b).contiguous()
-
-
 def dense_decode_with_lse(q, k_cache, v_cache, lengths):
     """(o [B, H, D] fp32, lse [B, H] fp32) by plain tensor ops — the
     contract of :func:`flash_decode_with_lse`. Rows with no valid key
@@ -364,7 +374,7 @@ def dense_decode_with_lse(q, k_cache, v_cache, lengths):
         raise ValueError("query heads %d must be a multiple of KV heads %d"
                          % (h, kvh))
     g = h // kvh
-    lengths = _lengths(lengths, b, q.device)
+    lengths = lane_ints(lengths, b, q.device)
     qg = q.reshape(b, kvh, g, d).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) / (d ** 0.5)
     valid = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
@@ -398,23 +408,33 @@ def flash_decode_with_lse(q, k_cache, v_cache, lengths):
         raise ValueError("shape mismatch: q %s, caches %s / %s"
                          % (tuple(q.shape), tuple(k_cache.shape),
                             tuple(v_cache.shape)))
-    lengths = _lengths(lengths, b, q.device)
+    lengths = lane_ints(lengths, b, q.device)
     if q.device.type == "cpu":
         o, lse = dense_decode_with_lse(q, k_cache, v_cache, lengths)
         return o.to(q.dtype), lse
-    g = h // kvh
-    check_cuda_inputs((q, k_cache, v_cache, lengths), (lengths,), d, g)
+    check_cuda_inputs((q, k_cache, v_cache, lengths), (lengths,), d,
+                      h // kvh)
+    # one ctypes call: the split pass on a (splits, KVH, B) grid and the
+    # combine; the scratch holds each row's per-split (m, l, acc)
+    splits, chunk = flash_decode_splits(b, kvh, t_max)
     out = torch.empty_like(q)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
-    lib = _build.load("decode_attention")
-    status = lib.flash_decode(
+    scratch = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                          device=q.device)
+    status = _build.load("decode_attention").flash_decode(
         DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, kvh, t_max, d, g,
-        _build.current_stream_ptr(q.device))
+        lse.data_ptr(), scratch.data_ptr(), b, kvh, t_max, d, h // kvh,
+        splits, chunk, _build.current_stream_ptr(q.device))
     _build.check(status, "flash_decode")
     _build.launches["flash_decode"] += 1
     return out, lse
+
+
+def flash_decode_splits(b, kvh, t_max):
+    """(splits, chunk) of the flash-decode grid for B lanes x KVH heads of
+    a Tmax-position cache: host ints only (``common.decode_splits``)."""
+    return decode_splits(b, kvh, t_max, FLASH_DECODE_MULTIPLE)
 
 
 def flash_decode(q, k_cache, v_cache, lengths):

@@ -2,19 +2,30 @@
 ``mxnet_tpu/kernels/paged_decode.py``).
 
 ``paged_attention`` reads one layer's block pool through per-lane block
-tables for a whole batch of lanes. On CUDA tensors it launches a kernel
-of ``csrc/decode_attention.cu`` that replaces the TPU kernel
+tables for a whole batch of lanes. On CUDA tensors it launches kernels
+of ``csrc/decode_attention.cu`` that replace the TPU kernel
 ``_paged_kernel``: ``paged_decode`` for float32/bfloat16 pools, and
 ``paged_decode_int8`` for int8 pools with fp32 scale planes (the TPU
-kernel's ``int8=True`` mode). One CTA per (lane, KV head) walks only the
-lane's live positions, reads each table entry itself, and packs the G
-query heads of a KV head (times the span) as rows ``r = c*G + g`` so each
-cache row is read once per group. Its bound is the live K/V bytes
-(about G flops per byte of bf16 cache); it reads K twice and V once
-because the reference quantises the normalised probabilities (rounds
-them to the cache dtype, or re-quantises them to int8 codes with the
-row's own scale) before PV, which needs the row statistics before any
+kernel's ``int8=True`` mode). Each CTA reads its table entries itself
+and packs the G query heads of a KV head (times the span) as rows
+``r = c*G + g``, so each cache row is read once per group. The bound is
+the live K/V bytes (about G flops per byte of bf16 cache), and the
+reference quantises the normalised probabilities (rounds them to the
+cache dtype, or re-quantises them to int8 codes with the row's own
+scale) before PV, which needs each row's statistics before any
 probability exists.
+
+``paged_decode`` is split-K over the sequence, so that a serving batch
+fills the card's 132 SMs: a (splits, KVH, B) grid whose CTA s walks
+positions [s * chunk, (s + 1) * chunk) of its lane (chunk a multiple of
+the block size, from ``common.decode_splits``: shapes only, never
+``pos``), in two passes and a combine, all from one ctypes call. Pass 1
+writes each split's row statistics (m, l) and every score to one fp32
+scratch buffer; pass 2 merges all splits' (m, l) in a fixed order,
+rounds exp(s - m) / l to the cache dtype from the stored scores and
+writes its chunk's PV; the combine sums the splits in order. K and V are
+each read once. ``paged_decode_int8`` keeps one CTA per (lane, KV head),
+walking the lane's live positions alone, K twice and V once.
 
 ``paged_attention_reference`` is the plain version, and what the CPU
 runs: gather the pool through the tables into the dense [B, T] layout,
@@ -29,10 +40,11 @@ import math
 import torch
 
 from . import _build
-from .common import (DTYPE_CODE, NEG_INF, check_cuda_inputs,
-                     int8_cache_attention)
+from .common import (DTYPE_CODE, NEG_INF, check_cuda_inputs, decode_splits,
+                     int8_cache_attention, lane_ints)
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["paged_attention", "paged_attention_reference",
+           "paged_decode_splits"]
 
 
 def _gather(layer_pool, tables):
@@ -114,17 +126,16 @@ def paged_attention(q, layer_pool, tables, pos):
                             tuple(vpool.shape), tuple(tables.shape)))
     if int8:
         _check_int8_pool(layer_pool)
-    pos = torch.as_tensor(pos, dtype=torch.int32,
-                          device=q.device).expand(b).contiguous()
+    pos = lane_ints(pos, b, q.device)
     if q.device.type == "cpu":
         return paged_attention_reference(q, layer_pool, tables, pos)
     g = h // kvh
     out = torch.empty_like(q)
-    lib = _build.load("decode_attention")
-    stream = _build.current_stream_ptr(q.device)
     if int8:
         check_cuda_inputs((q, tables, pos), (tables, pos), d, span * g)
         _check_int8_leaves(layer_pool, q.device, d)
+        lib = _build.load("decode_attention")
+        stream = _build.current_stream_ptr(q.device)
         status = lib.paged_decode_int8(
             DTYPE_CODE[q.dtype], q.data_ptr(), kpool.data_ptr(),
             vpool.data_ptr(), layer_pool["ks"].data_ptr(),
@@ -135,13 +146,28 @@ def paged_attention(q, layer_pool, tables, pos):
         return out
     check_cuda_inputs((q, kpool, vpool, tables, pos), (tables, pos), d,
                       span * g)
-    status = lib.paged_decode(
+    # one ctypes call: both passes on a (splits, KVH, B) grid and the
+    # combine; the scratch holds, per query row, each split's (m, l) and
+    # PV partial and a score for every table position
+    nbl = tables.shape[1]
+    splits, chunk = paged_decode_splits(b, kvh, nbl, bs)
+    scratch = torch.empty(b * h * span * (splits * (d + 2) + nbl * bs),
+                          dtype=torch.float32, device=q.device)
+    status = _build.load("decode_attention").paged_decode(
         DTYPE_CODE[q.dtype], q.data_ptr(), kpool.data_ptr(),
         vpool.data_ptr(), tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, kvh, d, bs, tables.shape[1], span, g, stream)
+        out.data_ptr(), scratch.data_ptr(), b, kvh, d, bs, nbl, span, g,
+        splits, chunk, _build.current_stream_ptr(q.device))
     _build.check(status, "paged_decode")
     _build.launches["paged_decode"] += 1
     return out
+
+
+def paged_decode_splits(b, kvh, nbl, bs):
+    """(splits, chunk) of the paged-decode grid for B lanes x KVH heads of
+    ``nbl``-entry tables of ``bs``-position blocks: host ints only, the
+    chunk a multiple of ``bs`` (``common.decode_splits``)."""
+    return decode_splits(b, kvh, nbl * bs, bs)
 
 
 def _check_int8_leaves(layer_pool, device, d):
