@@ -32,10 +32,13 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    dim 64, and at one ragged cross-length case; the bf16 backward kernels
    again at 8 batch-heads x 8192 x 128, causal (a row sums 128 key tiles,
    a key 128 query tiles), at the same gate; and the paged kernel's
-   int8 mode on int8 pools (codes and fp32 scales quantised from seeded
-   rows) with float32 and bfloat16 queries, at the paged cases above and
-   at head dim 128, allowing one probability code beside ``TOL`` in at
-   most ``INT8_CODE_SHARE`` of the elements; and the ring-carry kernel
+   int8 mode (split-K like the float mode) on int8 pools (codes and fp32
+   scales quantised from seeded rows) with float32 and bfloat16 queries,
+   at the paged cases above, at head dim 128 and at 16 query rows a KV
+   head (span 4 x G 4), and again on the split plan's edges at spans 1
+   and 4 and groups 1, 2 and 4, two calls there bitwise equal, allowing
+   one probability code beside ``TOL`` in at most ``INT8_CODE_SHARE`` of
+   the elements; and the ring-carry kernel
    (o, m and l at the fp32 ``TOL_FLASH``, in float32 and bfloat16, head
    dims 64 and 128) on a fresh carry at equal offsets, an in-flight carry
    over a past shard, a dead call (its carry back bitwise), partial
@@ -123,7 +126,8 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
    idle share and the kernels that took the most time; the serve step
-   must show the three split kernels of the paged decode, the
+   must show the three split kernels of the paged decode, the int8 serve
+   step the three of its int8 mode, the
    ``generate()`` decode step the two of flash decode, the bf16 train
    step the three tensor-core kernels, and the mesh forward the forward
    template;
@@ -142,12 +146,14 @@ result line. It imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --decode-host OTHER
 
-compares the decode path's host cost with the port in the checkout at
-``OTHER`` (``decode_host``), in one process on the same card.
+compares the decode path's host cost, and the int8 paged kernel's device
+time, with the port in the checkout at ``OTHER`` (``decode_host``), in
+one process on the same card.
 """
 
 import collections
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -203,8 +209,10 @@ GENERATE = dict(batch=8, prompt=256, n_new=32)
 # the RoPE serving run: TRAIN_CFG's model behind the batcher
 ROPE_SERVE = dict(max_batch=8, block_size=16, num_blocks=8 * 64 + 1,
                   requests=8, prompt_lo=64, prompt_hi=512, n_new=32)
-# (span, G, head dim) of the int8 kernel checks
-INT8_CHECKS = ((1, 1, 64), (4, 1, 64), (1, 2, 64), (4, 2, 64), (1, 1, 128))
+# (span, G, head dim) of the int8 kernel checks; (4, 4, 64) fills the
+# 16 query rows a CTA takes
+INT8_CHECKS = ((1, 1, 64), (4, 1, 64), (1, 2, 64), (4, 2, 64), (1, 1, 128),
+               (4, 4, 64))
 
 # the training flagship of benchmark/train_lm_bench.py at full width
 TRAIN_CFG = dict(vocab_size=32000, d_model=1024, n_heads=8, n_layers=12,
@@ -268,11 +276,14 @@ BWD_TEMPLATES = ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 # the split-K decode kernels, by the words the profiler shows
 PAGED_SPLIT = ("paged_scores_kernel", "paged_pv_kernel",
                "paged_combine_kernel")
+INT8_SPLIT = ("paged_int8_scores_kernel", "paged_int8_pv_kernel",
+              "paged_int8_combine_kernel")
 FLASH_SPLIT = ("flash_decode_split_kernel", "flash_decode_combine_kernel")
 ROUTES = {"paged_decode": "CUDA cores, split-K over the sequence: %s "
                           "(fp32, bf16)" % " + ".join(PAGED_SPLIT),
-          "paged_decode_int8": "CUDA cores (dp4a), one CTA per lane and "
-                               "KV head",
+          "paged_decode_int8": "CUDA cores (dp4a), split-K over the "
+                               "sequence, rows staged by cp.async: %s"
+                               % " + ".join(INT8_SPLIT),
           "flash_decode": "CUDA cores, split-K over the sequence: %s "
                           "(fp32, bf16)" % " + ".join(FLASH_SPLIT),
           "flash_fwd": "bf16: wgmma template %s (TMA, P split hi + lo); "
@@ -443,7 +454,7 @@ def check_paged(torch, kernels, device):
 
 
 def paged_edge_case(torch, device, dtype, span, g, seed, lanes=32, bs=16,
-                    nbl=256, nb=SERVE["num_blocks"]):
+                    nbl=256, nb=SERVE["num_blocks"], int8=False):
     """A check case at the served shapes whose lanes sit on the split
     plan's edges (C = the plan's largest chunk, S its split count): lane
     0 parked at position 0 on an all-null table; lanes 1-3 with their
@@ -451,8 +462,8 @@ def paged_edge_case(torch, device, dtype, span, g, seed, lanes=32, bs=16,
     2C - 2 .. 2C + span - 3 (across a chunk boundary when span > 2); lane
     5 ending at the table's capacity; lanes 6 and 7 attending S * bs and
     S * bs + 1 positions (where a lane's own chunk grows by one block);
-    the others uniform, as ``paged_case``. Returns the case and the
-    plan."""
+    the others uniform, as ``paged_case``; ``int8`` as
+    ``paged_tensors``. Returns the case and the plan."""
     from mxnet_tpu_torch import kernels
     splits, chunk = kernels.paged_decode_splits(lanes, 8, nbl, bs)
     rng = np.random.RandomState(seed)
@@ -465,8 +476,8 @@ def paged_edge_case(torch, device, dtype, span, g, seed, lanes=32, bs=16,
     pos[4] = 2 * chunk - 2
     pos[5] = nbl * bs - span
     pos[6], pos[7] = splits * bs - span, splits * bs + 1 - span
-    return paged_tensors(torch, device, dtype, tables, pos, span, g,
-                         seed), (splits, chunk)
+    return paged_tensors(torch, device, dtype, tables, pos, span, g, seed,
+                         int8=int8), (splits, chunk)
 
 
 def check_bitwise(torch, run, what):
@@ -547,8 +558,10 @@ def compare_int8(got, want, code_step, dtype_name, what):
 
 def check_paged_int8(torch, kernels, device):
     """The paged kernel's int8 mode on INT8_CHECKS, q in fp32 and bf16,
-    at the served pool and tables (an idle lane on the null table).
-    Returns the max abs errors by (dtype, span, G, head dim)."""
+    at the served pool and tables (an idle lane on the null table), then
+    on the split plan's edges (``paged_edge_case``) at spans 1 and 4 and
+    groups 1, 2 and 4, there also two calls bitwise equal. Returns the
+    max abs errors by (dtype, span, G, head dim)."""
     errs, shares = {}, []
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
@@ -563,6 +576,19 @@ def check_paged_int8(torch, kernels, device):
                 got, want, step, name, "paged_decode_int8 %-8s span=%d G=%d "
                 "D=%d" % (name, span, g, d))
             shares.append(share)
+            del pool
+        for span, g in ((1, 1), (4, 1), (1, 2), (4, 2), (4, 4)):
+            (q, pool, tables, pos), (splits, chunk) = paged_edge_case(
+                torch, device, dtype, span, g, seed=80 + 10 * span + g,
+                int8=True)
+            what = "paged_decode_int8 edges %-8s span=%d G=%d (%d splits " \
+                "of %d)" % (name, span, g, splits, chunk)
+            got = kernels.paged_attention(q, pool, tables, pos)
+            want = kernels.paged_attention_reference(q, pool, tables, pos)
+            step = int8_code_step(torch, q, pool, tables, pos)
+            shares.append(compare_int8(got, want, step, name, what)[1])
+            check_bitwise(torch, lambda: (kernels.paged_attention(
+                q, pool, tables, pos),), what)
             del pool
     log("paged_decode_int8: worst error %.3g, largest share on the code "
         "allowance %.5f" % (max(errs.values()), max(shares)))
@@ -1435,6 +1461,9 @@ def time_paged_int8(torch, F, kernels, device):
     it has no library time."""
     q, pool, tables, pos = full_pool_case(torch, device, torch.bfloat16,
                                           seed=11, int8=True)
+    lanes, bs, kvh = q.shape[0], pool["k"].shape[1], pool["k"].shape[2]
+    splits, chunk = kernels.paged_decode_splits(lanes, kvh, tables.shape[1],
+                                                bs)
 
     def run():
         return kernels.paged_attention(q, pool, tables, pos)
@@ -1445,6 +1474,7 @@ def time_paged_int8(torch, F, kernels, device):
     nbytes, ops = paged_work(q, pool, tables, pos)
     return {"ms": ms, "device_ms": dev, "plain_ms": plain,
             "library_ms": None, "library_device_ms": None, "host_us": host,
+            "splits": splits, "chunk": chunk,
             "bound": bound_ms(nbytes, ops, "int8")}
 
 
@@ -1553,7 +1583,8 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
     kernels' own times), its idle share, its ``top`` costliest kernels
     and, with ``kinds``, the device ms per step of each kind of kernel
     (the first kind whose word a kernel's name holds; "other" else).
-    Fails unless each word of ``expect`` is in some kernel's name."""
+    Fails unless each word of ``expect`` is in some kernel's name, and
+    logs the device ms per step of the kernels each word names."""
     from torch.profiler import ProfilerActivity, profile
 
     def host_ms():
@@ -1579,6 +1610,11 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
     busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     log("%s: host %.3f ms per step (%.3f traced), device %.3f ms per step, "
         "idle share %.3f" % (what, untraced, traced, busy, 1 - busy / traced))
+    if expect:
+        log("  expected kernels, device ms per step: " + ", ".join(
+            "%s %.4f" % (word, sum(e.self_device_time_total for e in rows
+                                   if word in e.key) / 1e3 / steps)
+            for word in expect))
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in rows[:top]:
         log("  %8.1f us/step %5d calls  %s"
@@ -2210,11 +2246,12 @@ def main():
                "-" if lib is None else "%.4f" % lib,
                "-" if lib_dev is None else "%.4f" % lib_dev, bound,
                run["launches"] / run["steps"], res["host_us"]))
-        if lib is not None:
-            log("%s: %d splits of %d positions; kernel / sdpa %.3f by "
-                "events, %.3f by device time; device ms / bound %.2f"
-                % (name, res["splits"], res["chunk"], res["ms"] / lib,
-                   res["device_ms"] / lib_dev, res["device_ms"] / bound))
+        log("%s: %d splits of %d positions; kernel / sdpa %s by events, %s "
+            "by device time; device ms / bound %.2f"
+            % (name, res["splits"], res["chunk"],
+               "-" if lib is None else "%.3f" % (res["ms"] / lib),
+               "-" if lib is None else "%.3f" % (res["device_ms"] / lib_dev),
+               res["device_ms"] / bound))
         rows.append({"name": name, "route": "cuda", "source": SOURCE[name],
                      "replaces": REPLACES[name],
                      "launches": run["launches"], "max_abs_err": err,
@@ -2279,7 +2316,7 @@ def main():
                                   trained["step_ms"], meshed["forward_ms"]))
     profile_decode(torch, tf, sv, params, cfg, device)
     profile_serve(torch, sv, params8, cfg8, device,
-                  "int8 serve step, 16 live lanes of 32")
+                  "int8 serve step, 16 live lanes of 32", expect=INT8_SPLIT)
     del params8
     profile_steps(torch, "train step, bf16, batch 8 x 1024",
                   lambda: trained["step"](trained["params"], trained["mom"],
@@ -2365,6 +2402,26 @@ def decode_path(torch, pkg, device, rounds):
         "serve_step": srv.step, "generate_step": decode}
 
 
+def int8_cases(torch, device, bs=16, nbl=256):
+    """{label: (q, pool, tables, pos)} of the int8 wrapper's device-time
+    pairs, q in bf16: the served pool full (seed 11, as
+    ``time_paged_int8``), 16 query rows a KV head (span 4 x G 4 on the
+    served tables, seed 64) and every lane at 4096 positions for 8 and
+    128 lanes (the sweep's shapes, each lane on blocks of its own)."""
+    cases = {"full pool": full_pool_case(torch, device, torch.bfloat16,
+                                         seed=11, int8=True),
+             "16 rows": paged_case(torch, device, torch.bfloat16, 4, 4,
+                                   seed=64, int8=True)}
+    for lanes in (8, 128):
+        rng = np.random.RandomState(lanes)
+        tables = 1 + rng.permutation(lanes * nbl).reshape(lanes, nbl)
+        pos = np.full(lanes, nbl * bs - 1)
+        cases["%d x %d" % (lanes, nbl * bs)] = paged_tensors(
+            torch, device, torch.bfloat16, tables, pos, 1, 1, seed=lanes,
+            nb=lanes * nbl + 1, int8=True)
+    return cases
+
+
 def decode_host(other, rounds=10):
     """The decode path's host cost, this checkout's port against the one
     in the checkout at ``other``, both in one process on one card:
@@ -2372,10 +2429,11 @@ def decode_host(other, rounds=10):
     same inputs: the host µs per wrapper call (``host_us``) of
     ``decode_path``'s three wrappers and the host ms per step
     (``host_ms`` over PROFILE_STEPS, no profiler) of its serve and
-    generate() steps. Logs each metric's minimum and median over the
-    rounds for both and the median of the per-round differences, and one
-    JSON line with every value:
-    ``python3 chip_smoke.py --decode-host OTHER``."""
+    generate() steps; and, in one torch.profiler session a round, the
+    device ms per call of both packages' int8 wrappers on ``int8_cases``.
+    Logs each metric's minimum and median over the rounds for both and
+    the median of the per-round differences, and one JSON line with
+    every value: ``python3 chip_smoke.py --decode-host OTHER``."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2389,19 +2447,27 @@ def decode_host(other, rounds=10):
     for who, pkg in pkgs.items():
         pkg.kernels._build.build_all()
         paths[who] = decode_path(torch, pkg, device, rounds)
+    cases = int8_cases(torch, device)
     out = {who: collections.defaultdict(list) for who in pkgs}
     for r in range(rounds):
-        for who in (("this", "other") if r % 2 else ("other", "this")):
+        order = ("this", "other") if r % 2 else ("other", "this")
+        for who in order:
             for name, fn in paths[who].items():
                 out[who][name].append(
                     host_ms(torch, fn, PROFILE_STEPS) if name.endswith(
                         "_step") else host_us(torch, fn))
-    for name in paths["this"]:
-        unit = "ms per step" if name.endswith("_step") else "us per call"
+        fns = {(who, label): functools.partial(
+            pkgs[who].kernels.paged_attention, *case)
+            for who in order for label, case in cases.items()}
+        for (who, label), parts in device_ms_each(torch, fns).items():
+            out[who]["int8 device ms, " + label].append(sum(parts.values()))
+    for name in out["this"]:
+        what = name if name.startswith("int8 device") else "host %s, %s" % (
+            name, "ms per step" if name.endswith("_step") else "us per call")
         a, b = out["other"][name], out["this"][name]
-        log("host %s, %s: other min %.3f median %.3f; this min %.3f median "
-            "%.3f; this - other, median of %d rounds %.3f"
-            % (name, unit, min(a), float(np.median(a)), min(b),
+        log("%s: other min %.4f median %.4f; this min %.4f median %.4f; "
+            "this - other, median of %d rounds %.4f"
+            % (what, min(a), float(np.median(a)), min(b),
                float(np.median(b)), rounds,
                float(np.median(np.subtract(b, a)))))
     log(json.dumps({"decode_host": out, "other": os.path.abspath(other)}))

@@ -18,27 +18,26 @@
 // holds 2D + 8 bytes per position and KV head against 4D in bf16). To
 // reach it the card needs bytes in flight on every SM, and a serving
 // batch has few (lane, KV head) pairs: 8 lanes x 8 heads is 64 CTAs for
-// 132 SMs. So paged_decode and flash_decode are split-K over the
-// sequence: a grid of (splits, KVH, B) CTAs, the split count and the
+// 132 SMs. So all three are split-K over the sequence: a grid of (splits, KVH, B) CTAs, the split count and the
 // largest chunk chosen on the host from the shapes alone
 // (kernels/common.py decode_splits; no device value is read back, so a
 // decode step gains no sync). Served lanes are mostly far shorter than
 // the cache's capacity, so each CTA sizes its lane's chunk from the
 // length it reads anyway (lane_chunk: the live length over the splits,
 // rounded up to a granule, at most the host's chunk; the granule is
-// kFlashGranule positions for flash_decode and one block for
-// paged_decode, so a paged CTA reads whole table entries), and CTA s walks
+// kFlashGranule positions for flash_decode and one block for both paged
+// modes, so a paged CTA reads whole table entries), and CTA s walks
 // [s * C, (s + 1) * C): a short lane spreads over the splits as a full
 // one does, instead of leaving one CTA to walk it in series. A chunk at
 // or past a lane's live length exits at once. Each CTA reads each of its
 // cache rows once for all of its G (or span * G) query rows, keeps the
-// query rows and the cross-warp partials in shared memory, and each
-// thread loads one 16-byte vector of a float key row (8 bytes of an int8
-// one); with the grid full, loading two keys a thread before using them
-// measured no faster (PERF.md), so each takes one. The splits' partials
-// go to one fp32 scratch buffer that the wrapper allocates (Partials
-// below) and are merged in a fixed order, with no atomics, so two calls
-// are bitwise equal:
+// query rows and the cross-warp partials in shared memory, and in the
+// float kernels each thread loads one 16-byte vector of a key row; with
+// the grid full, loading two keys a thread before using them measured no
+// faster (PERF.md), so each takes one. The splits' partials go to one
+// fp32 scratch buffer that the wrapper allocates (Partials, Int8Partials
+// below) and are merged in a fixed order, with no atomics on floats, so
+// two calls are bitwise equal:
 //
 //   flash_decode   flash_decode_split_kernel writes each row's (m, l,
 //                  unnormalised acc) over its chunk (one pass, online
@@ -55,11 +54,22 @@
 //                  stored scores, bitwise the ones pass 1 computed, and
 //                  writes its chunk's PV; paged_combine_kernel sums the
 //                  splits. K is read once and V once.
+//   paged_decode_int8
+//                  the same two passes and combine on the int8 pool, its
+//                  statistics (m, l, amax) and its PV sums exact int32
+//                  (paged_int8_scores_kernel, paged_int8_pv_kernel,
+//                  paged_int8_combine_kernel): small CTAs that stage their
+//                  table entries once and their rows by cp.async, and
+//                  dp4a for both integer dots (see the int8 section).
 //
-// paged_decode_int8 keeps one CTA per (lane, KV head), walking the lane
-// alone, with two passes over K. Not done yet: split-K for the int8 mode,
-// TMA / cp.async staging, and tensor-core dots (bf16, and s8 MMA for the
-// int8 mode).
+// tests/test_torch_decode_split.py and tests/test_torch_int8_split.py
+// model the split arithmetic on the CPU and pin the lines they copy;
+// chip_smoke.py holds every kernel against its plain version on the card.
+//
+// Not done yet: TMA / cp.async staging for the float kernels, and
+// tensor-core dots for the bf16 decode kernels. The int8 dots on the s8
+// tensor cores (mma.sync m16n8k32) measured slower than dp4a at one query
+// row a KV head and faster at 16 (PERF.md), so dp4a stays.
 //
 // Plain C interface, loaded with ctypes: pointers and the stream arrive
 // as void*, every entry checks cudaGetLastError() after each of its
@@ -418,79 +428,338 @@ paged_combine_kernel(float* __restrict__ scratch, T* __restrict__ out,
 }
 
 // ----------------------------------------------------------------------
-// paged_decode_int8: grid (KVH, B), kThreads threads; paged_decode's
-// layout and walk on an int8 pool. kpool / vpool: [NB, bs, KVH, D] int8
-// codes; ks / vs: [NB, bs, KVH] fp32 scales. q / out: float or bf16.
+// paged_decode_int8: B3's int8 mode on paged_decode's (splits, KVH, B)
+// grid and split plan. kpool / vpool: [NB, bs, KVH, D] int8 codes; ks /
+// vs: [NB, bs, KVH] fp32 scales; q / out: float or bf16; D 32, 64 or 128.
 //
 // The op order of the reference (_int8_cache_attention), step for step:
 // each packed q row is quantised once (qs = max(max|q|, 1e-8) / 127,
 // codes rint(q / qs) clipped to +-127); the score of key t is the exact
 // integer dot of the codes, then ((s * qs) * ks[t]) / sqrt(D), so the
-// scores are bitwise the reference's; pass 1 carries the row max m, sum l
-// and amax = max over t of exp(s - m) * vs[t] online (the TPU kernel's
-// amax = max(amax * alpha, ...)); pass 2 forms a = exp(s - m) / l, the
-// re-quantised code rint(a * vs[t] / as) with as = max(amax / l, 1e-8)
-// / 127, and sums code * v-code in int32 (exact, in any order: at most
-// 127^2 per key, < 2^31 for 130k keys); the output is (float)sum * as in
-// q's dtype. Each thread loads 8 codes (8 bytes) of a key row.
+// scores are bitwise the reference's; the row max m, sum l and amax = max
+// over t of exp(s - m) * vs[t] are carried online (the TPU kernel's amax =
+// max(amax * alpha, ...)); a = exp(s - m) / l is re-quantised to the code
+// rint(a * vs[t] / as) with as = max(amax / l, 1e-8) / 127; code * v-code
+// is summed in int32 (exact, in any order: at most 127^2 per key, < 2^31
+// for 130k keys); the output is (float)sum * as in q's dtype.
+//
+// Split-K, as paged_decode: pass 1 (paged_int8_scores_kernel) writes each
+// split's (m, l, amax) and every score to scratch (Int8Partials); pass 2
+// (paged_int8_pv_kernel) merges all splits' statistics in split order,
+// with amax_s carried to the global max as amax_s * exp(m_s - m), forms
+// the codes from the stored scores and writes its chunk's int32 sums;
+// paged_int8_combine_kernel adds the splits' sums and scales them. K is
+// read once (pass 1) and V once (pass 2).
+//
+// The passes do a few integer operations per byte, so the bytes bound
+// them; what keeps a pass from that bound is how soon a CTA has its rows:
+// it reads pos, then its table entries, then the rows they point to. A
+// CTA copies its chunk's table entries to
+// shared memory once, then streams its rows through a ring of kStages
+// slots of kTile positions with cp.async (each position's D code bytes of
+// its head, a stride of KVH * D apart in the pool, and its scales), all
+// slots issued at once, so the wait for an entry and then for its row is
+// paid once per chunk, not once per key. CTAs are small (kI8Threads, one
+// position a thread per tile, ~12 KB of shared memory at D = 64) so that
+// the whole served-pool grid (2304 CTAs) is resident in one wave; three
+// ring slots, or rows without padding, measured slower there (PERF.md).
+
+constexpr int kI8Threads = 64;     // threads of an int8 pass CTA
+constexpr int kI8Warps = kI8Threads / 32;
+constexpr int kTile = kI8Threads;  // positions per ring slot: one a thread
+constexpr int kStages = 2;         // ring slots
+constexpr int kRowPad = 16;        // bytes after each staged code row
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one CTA
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   shared_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   shared_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The int8 split partials. Rows are numbered as in Partials; the fp32
+// scratch holds m, l and amax [R, splits], the scores [R, cap] and the
+// int32 PV sums [R, splits, d]. A split that attends no position of a row
+// leaves (m, l, amax) = (-1e30, 0, 0) there, and its sums are never read.
+struct Int8Partials {
+  float* m;
+  float* l;
+  float* amax;
+  float* scores;
+  int* acc;
+  int splits;
+
+  __device__ Int8Partials(float* base, size_t nrows, int splits_, int cap)
+      : m(base),
+        l(base + nrows * splits_),
+        amax(base + 2 * nrows * splits_),
+        scores(base + 3 * nrows * splits_),
+        acc(reinterpret_cast<int*>(base + 3 * nrows * splits_ +
+                                   nrows * cap)),
+        splits(splits_) {}
+  __device__ size_t at(size_t row, int split) const {
+    return row * splits + split;
+  }
+  __device__ void empty(size_t row, int split) const {
+    m[at(row, split)] = kNegInf;
+    l[at(row, split)] = 0.f;
+    amax[at(row, split)] = 0.f;
+  }
+};
+
+// Regions of a dynamic shared-memory buffer, each 16-byte aligned.
+struct Carve {
+  size_t at = 0;
+  __host__ __device__ size_t take(size_t bytes) {
+    const size_t o = at;
+    at += (bytes + 15) / 16 * 16;
+    return o;
+  }
+};
+
+// Shared memory of pass 1 for `rows` query rows, head dim d and a chunk
+// of `ents` table entries, as byte offsets. A staged code row takes d +
+// kRowPad bytes, so the 16-byte loads of 8 threads, each on its own row,
+// fall in distinct banks.
+struct Int8ScoresSmem {
+  size_t codes, ks, vs, q8, qs, stats, tbl, bytes;
+  __host__ __device__ Int8ScoresSmem(int rows, int d, int ents) {
+    Carve c;
+    codes = c.take((size_t)kStages * kTile * (d + kRowPad));
+    ks = c.take(sizeof(float) * kStages * kTile);
+    vs = c.take(sizeof(float) * kStages * kTile);
+    q8 = c.take((size_t)rows * d);
+    qs = c.take(sizeof(float) * rows);
+    stats = c.take(sizeof(float) * 3 * kI8Warps * rows);
+    tbl = c.take(sizeof(int) * ents);
+    bytes = c.at;
+  }
+};
+
+// Shared memory of pass 2; `red`, the cross-warp sums, reuses the ring
+// once the last tile is used.
+struct Int8PvSmem {
+  size_t codes, vs, scores, red, pcode, stats, merged, tbl, bytes;
+  __host__ __device__ Int8PvSmem(int rows, int d, int ents, int splits) {
+    Carve ring;
+    codes = ring.take((size_t)kStages * kTile * (d + kRowPad));
+    vs = ring.take(sizeof(float) * kStages * kTile);
+    scores = ring.take(sizeof(float) * kStages * rows * kTile);
+    red = 0;
+    const size_t red_bytes = sizeof(int) * kI8Warps * rows * d;
+    Carve c;
+    c.take(ring.at > red_bytes ? ring.at : red_bytes);
+    pcode = c.take((size_t)rows * kTile);
+    stats = c.take(sizeof(float) * 3 * rows * splits);
+    merged = c.take(sizeof(float) * 3 * rows);
+    tbl = c.take(sizeof(int) * ents);
+    bytes = c.at;
+  }
+};
+
+// A CTA's chunk of one lane and KV head in the pool: tbl holds the lane's
+// table entries from `first` on, and position t's row of head h is row
+// at(t) of a leaf of [NB * bs * KVH] rows.
+struct ChunkRows {
+  const int* tbl;
+  int first, bs, kvh, h;
+  __device__ size_t at(int t) const {
+    return ((size_t)tbl[t / bs - first] * bs + t % bs) * kvh + h;
+  }
+};
+
+// Copy the table entries of positions [start, end) (start a multiple of
+// bs) to tbl; returns the chunk's rows.
+__device__ __forceinline__ ChunkRows stage_table(int* tbl,
+                                                 const int32_t* table,
+                                                 int start, int end, int bs,
+                                                 int kvh, int h) {
+  const int first = start / bs, n = (end - 1) / bs - first + 1;
+  for (int i = threadIdx.x; i < n; i += kI8Threads)
+    tbl[i] = table[first + i];
+  return ChunkRows{tbl, first, bs, kvh, h};
+}
+
+// Issue the copy of one position's d code bytes, in 16-byte pieces.
+__device__ __forceinline__ void stage_row(int8_t* dst, const int8_t* src,
+                                          int d) {
+  for (int c = 0; c < d; c += 16) cp_async16(dst + c, src + c);
+}
+
+// Quantise the CTA's packed q rows (row r = c * G + g reads q[b, c,
+// h * G + g]) into int8 codes q8 [rows, d] and scales qs [rows]: one warp
+// a row, its max found with shuffles (a max is exact in any order).
+template <typename T>
+__device__ __forceinline__ void quantise_rows(const T* q, int b, int h,
+                                              int kvh, int span, int g,
+                                              int d, int8_t* q8, float* qs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < span * g; r += kI8Warps) {
+    const T* qr = q + ((size_t)(b * span + r / g) * kvh * g + h * g + r % g) *
+                          d;
+    float x[kMaxDim / 32];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxDim / 32; ++i) {
+      const int j = lane + 32 * i;
+      x[i] = j < d ? to_float(qr[j]) : 0.f;
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float scale = fmaxf(amax, 1e-8f) / 127.0f;
+#pragma unroll
+    for (int i = 0; i < kMaxDim / 32; ++i) {
+      const int j = lane + 32 * i;
+      if (j < d) q8[r * d + j] = (int8_t)quant_code(x[i] / scale);
+    }
+    if (lane == 0) qs[r] = scale;
+  }
+}
+
+// Add score s of key t (its V scale vs) to a row's online (m, l, amax):
+// one exp, since one of exp(m - max) and exp(s - max) is exp(0) = 1.
+__device__ __forceinline__ void online_add(float s, float vs, float& m,
+                                           float& l, float& amax) {
+  if (s > m) {
+    const float alpha = expf(m - s);
+    l = l * alpha + 1.f;
+    amax = fmaxf(amax * alpha, vs);
+    m = s;
+  } else {
+    const float p = expf(s - m);
+    l += p;
+    amax = fmaxf(amax, p * vs);
+  }
+}
+
+// Merge (om, ol, oa) into (m, l, amax), two rows' online statistics.
+__device__ __forceinline__ void online_merge(float om, float ol, float oa,
+                                             float& m, float& l,
+                                             float& amax) {
+  const float mn = fmaxf(m, om);
+  const float a_self = expf(m - mn), a_other = expf(om - mn);
+  l = l * a_self + ol * a_other;
+  amax = fmaxf(amax * a_self, oa * a_other);
+  m = mn;
+}
+
+// Merge every split's (m, l, amax) of one row in split order: the row's
+// max m, its sum l and its probability scale as = max(amax / l, 1e-8) /
+// 127, each split's amax carried to the row's max. A split that attended
+// nothing of the row, (-1e30, 0, 0), adds nothing.
+__device__ __forceinline__ void merge_int8_stats(const float* m_r,
+                                                 const float* l_r,
+                                                 const float* a_r,
+                                                 int splits, float& mm,
+                                                 float& ll, float& as) {
+  mm = kNegInf;
+  for (int s = 0; s < splits; ++s) mm = fmaxf(mm, m_r[s]);
+  ll = 0.f;
+  float aa = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float w = expf(m_r[s] - mm);
+    ll += l_r[s] * w;
+    aa = fmaxf(aa, a_r[s] * w);
+  }
+  as = fmaxf(aa / ll, 1e-8f) / 127.0f;
+}
+
+// The 4 x 4 bytes of w[0..3] transposed: byte i of t[j] is byte j of w[i].
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
+                                           uint32_t (&t)[4]) {
+  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
+  t[0] = __byte_perm(lo01, lo23, 0x5410);
+  t[1] = __byte_perm(lo01, lo23, 0x7632);
+  t[2] = __byte_perm(hi01, hi23, 0x5410);
+  t[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// CTAs of an int8 pass an SM should hold, for the registers: 18 at up to
+// 2 rows (the served pool's 2304 CTAs in one wave), fewer above.
+#define I8_BOUNDS(ROWS) \
+  __launch_bounds__(kI8Threads, (ROWS) <= 2 ? 18 : (ROWS) <= 4 ? 12 : 8)
+
+// paged_decode_int8, pass 1: grid (splits, KVH, B), kI8Threads threads.
+// As paged_scores_kernel, on the int8 pool: the CTA of split s covers
+// positions [s * C, min((s + 1) * C, last + 1)) with C = lane_chunk(last
+// + 1, ...), streams their K codes and both scales, writes every score of
+// its positions and each row's (m, l, amax). Thread i takes position i of
+// each tile: each 16 bytes of its code row dotted with each q row's by
+// dp4a.
 template <typename T, int ROWS>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_int8_kernel(const T* __restrict__ q,
+__global__ void I8_BOUNDS(ROWS)
+paged_int8_scores_kernel(const T* __restrict__ q,
                          const int8_t* __restrict__ kpool,
-                         const int8_t* __restrict__ vpool,
                          const float* __restrict__ ks,
                          const float* __restrict__ vs,
                          const int32_t* __restrict__ tables,
                          const int32_t* __restrict__ pos,
-                         T* __restrict__ out, int kvh, int d, int bs,
-                         int nbl, int span, int g) {
-  constexpr int V = 8;
-  extern __shared__ float smem[];
-  float* q_f = smem;                                   // [ROWS, d]
-  int* red = reinterpret_cast<int*>(q_f + ROWS * d);   // [kWarps, ROWS, d]
-  float* st_m = reinterpret_cast<float*>(red + kWarps * ROWS * d);
-  float* st_l = st_m + kWarps * ROWS;                  // [kWarps, ROWS]
-  float* st_a = st_l + kWarps * ROWS;                  // [kWarps, ROWS]
-  float* qs = st_a + kWarps * ROWS;                    // [ROWS]
-  float* m_g = qs + ROWS;                              // [ROWS]
-  float* l_g = m_g + ROWS;                             // [ROWS]
-  float* as_g = l_g + ROWS;                            // [ROWS]
-  // [ROWS, d] q codes; 16-byte aligned (every region above holds a
-  // multiple of 4 floats)
-  int8_t* q8 = reinterpret_cast<int8_t*>(as_g + ROWS);
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int rows = span * g;
-  const int heads = kvh * g;
-  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
-    const int r = i / d, j = i % d;
-    q_f[i] = to_float(
-        q[((size_t)(b * span + r / g) * heads + h * g + r % g) * d + j]);
-  }
-  __syncthreads();
-  if (threadIdx.x < rows) {
-    const int r = threadIdx.x;
-    float amax = 0.f;
-    for (int j = 0; j < d; ++j) amax = fmaxf(amax, fabsf(q_f[r * d + j]));
-    qs[r] = fmaxf(amax, 1e-8f) / 127.0f;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * d; i += kThreads)
-    q8[i] = (int8_t)quant_code(q_f[i] / qs[i / d]);
-  __syncthreads();
-
-  const int tpk = d / V;             // threads per key row
-  const int kpw = 32 / tpk;          // key rows per warp step
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int part = lane % tpk, sub = lane / tpk;
+                         float* __restrict__ scratch, int kvh, int d, int bs,
+                         int nbl, int span, int g, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem8[];
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int rows = span * g, cap = nbl * bs;
+  const Int8Partials part(scratch, (size_t)gridDim.z * kvh * rows,
+                          gridDim.x, cap);
+  const size_t row0 = ((size_t)b * kvh + h) * rows;
   const int p0 = pos[b];
-  const int last = min(p0 + span - 1, nbl * bs - 1);
-  const float sqrt_d = sqrtf((float)d);
-  const int32_t* table = tables + (size_t)b * nbl;
-  const size_t head_off = (size_t)h * d + part * V;
-  const int key_step = kWarps * kpw;
+  const int last = min(p0 + span - 1, cap - 1);
+  const int lane_c = lane_chunk(last + 1, gridDim.x, chunk, bs);
+  const int start = split * lane_c;
+  const int end = min(start + lane_c, last + 1);
+  if (start >= end) {
+    if (threadIdx.x < rows) part.empty(row0 + threadIdx.x, split);
+    return;
+  }
+  const Int8ScoresSmem lay(ROWS, d, chunk / bs);
+  int8_t* codes = reinterpret_cast<int8_t*>(smem8 + lay.codes);
+  float* ks_s = reinterpret_cast<float*>(smem8 + lay.ks);
+  float* vs_s = reinterpret_cast<float*>(smem8 + lay.vs);
+  int8_t* q8 = reinterpret_cast<int8_t*>(smem8 + lay.q8);
+  float* qs = reinterpret_cast<float*>(smem8 + lay.qs);
+  float* st_m = reinterpret_cast<float*>(smem8 + lay.stats);
+  float* st_l = st_m + kI8Warps * ROWS;
+  float* st_a = st_l + kI8Warps * ROWS;
+  const ChunkRows cr =
+      stage_table(reinterpret_cast<int*>(smem8 + lay.tbl),
+                  tables + (size_t)b * nbl, start, end, bs, kvh, h);
+  __syncthreads();
+  const int stride = d + kRowPad;
+  const int n_tiles = (end - start + kTile - 1) / kTile;
+  const int i_slot = threadIdx.x;      // this thread's position in a tile
+  auto stage = [&](int i) {
+    const int slot = i % kStages, t = start + i * kTile + i_slot;
+    if (t < end) {
+      const size_t row = cr.at(t);
+      stage_row(codes + (slot * kTile + i_slot) * stride, kpool + row * d, d);
+      cp_async4(ks_s + slot * kTile + i_slot, ks + row);
+      cp_async4(vs_s + slot * kTile + i_slot, vs + row);
+    }
+  };
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_tiles) stage(i);
+    cp_async_commit();
+  }
+  quantise_rows(q, b, h, kvh, span, g, d, q8, qs);
 
-  // ---- pass 1: row max, sum and amax over the live positions
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float sqrt_d = sqrtf((float)d);
   float m[ROWS], l[ROWS], amax[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -498,47 +767,52 @@ paged_decode_int8_kernel(const T* __restrict__ q,
     l[r] = 0.f;
     amax[r] = 0.f;
   }
-  for (int tb = warp * kpw; tb <= last; tb += key_step) {
-    const int t = tb + sub;
-    const bool live = t <= last;
-    int2 kw = make_int2(0, 0);
-    float k_scale = 0.f, v_scale = 0.f;
-    if (live) {
-      const size_t cell = (size_t)table[t / bs] * bs + t % bs;
-      kw = *reinterpret_cast<const int2*>(kpool + cell * kvh * d + head_off);
-      k_scale = ks[cell * kvh + h];
-      v_scale = vs[cell * kvh + h];
-    }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int slot = i % kStages, t = start + i * kTile + i_slot;
+    if (t < end) {
+      const int8_t* kr = codes + (slot * kTile + i_slot) * stride;
+      int si[ROWS];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (r >= rows) break;
-      const int2 qw = *reinterpret_cast<const int2*>(q8 + r * d + part * V);
-      const int si =
-          key_group_sum(__dp4a(qw.y, kw.y, __dp4a(qw.x, kw.x, 0)), tpk);
-      if (live && t <= p0 + r / g) {
-        const float s = (float)si * qs[r] * k_scale / sqrt_d;
-        const float mn = fmaxf(m[r], s);
-        const float alpha = expf(m[r] - mn);
-        const float p = expf(s - mn);
-        l[r] = l[r] * alpha + p;
-        amax[r] = fmaxf(amax[r] * alpha, p * v_scale);
-        m[r] = mn;
+      for (int r = 0; r < ROWS; ++r) si[r] = 0;
+#pragma unroll
+      for (int j = 0; j < kMaxDim / 16; ++j) {
+        if (16 * j >= d) break;
+        const int4 kw = *reinterpret_cast<const int4*>(kr + 16 * j);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (r >= rows) break;
+          const int4 qw =
+              *reinterpret_cast<const int4*>(q8 + r * d + 16 * j);
+          si[r] = __dp4a(qw.x, kw.x, si[r]);
+          si[r] = __dp4a(qw.y, kw.y, si[r]);
+          si[r] = __dp4a(qw.z, kw.z, si[r]);
+          si[r] = __dp4a(qw.w, kw.w, si[r]);
+        }
+      }
+      const float k_scale = ks_s[slot * kTile + i_slot];
+      const float v_scale = vs_s[slot * kTile + i_slot];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (r >= rows) break;
+        const float s = (float)si[r] * qs[r] * k_scale / sqrt_d;
+        part.scores[(row0 + r) * cap + t] = s;
+        if (t <= p0 + r / g) online_add(s, v_scale, m[r], l[r], amax[r]);
       }
     }
+    __syncthreads();                   // the slot is free again
+    if (i + kStages < n_tiles) stage(i + kStages);
+    cp_async_commit();
   }
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     if (r >= rows) break;
-    for (int off = tpk; off < 32; off <<= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, m[r], off);
-      const float ol = __shfl_xor_sync(0xffffffffu, l[r], off);
-      const float oa = __shfl_xor_sync(0xffffffffu, amax[r], off);
-      const float mn = fmaxf(m[r], om);
-      const float a_self = expf(m[r] - mn), a_other = expf(om - mn);
-      l[r] = l[r] * a_self + ol * a_other;
-      amax[r] = fmaxf(amax[r] * a_self, oa * a_other);
-      m[r] = mn;
-    }
+    for (int off = 1; off < 32; off <<= 1)
+      online_merge(__shfl_xor_sync(0xffffffffu, m[r], off),
+                   __shfl_xor_sync(0xffffffffu, l[r], off),
+                   __shfl_xor_sync(0xffffffffu, amax[r], off), m[r], l[r],
+                   amax[r]);
     if (lane == 0) {
       st_m[warp * ROWS + r] = m[r];
       st_l[warp * ROWS + r] = l[r];
@@ -549,76 +823,200 @@ paged_decode_int8_kernel(const T* __restrict__ q,
   if (threadIdx.x < rows) {
     const int r = threadIdx.x;
     float mm = kNegInf, ll = 0.f, aa = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float om = st_m[w * ROWS + r];
-      const float mn = fmaxf(mm, om);
-      const float a_self = expf(mm - mn), a_other = expf(om - mn);
-      ll = ll * a_self + st_l[w * ROWS + r] * a_other;
-      aa = fmaxf(aa * a_self, st_a[w * ROWS + r] * a_other);
-      mm = mn;
+    for (int w = 0; w < kI8Warps; ++w)
+      online_merge(st_m[w * ROWS + r], st_l[w * ROWS + r],
+                   st_a[w * ROWS + r], mm, ll, aa);
+    const size_t at = part.at(row0 + r, split);
+    part.m[at] = mm;
+    part.l[at] = ll;
+    part.amax[at] = aa;
+  }
+}
+
+// paged_decode_int8, pass 2: grid (splits, KVH, B), kI8Threads threads;
+// the chunk of pass 1. Merges every split's (m, l, amax) of its rows in
+// split order (each CTA of a lane and head computes the same), then
+// streams the chunk's V codes, vs and stored scores. Per tile, thread i
+// forms position i's probability code of each row, then each thread sums
+// code * v-code over 4 dims of a group of 4 positions at a time: the 4 x 4
+// V bytes transposed (transpose4), one dp4a a row and dim. Writes its
+// chunk's int32 sums.
+template <int ROWS>
+__global__ void I8_BOUNDS(ROWS)
+paged_int8_pv_kernel(const int8_t* __restrict__ vpool,
+                     const float* __restrict__ vs,
+                     const int32_t* __restrict__ tables,
+                     const int32_t* __restrict__ pos,
+                     float* __restrict__ scratch, int kvh, int d, int bs,
+                     int nbl, int span, int g, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem8[];
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int rows = span * g, cap = nbl * bs;
+  const Int8Partials part(scratch, (size_t)gridDim.z * kvh * rows, splits,
+                          cap);
+  const size_t row0 = ((size_t)b * kvh + h) * rows;
+  const int p0 = pos[b];
+  const int last = min(p0 + span - 1, cap - 1);
+  const int lane_c = lane_chunk(last + 1, splits, chunk, bs);
+  const int start = split * lane_c;
+  const int end = min(start + lane_c, last + 1);
+  if (start >= end) return;
+  const Int8PvSmem lay(ROWS, d, chunk / bs, splits);
+  int8_t* codes = reinterpret_cast<int8_t*>(smem8 + lay.codes);
+  float* vs_s = reinterpret_cast<float*>(smem8 + lay.vs);
+  float* sc_s = reinterpret_cast<float*>(smem8 + lay.scores);
+  int* red = reinterpret_cast<int*>(smem8 + lay.red);
+  int8_t* pc = reinterpret_cast<int8_t*>(smem8 + lay.pcode);  // [ROWS, kTile]
+  float* ml = reinterpret_cast<float*>(smem8 + lay.stats);
+  float* m_g = reinterpret_cast<float*>(smem8 + lay.merged);
+  float* l_g = m_g + ROWS;
+  float* as_g = l_g + ROWS;
+  const ChunkRows cr =
+      stage_table(reinterpret_cast<int*>(smem8 + lay.tbl),
+                  tables + (size_t)b * nbl, start, end, bs, kvh, h);
+  __syncthreads();
+  const int stride = d + kRowPad;
+  const int n_tiles = (end - start + kTile - 1) / kTile;
+  const int i_slot = threadIdx.x;
+  auto stage = [&](int i) {
+    const int slot = i % kStages, t = start + i * kTile + i_slot;
+    if (t < end) {
+      const size_t row = cr.at(t);
+      stage_row(codes + (slot * kTile + i_slot) * stride, vpool + row * d, d);
+      cp_async4(vs_s + slot * kTile + i_slot, vs + row);
+      for (int r = 0; r < rows; ++r)
+        cp_async4(sc_s + (slot * ROWS + r) * kTile + i_slot,
+                  part.scores + (row0 + r) * cap + t);
     }
-    m_g[r] = mm;
-    l_g[r] = ll;
-    as_g[r] = fmaxf(aa / ll, 1e-8f) / 127.0f;
+  };
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_tiles) stage(i);
+    cp_async_commit();
+  }
+  // every split's (m, l, amax) of the CTA's rows, loaded at once, then
+  // merged in split order by one thread a row
+  const int n_ml = rows * splits;
+  for (int i = threadIdx.x; i < n_ml; i += kI8Threads) {
+    ml[i] = part.m[row0 * splits + i];
+    ml[n_ml + i] = part.l[row0 * splits + i];
+    ml[2 * n_ml + i] = part.amax[row0 * splits + i];
   }
   __syncthreads();
+  if (threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    merge_int8_stats(ml + r * splits, ml + n_ml + r * splits,
+                     ml + 2 * n_ml + r * splits, splits, m_g[r], l_g[r],
+                     as_g[r]);
+  }
 
-  // ---- pass 2: re-quantised probabilities times the V codes, in int32
-  int acc[ROWS][V];
+  // thread: dims [4 dg, 4 dg + 4), position groups kg0, kg0 + kg_step, ...
+  const int n_dg = d / 4, dg = threadIdx.x % n_dg;
+  const int kg0 = threadIdx.x / n_dg, kg_step = kI8Threads / n_dg;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int acc[ROWS][4];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int j = 0; j < V; ++j) acc[r][j] = 0;
-  for (int tb = warp * kpw; tb <= last; tb += key_step) {
-    const int t = tb + sub;
-    const bool live = t <= last;
-    int2 kw = make_int2(0, 0), vw = make_int2(0, 0);
-    float k_scale = 0.f, v_scale = 0.f;
-    if (live) {
-      const size_t cell = (size_t)table[t / bs] * bs + t % bs;
-      kw = *reinterpret_cast<const int2*>(kpool + cell * kvh * d + head_off);
-      vw = *reinterpret_cast<const int2*>(vpool + cell * kvh * d + head_off);
-      k_scale = ks[cell * kvh + h];
-      v_scale = vs[cell * kvh + h];
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int slot = i % kStages, t = start + i * kTile + i_slot;
+    // the tile's probability codes, 0 where a row does not attend
+    for (int r = 0; r < rows; ++r) {
+      int c = 0;
+      if (t < end && t <= p0 + r / g) {
+        const float a =
+            expf(sc_s[(slot * ROWS + r) * kTile + i_slot] - m_g[r]) / l_g[r];
+        c = quant_code(a * vs_s[slot * kTile + i_slot] / as_g[r]);
+      }
+      pc[r * kTile + i_slot] = (int8_t)c;
     }
-    int vv[V];              // the 8 V codes, sign-extended
+    __syncthreads();
+    const int8_t* vt = codes + slot * kTile * stride + 4 * dg;
+    for (int kg = kg0; kg < kTile / 4; kg += kg_step) {
+      uint32_t w[4], vt4[4];
 #pragma unroll
-    for (int j = 0; j < V; ++j)
-      vv[j] = (int)((unsigned)(j < 4 ? vw.x : vw.y) << (24 - 8 * (j % 4)))
-              >> 24;
+      for (int k = 0; k < 4; ++k)
+        w[k] = *reinterpret_cast<const uint32_t*>(vt + (4 * kg + k) * stride);
+      transpose4(w, vt4);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (r >= rows) break;
-      const int2 qw = *reinterpret_cast<const int2*>(q8 + r * d + part * V);
-      const int si =
-          key_group_sum(__dp4a(qw.y, kw.y, __dp4a(qw.x, kw.x, 0)), tpk);
-      if (live && t <= p0 + r / g) {
-        const float s = (float)si * qs[r] * k_scale / sqrt_d;
-        const float a = expf(s - m_g[r]) / l_g[r];
-        const int c = quant_code(a * v_scale / as_g[r]);
+      for (int r = 0; r < ROWS; ++r) {
+        if (r >= rows) break;
+        const int cw = *reinterpret_cast<const int*>(pc + r * kTile + 4 * kg);
 #pragma unroll
-        for (int j = 0; j < V; ++j) acc[r][j] += c * vv[j];
+        for (int j = 0; j < 4; ++j) acc[r][j] = __dp4a(cw, (int)vt4[j], acc[r][j]);
       }
     }
+    __syncthreads();                   // the slot is free again
+    if (i + kStages < n_tiles) stage(i + kStages);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
+  __syncthreads();                     // the ring is free: red reuses it
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     if (r >= rows) break;
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
+    for (int j = 0; j < 4; ++j) {
       int a = acc[r][j];
-      for (int off = tpk; off < 32; off <<= 1)
+      for (int off = n_dg; off < 32; off <<= 1)
         a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (sub == 0) red[(warp * ROWS + r) * d + part * V + j] = a;
+      if (lane < n_dg) red[(warp * ROWS + r) * d + 4 * dg + j] = a;
     }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * d; i += kI8Threads) {
+    const int r = i / d, j = i % d;
+    int o = 0;
+    for (int w = 0; w < kI8Warps; ++w) o += red[(w * ROWS + r) * d + j];
+    part.acc[part.at(row0 + r, split) * d + j] = o;
+  }
+}
+
+// paged_decode_int8, combine: grid (KVH, B), kThreads threads. Merges the
+// rows' statistics as pass 2 does (the same as), then one thread a (row,
+// d) element adds the splits' int32 sums in split order (a split whose l
+// is 0 left none) and writes (float)sum * as in T to out [B, span, H, D].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_int8_combine_kernel(float* __restrict__ scratch, T* __restrict__ out,
+                          int splits, int d, int cap, int span, int g) {
+  extern __shared__ float smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = gridDim.x, rows = span * g;
+  const Int8Partials part(scratch, (size_t)gridDim.y * kvh * rows, splits,
+                          cap);
+  const size_t row0 = ((size_t)b * kvh + h) * rows;
+  const int n_ml = rows * splits;
+  float* ml = smem;                           // [3, rows, splits]
+  float* as_s = ml + 3 * n_ml;                // [rows]
+  for (int i = threadIdx.x; i < n_ml; i += kThreads) {
+    ml[i] = part.m[row0 * splits + i];
+    ml[n_ml + i] = part.l[row0 * splits + i];
+    ml[2 * n_ml + i] = part.amax[row0 * splits + i];
+  }
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    float mm, ll;
+    merge_int8_stats(ml + r * splits, ml + n_ml + r * splits,
+                     ml + 2 * n_ml + r * splits, splits, mm, ll, as_s[r]);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < rows * d; i += kThreads) {
     const int r = i / d, j = i % d;
+    const int* acc = part.acc + (row0 + r) * splits * d + j;
+    const float* l_r = ml + n_ml + r * splits;
     int o = 0;
-    for (int w = 0; w < kWarps; ++w) o += red[(w * ROWS + r) * d + j];
-    out[((size_t)(b * span + r / g) * heads + h * g + r % g) * d + j] =
-        from_float<T>((float)o * as_g[r]);
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const int a = acc[(size_t)s * d];
+      o += l_r[s] > 0.f ? a : 0;
+    }
+    out[((size_t)(b * span + r / g) * kvh * g + h * g + r % g) * d + j] =
+        from_float<T>((float)o * as_s[r]);
   }
 }
 
@@ -837,22 +1235,47 @@ int launch_paged(const void* q, const void* kp, const void* vp,
   return (int)cudaGetLastError();
 }
 
+// Let `kernel` take `bytes` of dynamic shared memory; a CUDA status.
+template <typename K>
+int allow_smem(K* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 template <typename T, int ROWS>
-void launch_paged_int8(const void* q, const void* kp, const void* vp,
-                       const void* ks, const void* vs, const void* tables,
-                       const void* pos, void* out, int b, int kvh, int d,
-                       int bs, int nbl, int span, int g, cudaStream_t stream) {
-  // q_f, red, three [kWarps, ROWS] and four [ROWS] statistics (4 bytes
-  // each), then the [ROWS, d] int8 q codes
-  const size_t smem = sizeof(float) * ((size_t)ROWS * d * (1 + kWarps) +
-                                       3 * kWarps * ROWS + 4 * ROWS) +
-                      (size_t)ROWS * d;
-  paged_decode_int8_kernel<T, ROWS><<<dim3(kvh, b), kThreads, smem, stream>>>(
+int launch_paged_int8(const void* q, const void* kp, const void* vp,
+                      const void* ks, const void* vs, const void* tables,
+                      const void* pos, void* out, void* scratch, int b,
+                      int kvh, int d, int bs, int nbl, int span, int g,
+                      int splits, int chunk, cudaStream_t stream) {
+  const dim3 grid(splits, kvh, b);
+  const size_t smem1 = Int8ScoresSmem(ROWS, d, chunk / bs).bytes;
+  const size_t smem2 = Int8PvSmem(ROWS, d, chunk / bs, splits).bytes;
+  int status = allow_smem(paged_int8_scores_kernel<T, ROWS>, smem1);
+  if (status) return status;
+  status = allow_smem(paged_int8_pv_kernel<ROWS>, smem2);
+  if (status) return status;
+  const int32_t* tb = static_cast<const int32_t*>(tables);
+  const int32_t* ps = static_cast<const int32_t*>(pos);
+  float* sc = static_cast<float*>(scratch);
+  paged_int8_scores_kernel<T, ROWS><<<grid, kI8Threads, smem1, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kp),
-      static_cast<const int8_t*>(vp), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int32_t*>(tables),
-      static_cast<const int32_t*>(pos), static_cast<T*>(out), kvh, d, bs,
-      nbl, span, g);
+      static_cast<const float*>(ks), static_cast<const float*>(vs), tb, ps,
+      sc, kvh, d, bs, nbl, span, g, chunk);
+  status = (int)cudaGetLastError();
+  if (status) return status;
+  paged_int8_pv_kernel<ROWS><<<grid, kI8Threads, smem2, stream>>>(
+      static_cast<const int8_t*>(vp), static_cast<const float*>(vs), tb, ps,
+      sc, kvh, d, bs, nbl, span, g, chunk);
+  status = (int)cudaGetLastError();
+  if (status) return status;
+  paged_int8_combine_kernel<T><<<dim3(kvh, b), kThreads,
+                                 sizeof(float) * span * g * (3 * splits + 1),
+                                 stream>>>(
+      sc, static_cast<T*>(out), splits, d, nbl * bs, span, g);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int ROWS>
@@ -897,17 +1320,8 @@ bool shape_ok(int dtype, int d) {
   return tpk > 0 && tpk <= 32 && (tpk & (tpk - 1)) == 0;
 }
 
-#define DISPATCH_ROWS(LAUNCH, T, ROWS_RUNTIME, ...)          \
-  switch (row_bucket(ROWS_RUNTIME)) {                        \
-    case 1: LAUNCH<T, 1>(__VA_ARGS__); break;                \
-    case 2: LAUNCH<T, 2>(__VA_ARGS__); break;                \
-    case 4: LAUNCH<T, 4>(__VA_ARGS__); break;                \
-    case 8: LAUNCH<T, 8>(__VA_ARGS__); break;                \
-    default: LAUNCH<T, kMaxRows>(__VA_ARGS__); break;        \
-  }
-
-
-// DISPATCH_ROWS for a launcher that returns a CUDA status.
+// Call LAUNCH<T, bucket> for the smallest instantiated row count that
+// holds ROWS_RUNTIME, storing its CUDA status in STATUS.
 #define DISPATCH_ROWS_STATUS(STATUS, LAUNCH, T, ROWS_RUNTIME, ...)  \
   switch (row_bucket(ROWS_RUNTIME)) {                               \
     case 1: STATUS = LAUNCH<T, 1>(__VA_ARGS__); break;              \
@@ -955,26 +1369,29 @@ int paged_decode(int dtype, const void* q, const void* kpool,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out); pools int8, scales fp32.
+// scratch: fp32, b * kvh * span * g * (splits * (d + 3) + nbl * bs)
+// floats (Int8Partials). Launches pass 1, pass 2 and the combine.
 int paged_decode_int8(int dtype, const void* q, const void* kpool,
                       const void* vpool, const void* ks, const void* vs,
-                      const void* tables, const void* pos, void* out, int b,
-                      int kvh, int d, int bs, int nbl, int span, int g,
-                      void* stream) {
-  const int tpk = d / 8;   // threads per key row: 8 codes each
-  if (d < 8 || d % 8 || d > kMaxDim || (tpk & (tpk - 1)) ||
-      row_bucket(span * g) == 0 || b < 1 || kvh < 1 || span < 1 || g < 1 ||
+                      const void* tables, const void* pos, void* out,
+                      void* scratch, int b, int kvh, int d, int bs, int nbl,
+                      int span, int g, int splits, int chunk, void* stream) {
+  if ((d != 32 && d != 64 && d != 128) || row_bucket(span * g) == 0 || b < 1 || kvh < 1 || span < 1 || g < 1 ||
+      bs < 1 || nbl < 1 || chunk % bs || !splits_ok(splits, chunk, nbl * bs) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int status = 0;
   if (dtype == 0) {
-    DISPATCH_ROWS(launch_paged_int8, float, span * g, q, kpool, vpool, ks,
-                  vs, tables, pos, out, b, kvh, d, bs, nbl, span, g, s)
+    DISPATCH_ROWS_STATUS(status, launch_paged_int8, float, span * g, q,
+                         kpool, vpool, ks, vs, tables, pos, out, scratch, b,
+                         kvh, d, bs, nbl, span, g, splits, chunk, s)
   } else {
-    DISPATCH_ROWS(launch_paged_int8, __nv_bfloat16, span * g, q, kpool,
-                  vpool, ks, vs, tables, pos, out, b, kvh, d, bs, nbl, span,
-                  g, s)
+    DISPATCH_ROWS_STATUS(status, launch_paged_int8, __nv_bfloat16, span * g,
+                         q, kpool, vpool, ks, vs, tables, pos, out, scratch,
+                         b, kvh, d, bs, nbl, span, g, splits, chunk, s)
   }
-  return (int)cudaGetLastError();
+  return status;
 }
 
 // scratch: fp32, b * kvh * g * splits * (d + 2) floats (Partials).

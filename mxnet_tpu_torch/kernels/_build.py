@@ -41,9 +41,9 @@ SIGNATURES = {
         # dtype, q, kpool, vpool, tables, pos, out, scratch,
         # b, kvh, d, bs, nbl, span, g, splits, chunk, stream
         "paged_decode": [_c_int] + [_ptr] * 7 + [_c_int] * 9 + [_ptr],
-        # dtype, q, kpool, vpool, ks, vs, tables, pos, out,
-        # b, kvh, d, bs, nbl, span, g, stream
-        "paged_decode_int8": [_c_int] + [_ptr] * 8 + [_c_int] * 7 + [_ptr],
+        # dtype, q, kpool, vpool, ks, vs, tables, pos, out, scratch,
+        # b, kvh, d, bs, nbl, span, g, splits, chunk, stream
+        "paged_decode_int8": [_c_int] + [_ptr] * 9 + [_c_int] * 9 + [_ptr],
         # dtype, q, k, v, lengths, out, lse, scratch,
         # b, kvh, tmax, d, g, splits, chunk, stream
         "flash_decode": [_c_int] + [_ptr] * 7 + [_c_int] * 7 + [_ptr],

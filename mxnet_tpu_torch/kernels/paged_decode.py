@@ -15,17 +15,25 @@ cache dtype, or re-quantises them to int8 codes with the row's own
 scale) before PV, which needs each row's statistics before any
 probability exists.
 
-``paged_decode`` is split-K over the sequence, so that a serving batch
-fills the card's 132 SMs: a (splits, KVH, B) grid whose CTA s walks
-positions [s * chunk, (s + 1) * chunk) of its lane (chunk a multiple of
-the block size, from ``common.decode_splits``: shapes only, never
-``pos``), in two passes and a combine, all from one ctypes call. Pass 1
-writes each split's row statistics (m, l) and every score to one fp32
-scratch buffer; pass 2 merges all splits' (m, l) in a fixed order,
-rounds exp(s - m) / l to the cache dtype from the stored scores and
-writes its chunk's PV; the combine sums the splits in order. K and V are
-each read once. ``paged_decode_int8`` keeps one CTA per (lane, KV head),
-walking the lane's live positions alone, K twice and V once.
+Both modes are split-K over the sequence, so that a serving batch fills
+the card's 132 SMs: a (splits, KVH, B) grid whose CTA s walks positions
+[s * chunk, (s + 1) * chunk) of its lane (chunk a multiple of the block
+size, from ``common.decode_splits``: shapes only, never ``pos``), in two
+passes and a combine, all from one ctypes call. Pass 1 writes each
+split's row statistics (m, l; for int8 also amax, the largest
+exp(s - m) * vs) and every score to one fp32 scratch buffer; pass 2
+merges all splits' statistics in a fixed order, rounds exp(s - m) / l to
+the cache dtype (int8: re-quantises it with the row's scale) from the
+stored scores and writes its chunk's PV (int8: exact int32 sums); the
+combine sums the splits in order. K and V are each read once. The int8
+passes copy each chunk's table entries to shared memory once and stream
+its code rows and scales through a ring of ``cp.async`` copies, with
+both integer dots on ``dp4a``. On the CPU, ``tests/test_torch_kv_int8.py``
+holds the plain version against the JAX kernel and
+``tests/test_torch_int8_split.py`` models the int8 passes split by
+split; on the card ``chip_smoke.py`` holds the kernel against the plain
+version on the served pool, at 16 query rows a KV head and on the split
+plan's edges, two calls bitwise equal.
 
 ``paged_attention_reference`` is the plain version, and what the CPU
 runs: gather the pool through the tables into the dense [B, T] layout,
@@ -89,7 +97,8 @@ def _check_int8_pool(layer_pool):
                         % (kpool.dtype, vpool.dtype))
     if ks.dtype != torch.float32 or vs.dtype != torch.float32:
         raise TypeError("an int8 pool's scale planes are float32")
-    if ks.shape != kpool.shape[:3] or vs.shape != kpool.shape[:3]:
+    planes = kpool.shape[:3]
+    if ks.shape != planes or vs.shape != planes:
         raise ValueError("scale planes %s / %s do not match the pool %s"
                          % (tuple(ks.shape), tuple(vs.shape),
                             tuple(kpool.shape)))
@@ -134,26 +143,30 @@ def paged_attention(q, layer_pool, tables, pos):
     if int8:
         check_cuda_inputs((q, tables, pos), (tables, pos), d, span * g)
         _check_int8_leaves(layer_pool, q.device, d)
-        lib = _build.load("decode_attention")
-        stream = _build.current_stream_ptr(q.device)
+    else:
+        check_cuda_inputs((q, kpool, vpool, tables, pos), (tables, pos), d,
+                          span * g)
+    # one ctypes call: both passes on a (splits, KVH, B) grid and the
+    # combine; the scratch holds, per query row, each split's statistics
+    # ((m, l), or (m, l, amax) for int8) and PV partial (fp32, or int32
+    # for int8) and a score for every table position
+    nbl = tables.shape[1]
+    splits, chunk = paged_decode_splits(b, kvh, nbl, bs)
+    stats = 3 if int8 else 2
+    scratch = torch.empty(b * h * span * (splits * (d + stats) + nbl * bs),
+                          dtype=torch.float32, device=q.device)
+    lib = _build.load("decode_attention")
+    if int8:
         status = lib.paged_decode_int8(
             DTYPE_CODE[q.dtype], q.data_ptr(), kpool.data_ptr(),
             vpool.data_ptr(), layer_pool["ks"].data_ptr(),
             layer_pool["vs"].data_ptr(), tables.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, kvh, d, bs, tables.shape[1], span, g, stream)
+            out.data_ptr(), scratch.data_ptr(), b, kvh, d, bs, nbl, span, g,
+            splits, chunk, _build.current_stream_ptr(q.device))
         _build.check(status, "paged_decode_int8")
         _build.launches["paged_decode_int8"] += 1
         return out
-    check_cuda_inputs((q, kpool, vpool, tables, pos), (tables, pos), d,
-                      span * g)
-    # one ctypes call: both passes on a (splits, KVH, B) grid and the
-    # combine; the scratch holds, per query row, each split's (m, l) and
-    # PV partial and a score for every table position
-    nbl = tables.shape[1]
-    splits, chunk = paged_decode_splits(b, kvh, nbl, bs)
-    scratch = torch.empty(b * h * span * (splits * (d + 2) + nbl * bs),
-                          dtype=torch.float32, device=q.device)
-    status = _build.load("decode_attention").paged_decode(
+    status = lib.paged_decode(
         DTYPE_CODE[q.dtype], q.data_ptr(), kpool.data_ptr(),
         vpool.data_ptr(), tables.data_ptr(), pos.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), b, kvh, d, bs, nbl, span, g,
@@ -171,14 +184,18 @@ def paged_decode_splits(b, kvh, nbl, bs):
 
 
 def _check_int8_leaves(layer_pool, device, d):
-    """The int8 kernel's own rules for a pool's leaves: contiguous, on
-    ``device`` and 16-byte aligned, with a head dim of 8 codes a thread
-    (one 8-byte load of a key row each, a power of two of them)."""
-    if d % 8 or d // 8 & (d // 8 - 1):
+    """The int8 kernels' own rules for a pool's leaves: contiguous, on
+    ``device`` and 16-byte aligned (a code row is copied in 16-byte
+    pieces), with a head dim of 32, 64 or 128 codes. A decode step runs
+    this once per layer: device indices as ints, no torch.device
+    objects."""
+    if d not in (32, 64, 128):
         raise ValueError("head dim %d is not supported by the int8 paged "
-                         "kernel" % d)
+                         "kernel (32, 64 or 128)" % d)
+    index = device.index
     for name, t in layer_pool.items():
-        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.get_device() != index or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError("the int8 paged kernel takes contiguous, "
                              "16-byte aligned pool leaves on %s (%s)"
                              % (device, name))

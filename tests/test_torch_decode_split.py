@@ -320,9 +320,10 @@ def _squeeze(text):
 def test_model_follows_the_kernel_source():
     """The lines of ``decode_attention.cu`` that the models copy:
     ``lane_chunk``'s body, the granule each kernel passes it (the block
-    size in both paged passes, kFlashGranule = FLASH_DECODE_GRANULE in
-    flash decode), the span each split walks, and the split limit
-    (kMaxSplits = DECODE_MAX_SPLITS)."""
+    size in both paged passes of both paged modes, fp/bf16 and int8 (the
+    int8 ones modelled in ``test_torch_int8_split.py``), kFlashGranule =
+    FLASH_DECODE_GRANULE in flash decode), the span each split walks, and
+    the split limit (kMaxSplits = DECODE_MAX_SPLITS)."""
     src = KERNEL_SOURCE.read_text()
     body = re.search(r"int lane_chunk\(int live, int splits, int chunk,"
                      r"\s*int granule\) \{(.*?)\n\}", src, re.S)
@@ -336,13 +337,13 @@ def test_model_follows_the_kernel_source():
         assert [int(v) for v in found] == [want], name
     calls = re.findall(r"const int lane_c = lane_chunk\(([^;]*)\);", src)
     assert sorted(_squeeze(c) for c in calls) == [
-        "last + 1, gridDim.x, chunk, bs", "last + 1, splits, chunk, bs",
+        "last + 1, gridDim.x, chunk, bs", "last + 1, gridDim.x, chunk, bs",
+        "last + 1, splits, chunk, bs", "last + 1, splits, chunk, bs",
         "len, gridDim.x, chunk, kFlashGranule"]
-    assert src.count("const int start = split * lane_c;") == 3
+    assert src.count("const int start = split * lane_c;") == 5
     assert sorted(_squeeze(e) for e in re.findall(
         r"const int end = (min\(start \+ lane_c, [^;]*\));", src)) == [
-        "min(start + lane_c, last + 1)", "min(start + lane_c, last + 1)",
-        "min(start + lane_c, len)"]
+        "min(start + lane_c, last + 1)"] * 4 + ["min(start + lane_c, len)"]
 
 
 # --------------------------------------------------------- the planner ---
