@@ -121,7 +121,25 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    lane's table, in bfloat16 and int8; each decode kernel also by its
    device time under torch.profiler beside SDPA's, with its split plan,
    and the wrapper's host microseconds per call;
-10. traces 16 decode steps of a serve run, of an int8 serve run and of
+10. drives the ResNet-50 path (``resnet_phase``; no hand-written kernel:
+    convolutions, pooling, batch norm and the dense layer are torch ops,
+    cuDNN and cuBLAS in MXNet's NCHW layout): ResNet-50 v1 traced by
+    ``utils.functionalize_block`` takes one fp32 training step (TF32 off)
+    at batch 2, 224^2 on the card and on the CPU, whose logits, loss,
+    gradients and new running statistics must agree to ``TOL_RESNET``
+    (relative L2); the stem's ``MaxPool2D(3, 2, 1)`` on all-equal windows
+    must send each window's gradient to its first position, bitwise as on
+    the CPU; ``entry.build_train_step`` at ``bench.py``'s shape (batch
+    128, 224^2, 1000 classes, bf16 fold-cast, lr 0.1, momentum 0.9) takes
+    10 steps on one seeded batch, with a finite loss that must fall, and
+    prints the step ms, img/s and peak device memory, then a
+    torch.profiler breakdown of 3 steps; ``entry()``'s forward (batch 8)
+    must give finite (8, 1000) logits agreeing with the CPU's at
+    ``TOL_RESNET``, and is timed; and the same net in bf16, forward +
+    backward under ``autograd.record``, is timed imperative (``nd``) and
+    hybridized (``CachedOp``) in turns; each line with the card's name
+    and power limit;
+11. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
@@ -131,14 +149,14 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ``generate()`` decode step the two of flash decode, the bf16 train
    step the three tensor-core kernels, and the mesh forward the forward
    template;
-11. times the decode kernels (the paged kernel in bfloat16 and int8)
+12. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, by CUDA events and by device time
     with each kernel's GB/s of live bytes, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
-12. prints the card's name and power limit again, the kernels' JSON
+13. prints the card's name and power limit again, the kernels' JSON
     line, then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
@@ -1576,7 +1594,7 @@ TRAIN_KINDS = (("flash kernels", ("flash_",)),
 
 
 def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
-                  kinds=(), expect=()):
+                  kinds=(), expect=(), by_op=0):
     """Run ``step`` ``steps`` times untraced, then as many times under
     torch.profiler (CUDA activity only), and print the host ms per step of
     both runs, the device ms per step of the traced one (the sum of the
@@ -1584,7 +1602,11 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
     and, with ``kinds``, the device ms per step of each kind of kernel
     (the first kind whose word a kernel's name holds; "other" else).
     Fails unless each word of ``expect`` is in some kernel's name, and
-    logs the device ms per step of the kernels each word names."""
+    logs the device ms per step of the kernels each word names. With
+    ``by_op``, a third run of ``steps`` traces the host too and logs the
+    ``by_op`` operators whose own kernels take the most device time (an
+    operator's kernels are those it launches itself, so a backward
+    kernel counts under the operator the backward formula calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     def host_ms():
@@ -1627,6 +1649,19 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
             by_kind[kind] += e.self_device_time_total / 1e3 / steps
         log("  by kind, ms per step: " + ", ".join(
             "%s %.3f" % kv for kv in by_kind.most_common()))
+    if by_op:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            host_ms()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.self_device_time_total > 0]
+        ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        log("  by operator (a host-traced run), ms per step and calls per "
+            "step: " + ", ".join(
+                "%s %.3f (%d)" % (e.key, e.self_device_time_total / 1e3
+                                  / steps, e.count // steps)
+                for e in ops[:by_op]))
 
 
 def profile_serve(torch, sv, params, cfg, device, what, expect=()):
@@ -2170,6 +2205,282 @@ def time_rtc(torch, nd, run):
     return rows
 
 
+# ------------------------------------------------------------- ResNet ---
+
+# bench.py's headline step: ResNet-50 v1, batch 128, 224^2, 1000 classes,
+# bf16 fold-cast, SGD lr 0.1 with momentum 0.9; one seeded batch
+RESNET = dict(batch=128, image_size=224, classes=1000, lr=0.1, steps=10)
+RESNET_CHECK = dict(batch=2, image_size=224)   # fp32 step, card vs CPU
+RESNET_ENTRY = dict(batch=8, image_size=224)   # entry()'s own shape
+RESNET_POOL = (2, 64, 112, 112)                # the stem pool's input
+RESNET_ROUTE_ITERS = 5
+RESNET_OPS = 16                                # operators in the profile
+# card (fp32, TF32 off) against the CPU in float64: relative L2 of the
+# logits, the loss, each parameter's gradient and each new running
+# statistic, at most TOL_RESNET or TOL_FLOOR times the CPU fp32 step's
+# own distance from float64 (resnet_card_vs_cpu)
+TOL_RESNET = 1e-3
+TOL_FLOOR = 4.0
+RESNET_KINDS = (("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+                ("convolution", ("conv", "xmma", "implicit", "cudnn",
+                                 "dgrad", "wgrad", "fprop")),
+                ("GEMM", ("nvjet", "gemm", "cutlass")),
+                ("pooling", ("pool",)),
+                ("reduction", ("reduce",)),
+                ("elementwise and copies", ("elementwise", "copy")))
+
+
+def nll_loss(torch, logits, y):
+    """Mean NLL of log_softmax over fp32 logits (bench.py's loss);
+    float64 logits stay float64."""
+    logp = torch.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
+    return -logp.gather(-1, y.long()[:, None])[:, 0].mean()
+
+
+def resnet_fp32_step(torch, graph_fn, data, args, aux, x, y):
+    """One fp32 training step's numbers through a traced graph: (logits,
+    loss, {name: gradient}, {name: new running statistic})."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in args.items()}
+    inputs = dict(leaves)
+    inputs[data] = x
+    outs, new_aux = graph_fn(inputs, dict(aux))
+    loss = nll_loss(torch, outs[0], y)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return (outs[0].detach(), loss.detach(), dict(zip(leaves, grads)),
+            new_aux)
+
+
+def resnet_card_vs_cpu(torch, mt, device, spec=RESNET_CHECK):
+    """ResNet-50 v1 traced by functionalize_block with one seeded
+    initialisation; one fp32 training step on the card (TF32 off), the
+    same step on the CPU in fp32 and in float64 (float64 throughout: the
+    BatchNorm op computes in the wider of its input's type and fp32). Each
+    of the logits, the loss, every parameter's gradient and every new
+    running statistic must be within TOL_RESNET (relative L2) of the
+    float64 step, or within TOL_FLOOR times the CPU fp32 step's own
+    distance from it: at this initialisation the gradient grows backward
+    through the 16 bottlenecks, and a BatchNorm beta's or gamma's gradient
+    sums terms that nearly cancel (a training-mode BatchNorm's input
+    gradient has its channel means taken out), so fp32 alone, summed in
+    any order, is good to only a few percent there (CPU fp32 against
+    float64: 0.034 on the worst beta)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.utils import functionalize_block
+    b, s = spec["batch"], spec["image_size"]
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((b, 3, s, s), generator=gen)
+    y = torch.randint(0, 1000, (b,), generator=gen)
+    with mt.cpu():
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(mt.init.Xavier())
+        graph_fn, names, args, aux = functionalize_block(
+            net, mt.nd.NDArray(x, mt.cpu()), is_train=True)
+
+    def step(to):
+        moved = lambda d: {k: to(v) for k, v in d.items()}
+        out = resnet_fp32_step(torch, graph_fn, names[0], moved(args),
+                               moved(aux), to(x), y.to(to(x).device))
+        logits, loss, grads, new_aux = out
+        parts = {"logits": logits, "loss": loss}
+        parts.update(("gradient " + k, v) for k, v in grads.items())
+        parts.update(("running statistic " + k, v)
+                     for k, v in new_aux.items())
+        return {k: v.detach().cpu().double() for k, v in parts.items()}
+
+    t0 = time.perf_counter()
+    cpu32 = step(lambda t: t)
+    cpu_s = time.perf_counter() - t0
+    cpu64 = step(lambda t: t.double())
+    card = step(lambda t: t.to(device))
+    assert sorted(card) == sorted(cpu64)
+    worst = {}
+    for key in cpu64:
+        part = next((p for p in ("gradient", "running statistic")
+                     if key.startswith(p + " ")), key)
+        err = rel_l2(card[key], cpu64[key])
+        floor = rel_l2(cpu32[key], cpu64[key])
+        bound = max(TOL_RESNET, TOL_FLOOR * floor)
+        vs_cpu = rel_l2(card[key], cpu32[key])
+        if part not in worst or err / bound > worst[part][0]:
+            worst[part] = (err / bound, key, err, floor, vs_cpu)
+    for part, (share, key, err, floor, vs_cpu) in worst.items():
+        log("resnet50 fp32 step (batch %d, %d^2, TF32 off; %.1f s on the "
+            "CPU), %s: worst %s: card vs float64 rel L2 %.3g, CPU fp32 vs "
+            "float64 %.3g, card vs CPU fp32 %.3g; %.3f of its bound max(%g, "
+            "%g x CPU fp32's)" % (b, s, cpu_s, part, key, err, floor, vs_cpu,
+                                  share, TOL_RESNET, TOL_FLOOR))
+        if not share <= 1.0:
+            raise AssertionError("resnet50 fp32 step: %s differs between "
+                                 "the card and the CPU" % key)
+    log("resnet50 fp32 step, card vs CPU: %d tensors held (logits, loss, "
+        "%d gradients, %d running statistics)"
+        % (len(cpu64), len(args), len(aux)))
+    return {part: w[2] for part, w in worst.items()}
+
+
+def resnet_pool_ties(torch, mt, ctx, shape=RESNET_POOL):
+    """The stem's MaxPool2D(3, 2, 1) on all-equal windows: each window's
+    gradient lands on its first position (the first valid row and column
+    of the padded window), bitwise as on the CPU."""
+    pool = mt.gluon.nn.MaxPool2D(3, 2, 1)
+    grads = []
+    for c in (ctx, mt.cpu()):
+        x = mt.nd.zeros(shape, ctx=c)
+        x.attach_grad()
+        with mt.autograd.record():
+            y = pool(x)
+        y.backward(mt.nd.ones(y.shape, ctx=c))
+        grads.append(x.grad.asnumpy())
+    want = np.zeros(shape, np.float32)
+    oh, ow = y.shape[2:]
+    for i in range(oh):
+        for j in range(ow):
+            want[:, :, max(2 * i - 1, 0), max(2 * j - 1, 0)] += 1.0
+    for what, got in (("card", grads[0]), ("CPU", grads[1])):
+        if not np.array_equal(got, want):
+            raise AssertionError("max-pool ties on the %s: the gradient "
+                                 "is not on each window's first position"
+                                 % what)
+    if not np.array_equal(grads[0], grads[1]):
+        raise AssertionError("max-pool ties: card and CPU differ")
+    log("resnet50 stem MaxPool2D(3, 2, 1) on all-equal windows %s: the "
+        "gradient sits on each window's first position, card and CPU "
+        "bitwise equal" % (shape,))
+
+
+def resnet_train(torch, mt, device, spec=RESNET):
+    """entry.build_train_step at bench.py's shape on one seeded batch:
+    the loss of steps 1 and 10 (finite, falling), the step ms (host clock
+    around a step that ends in a device sync, mean of steps 2-10), img/s
+    and the peak device memory. Returns what the profile needs."""
+    from mxnet_tpu_torch import entry
+    b, s, classes = spec["batch"], spec["image_size"], spec["classes"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step, state, mom, aux = entry.build_train_step(
+        b, image_size=s, classes=classes, lr=spec["lr"], ctx=mt.gpu(0))
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand((b, 3, s, s), generator=gen, device=device)
+    y = torch.randint(0, classes, (b,), generator=gen, device=device)
+    run = {"state": state, "mom": mom, "aux": aux}
+
+    def one():
+        run["state"], run["mom"], run["aux"], loss = step(
+            run["state"], run["mom"], run["aux"], x, y)
+        return loss
+
+    losses, times = [], []
+    for _ in range(spec["steps"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = one()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+    step_ms = 1e3 * sum(times[1:]) / len(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    log("resnet50 bf16 train step (%s; batch %d, %d^2, %d classes, "
+        "fold-cast, lr %g, momentum 0.9): %.3f ms per step (mean of steps "
+        "2-%d; step 1 %.1f ms, build %.1f s), %.1f img/s, loss %.4f at "
+        "step 1 -> %.4f at step %d, peak device memory %.3f GB"
+        % (card_line(), b, s, classes, spec["lr"], step_ms, spec["steps"],
+           1e3 * times[0], build_s, b / step_ms * 1e3, losses[0],
+           losses[-1], spec["steps"], peak / 1e9))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("resnet50 train step: non-finite loss %s"
+                             % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("resnet50 train step: the loss on a fixed "
+                             "batch did not fall: %s" % losses)
+    return {"step": one, "step_ms": step_ms, "img_s": b / step_ms * 1e3,
+            "losses": losses, "peak_bytes": peak}
+
+
+def resnet_entry(torch, mt, device, spec=RESNET_ENTRY):
+    """entry() on the card: logits of (batch, 1000), finite, agreeing
+    with the same call on the CPU to TOL_RESNET; the forward's ms."""
+    from mxnet_tpu_torch import entry
+    fn, (args, aux, x) = entry.entry(batch=spec["batch"],
+                                     image_size=spec["image_size"],
+                                     ctx=mt.gpu(0))
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    with torch.no_grad():
+        logits = fn(args, aux, x)
+        if tuple(logits.shape) != (spec["batch"], 1000) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError("entry(): logits of shape %s, finite %s"
+                                 % (tuple(logits.shape),
+                                    bool(torch.isfinite(logits).all())))
+        err = rel_l2(logits.cpu(), fn(cpu(args), cpu(aux), x.cpu()))
+        ms = host_ms(torch, lambda: fn(args, aux, x), 10)
+    log("entry() on the card (%s): logits %s, forward %.3f ms (host clock, "
+        "mean of 10 after a sync), card vs CPU relative L2 %.3g (limit %g)"
+        % (card_line(), tuple(logits.shape), ms, err, TOL_RESNET))
+    if not err <= TOL_RESNET:
+        raise AssertionError("entry(): the card's logits differ from the "
+                             "CPU's")
+    return {"forward_ms": ms, "err": err}
+
+
+def resnet_routes(torch, mt, device, batch=RESNET["batch"],
+                  image_size=RESNET["image_size"], iters=RESNET_ROUTE_ITERS):
+    """ResNet-50 v1 cast to bf16, forward + backward under
+    autograd.record, imperative (nd, op by op) and hybridized (CachedOp),
+    in turns (imperative, hybridized, hybridized, imperative): the host ms
+    of each, mean over ``iters`` calls ending in a device sync."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    ctx = mt.gpu(0)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    net.cast("bfloat16")
+    gen = torch.Generator(device=device).manual_seed(2)
+    x = mt.nd.NDArray(torch.rand((batch, 3, image_size, image_size),
+                                 generator=gen, device=device)
+                      .to(torch.bfloat16), ctx)
+
+    def fwd_bwd():
+        with mt.autograd.record():
+            out = net(x)
+        out.backward()
+
+    times = {False: [], True: []}
+    for hybrid in (False, True, True, False):
+        net.hybridize(hybrid)
+        times[hybrid].append(host_ms(torch, fwd_bwd, iters))
+    ms = {route: sum(v) / len(v) for route, v in times.items()}
+    log("resnet50 bf16 forward + backward under autograd.record (%s; batch "
+        "%d, %d^2): imperative (nd) %.3f ms (%s), hybridized (CachedOp) "
+        "%.3f ms (%s); imperative / hybridized %.3f"
+        % (card_line(), batch, image_size, ms[False],
+           ", ".join("%.3f" % t for t in times[False]), ms[True],
+           ", ".join("%.3f" % t for t in times[True]),
+           ms[False] / ms[True]))
+    return ms
+
+
+def resnet_phase(torch, mt, device):
+    """The ResNet-50 path of entry (bench.py's and __graft_entry__'s
+    counterparts) on the card; returns its numbers."""
+    out = {"check": resnet_card_vs_cpu(torch, mt, device)}
+    resnet_pool_ties(torch, mt, mt.gpu(0))
+    run = resnet_train(torch, mt, device)
+    profile_steps(torch, "resnet50 bf16 train step, batch %d x %d^2 (%s)"
+                  % (RESNET["batch"], RESNET["image_size"], card_line()),
+                  run["step"], steps=3, top=12, kinds=RESNET_KINDS,
+                  by_op=RESNET_OPS)
+    out["train"] = {k: v for k, v in run.items() if k != "step"}
+    del run
+    torch.cuda.empty_cache()
+    out["entry"] = resnet_entry(torch, mt, device)
+    out["routes"] = resnet_routes(torch, mt, device)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2311,6 +2622,7 @@ def main():
            rtc_run["triton_first_s"]))
     del rtc_run
     torch.cuda.empty_cache()
+    resnet_phase(torch, mxnet_tpu_torch, device)
     log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms; "
         "mesh forward %.3f ms" % (served["step_ms"], generated["step_ms"],
                                   trained["step_ms"], meshed["forward_ms"]))

@@ -16,7 +16,12 @@ same file); and the imperative core: ``nd`` (the NDArray value type
 and the ops of ``ops.elemwise``, ``ops.reduce_ops`` and ``ops.matrix``),
 ``autograd`` over torch.autograd, and ``rtc``, which compiles CUDA
 source at runtime with NVRTC (``CudaModule``) and launches Triton or
-plain bodies (``PallasModule``). The default context is ``gpu(0)``:
+plain bodies (``PallasModule``); and the ResNet path: the ``nn`` ops
+of ``ops.nn``, ``initializer``, ``symbol`` with ``executor`` and
+``cached_op``, ``gluon`` (parameters, blocks, layers, the ResNet model
+zoo), ``utils.functionalize_block``, and ``entry`` (``entry()`` and
+``build_train_step``, the counterparts of the JAX package's
+``__graft_entry__.entry`` and ``bench.build_train_step``). The default context is ``gpu(0)``:
 without a CUDA device it raises; host callers say ``with cpu():``.
 Importing the package needs neither ``nvcc``, NVRTC, Triton nor a GPU:
 kernels build at first launch.
@@ -25,12 +30,19 @@ kernels build at first launch.
 from .base import MXNetError
 from .context import (Context, cpu, current_context, gpu, gpu_memory_info,
                       num_gpus, resolve_device)
-from . import (autograd, engine, kernels, models, ndarray, ops, parallel,
-               random, rtc, storage)
+from . import (attribute, autograd, engine, kernels, models, name, ndarray,
+               ops, parallel, random, registry, rtc, storage)
+from . import initializer, symbol
+from . import executor, cached_op, gluon, utils
+from .attribute import AttrScope
 
 nd = ndarray
+sym = symbol
+init = initializer
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "gpu_memory_info", "resolve_device", "nd", "ndarray",
            "autograd", "random", "rtc", "ops", "engine", "storage",
-           "kernels", "models", "parallel"]
+           "kernels", "models", "parallel", "name", "attribute", "AttrScope",
+           "registry", "initializer", "init", "symbol", "sym", "executor",
+           "cached_op", "gluon", "utils"]

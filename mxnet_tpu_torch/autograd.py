@@ -206,7 +206,8 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
 
 def get_symbol(x):
     raise MXNetError("autograd.get_symbol: the port records torch.autograd "
-                     "graphs, not symbols; Symbol waits for ROADMAP A6")
+                     "graphs, not nnvm symbols; use gluon.HybridBlock "
+                     "tracing to obtain a Symbol")
 
 
 class _Bridge(torch.autograd.Function):

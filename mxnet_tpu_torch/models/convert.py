@@ -11,8 +11,10 @@ same names and shapes, and the momentum as a dict by parameter name
 rest; sharding does not change the parameter tree, so ``params_from_jax``
 serves meshes too. Serving state crosses as well: per-layer KV caches and
 block pools, [{"k", "v"}, ...] or, under int8 KV, [{"k", "ks", "v",
-"vs"}, ...] in both packages. Everything crosses as numpy arrays, so this
-module imports nothing of JAX.
+"vs"}, ...] in both packages. So do the parameters of a traced Gluon
+graph (``graph_params_from_numpy``): the JAX package's
+``functionalize_block`` dicts by graph name. Everything crosses as numpy
+arrays, so this module imports nothing of JAX.
 """
 
 import dataclasses
@@ -26,7 +28,7 @@ from .transformer import (TransformerConfig, TransformerLM, flatten_tree,
 
 __all__ = ["config_from_jax", "params_from_jax", "params_to_numpy",
            "momentum_from_jax", "momentum_to_numpy", "cache_from_jax",
-           "cache_to_numpy"]
+           "cache_to_numpy", "graph_params_from_numpy"]
 
 # dtypes a cache leaf may have, by numpy name
 _CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -119,3 +121,22 @@ def cache_to_numpy(cache):
     exactly)."""
     return [{name: _numpy(leaf) for name, leaf in layer.items()}
             for layer in cache]
+
+
+def graph_params_from_numpy(args, aux, device=None):
+    """The JAX package's ``functionalize_block`` parameter dicts ``args``
+    and ``aux`` (numpy arrays by graph name, e.g. ``{k: np.asarray(v)}``)
+    as the port's: tensors of the same names, shapes and dtypes (bfloat16
+    and float32 as given, numpy's float64 as float32) on ``device``, the
+    current CUDA device by default. The port's graph function takes them
+    as they are."""
+    device = resolve_device(device)
+
+    def tensors(d):
+        out = {}
+        for name, arr in d.items():
+            arr = np.asarray(arr)
+            dtype = _CACHE_DTYPES.get(arr.dtype.name)
+            out[name] = numpy_to_tensor(arr, dtype or torch.float32, device)
+        return out
+    return tensors(args), tensors(aux)

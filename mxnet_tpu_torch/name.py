@@ -1,0 +1,54 @@
+"""Automatic op naming (port of ``mxnet_tpu/name.py``; reference:
+python/mxnet/name.py NameManager / Prefix)."""
+
+import threading
+
+__all__ = ["NameManager", "Prefix"]
+
+
+class NameManager(object):
+    """Scoped manager that assigns unique names to operators."""
+
+    _current = threading.local()
+
+    def __init__(self):
+        self._counter = {}
+        self._old_manager = None
+
+    def get(self, name, hint):
+        if name:
+            return name
+        if hint not in self._counter:
+            self._counter[hint] = 0
+        name = "%s%d" % (hint, self._counter[hint])
+        self._counter[hint] += 1
+        return name
+
+    def __enter__(self):
+        if not hasattr(NameManager._current, "value"):
+            NameManager._current.value = NameManager()
+        self._old_manager = NameManager._current.value
+        NameManager._current.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        assert self._old_manager
+        NameManager._current.value = self._old_manager
+
+    @staticmethod
+    def current():
+        if not hasattr(NameManager._current, "value"):
+            NameManager._current.value = NameManager()
+        return NameManager._current.value
+
+
+class Prefix(NameManager):
+    """NameManager that prepends a prefix to every name."""
+
+    def __init__(self, prefix):
+        super(Prefix, self).__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super(Prefix, self).get(name, hint)
+        return self._prefix + name

@@ -551,6 +551,10 @@ def imperative_invoke(op_name, nd_inputs, attrs, out=None, input_names=None,
             outs = op.fn(**call)
     multi = isinstance(outs, (tuple, list))
     results = [NDArray(o, out_ctx) for o in (outs if multi else [outs])]
+    # BatchNorm shows its batch statistics only on request, as the
+    # reference's op does (output_mean_var)
+    if op.name == "BatchNorm" and not attrs.get("output_mean_var", False):
+        results, multi = results[:1], False
 
     if out is not None:
         tgt = out if isinstance(out, (tuple, list)) else [out]

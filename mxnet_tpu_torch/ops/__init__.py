@@ -12,7 +12,7 @@ That one function carries what the reference's NNVM attributes did:
                         JAX's, the op computes JAX's (``elemwise.py``)
 
 The port registers the ops of ``elemwise.py``, ``reduce_ops.py`` and
-``matrix.py``. The JAX registry's other names (``_queued.py``) raise
+``matrix.py``, and the ResNet subset of ``nn.py``. The JAX registry's other names (``_queued.py``) raise
 ``MXNetError`` naming the module and the ROADMAP item that ports them.
 """
 
@@ -123,3 +123,4 @@ def infer_shape(name, *inputs, **attrs):
 from . import elemwise  # noqa: E402,F401
 from . import reduce_ops  # noqa: E402,F401
 from . import matrix  # noqa: E402,F401
+from . import nn  # noqa: E402,F401

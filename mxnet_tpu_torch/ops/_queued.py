@@ -1,6 +1,7 @@
 """Op names of the JAX package's registry that the port does not have
 yet, by the JAX module that defines them and the ROADMAP queue item that
-ports it (A6: ``ops/nn.py`` and ``ops/optimizer_ops.py``; A9: the rest).
+ports it (A6: the rest of ``ops/nn.py`` beside the ResNet subset the port
+has, and ``ops/optimizer_ops.py``; A9: the rest).
 Calling one raises ``MXNetError`` naming its module and item."""
 
 QUEUED_MODULES = {
@@ -43,14 +44,10 @@ linalg_gemm2 linalg_inverse linalg_makediag linalg_maketrian
 linalg_potrf linalg_potri linalg_slogdet linalg_sumlogdiag
 linalg_syevd linalg_syrk linalg_trmm linalg_trsm slogdet"""),
     "ops/nn.py": ("A6", """
-Activation BatchNorm BatchNorm_v1 CTCLoss Convolution
-Deconvolution Dropout FullyConnected GroupNorm
-IdentityAttachKLSparseReg InstanceNorm LRN LayerNorm LeakyReLU
-LinearRegressionOutput LogisticRegressionOutput
-MAERegressionOutput Pooling RNN ROIPooling SVMOutput Softmax
-SoftmaxActivation SoftmaxOutput SpatialTransformer
-_contrib_SyncBatchNorm ctc_loss log_softmax softmax
-softmax_cross_entropy softmin"""),
+CTCLoss Deconvolution GroupNorm IdentityAttachKLSparseReg
+InstanceNorm LRN LayerNorm LeakyReLU LinearRegressionOutput
+LogisticRegressionOutput MAERegressionOutput RNN ROIPooling
+SVMOutput SpatialTransformer _contrib_SyncBatchNorm ctc_loss"""),
     "ops/numpy_ops.py": ("A9", """
 _np_broadcast_to _np_copy _np_cumsum _np_dot _np_ones_like
 _np_prod _np_reshape _np_squeeze _np_sum _np_transpose

@@ -51,10 +51,12 @@ def _run(code_or_args, cwd):
 
 
 def test_import_loads_no_jax(tmp_path):
-    """Importing the package and its serving path, and running one train
+    """Importing the package and its serving path, running one train
     step of its training path on the CPU (rope, MoE, remat through the
-    flash autograd function), leaves jax and mxnet_tpu out of
-    sys.modules, and needs no nvcc."""
+    flash autograd function), and importing Gluon, Symbol, the model zoo
+    and ``entry`` and taking one hybridized SGD step of ResNet-18
+    (thumbnail) on the CPU, leaves jax and mxnet_tpu out of sys.modules,
+    and needs no nvcc."""
     code = ("import sys, mxnet_tpu_torch\n"
             "from mxnet_tpu_torch.models import serving, convert\n"
             "from mxnet_tpu_torch.models import transformer as tf\n"
@@ -62,6 +64,20 @@ def test_import_loads_no_jax(tmp_path):
             "remat_layers=True, use_flash_kernel=True)\n"
             "p = tf.init_params(cfg, device='cpu')\n"
             "tf.make_train_step(cfg)(p, tf.init_momentum(p), [list(range(8))])\n"
+            "from mxnet_tpu_torch import autograd, entry, gluon, nd, sym\n"
+            "from mxnet_tpu_torch.gluon.model_zoo import vision\n"
+            "with mxnet_tpu_torch.cpu():\n"
+            "    net = vision.resnet18_v1(thumbnail=True, classes=10)\n"
+            "    net.initialize(mxnet_tpu_torch.init.Xavier())\n"
+            "    net.hybridize()\n"
+            "    x, y = nd.ones((2, 3, 32, 32)), nd.array([1, 2])\n"
+            "    with autograd.record():\n"
+            "        loss = nd.softmax_cross_entropy(net(x), y)\n"
+            "    loss.backward()\n"
+            "    for q in net.collect_params().values():\n"
+            "        if q.grad_req != 'null':\n"
+            "            q.set_data(q.data() - 0.1 * q.grad())\n"
+            "    assert sym.load_json(net._cached_graph[1].tojson())\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "%r)\n"
             "print('BAD', bad)\n" % (FORBIDDEN,))

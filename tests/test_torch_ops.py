@@ -33,6 +33,11 @@ from mxnet_tpu_torch import ops as tops
 from mxnet_tpu_torch.base import dtype_name
 
 MODULES = ("elemwise", "reduce_ops", "matrix")
+# the ResNet subset of ops/nn.py the port has (with their aliases)
+NN_PORTED = {"Convolution", "Pooling", "FullyConnected", "BatchNorm",
+             "Activation", "softmax", "log_softmax", "softmin",
+             "SoftmaxActivation", "SoftmaxOutput", "softmax_cross_entropy",
+             "Dropout"}
 TOL = (1e-6, 1e-6)                  # (rtol, atol) at fp32
 
 
@@ -273,7 +278,8 @@ def _grads(nd, ag, name, inputs, attrs, ctx, cot_seed=11):
 
 def test_gate_every_op_of_the_three_modules_is_ported_and_cased():
     jax_ops = _jax_ops()
-    port = set(tops.list_ops()) - {"_index"}
+    # the nn subset has its cases in test_torch_nn_ops.py
+    port = set(tops.list_ops()) - {"_index"} - NN_PORTED
     assert port == set(jax_ops)
     for alias, real in jops._ALIAS.items():
         if real in jax_ops:
@@ -283,17 +289,29 @@ def test_gate_every_op_of_the_three_modules_is_ported_and_cased():
 
 
 def test_gate_other_jax_ops_raise_naming_their_queue_item():
+    """Every JAX op outside MODULES and the ported ResNet subset of
+    ``ops/nn.py`` (``test_torch_nn_ops.py``) is queued, and its ``nd``
+    function, its registry entry and a Gluon layer over it raise naming
+    the queue item."""
     names = {n for n, op in jops._REGISTRY.items()
              if op.fn.__module__.split(".")[-1] not in MODULES
-             and n != "_index"}
+             and n not in NN_PORTED and n != "_index"}
     names |= {a for a, r in jops._ALIAS.items() if r in names}
     assert names == set(tops._queued.QUEUED)
-    for name, item in (("FullyConnected", "A6"), ("sgd_mom_update", "A6"),
+    assert all(tops.exists(n) for n in NN_PORTED)
+    assert {n for n in jops._ALIAS if jops._ALIAS[n] in NN_PORTED} <= \
+        set(tops._ALIAS)
+    for name, item in (("LayerNorm", "A6"), ("sgd_mom_update", "A6"),
                        ("linalg_gemm2", "A9"), ("_random_uniform", "A9")):
         with pytest.raises(mt.MXNetError, match=item):
             getattr(tnd, name)(tnd.zeros((2,), ctx=mt.cpu()))
         with pytest.raises(mt.MXNetError, match=item):
             tops.get(name)
+    with mt.cpu():
+        layer = mt.gluon.nn.GroupNorm(in_channels=2)
+        layer.initialize()
+        with pytest.raises(mt.MXNetError, match="A6"):
+            layer(tnd.zeros((1, 2, 3, 3)))
 
 
 @pytest.mark.parametrize("name", _jax_ops())
