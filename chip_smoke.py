@@ -139,7 +139,24 @@ Run from the root of a checkout on a machine with one CUDA GPU and
     backward under ``autograd.record``, is timed imperative (``nd``) and
     hybridized (``CachedOp``) in turns; each line with the card's name
     and power limit;
-11. traces 16 decode steps of a serve run, of an int8 serve run and of
+11. drives the Gluon training loop (``gluon_train_phase``; no
+    hand-written kernel: the optimizers, the Trainer, the losses and the
+    rest of ``ops/nn.py`` are torch ops): the ResNet-18 thumbnail's 3
+    ``Trainer("sgd")`` steps with ``SoftmaxCrossEntropyLoss`` and
+    ``examples/dcgan.py``'s 3 iterations (Adam, sigmoid BCE,
+    ``Conv2DTranspose``, ``LeakyReLU``) run on the card, on the CPU in
+    fp32 and on the CPU in float64 from the same parameters, loss, logits
+    and every parameter after each step held by ``resnet_card_vs_cpu``'s
+    rule; each op of ``ops/nn.py`` beyond the ResNet subset forward and
+    backward on the card against the CPU at ``TOL_OPS_E``; then ResNet-50
+    v1 cast to bf16, hybridized, ``Trainer("sgd", multi_precision=True)``
+    (lr 0.1, momentum 0.9, wd 1e-4) at bench.py's shape for 10 steps on
+    one seeded batch, with a finite loss that must fall, printing the step
+    ms, img/s, peak memory, ``trainer.step``'s host ms and its kernel
+    launches and device ms from a trace of one call, beside
+    ``build_train_step``'s step ms of the same call, then a
+    torch.profiler breakdown of 3 steps;
+12. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
@@ -149,14 +166,14 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ``generate()`` decode step the two of flash decode, the bf16 train
    step the three tensor-core kernels, and the mesh forward the forward
    template;
-12. times the decode kernels (the paged kernel in bfloat16 and int8)
+13. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, by CUDA events and by device time
     with each kernel's GB/s of live bytes, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
-13. prints the card's name and power limit again, the kernels' JSON
+14. prints the card's name and power limit again, the kernels' JSON
     line, then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
@@ -2481,6 +2498,479 @@ def resnet_phase(torch, mt, device):
     return out
 
 
+# ------------------------------------------------------ Gluon training ---
+
+# the Gluon loop at bench.py's shape: ResNet-50 v1 cast to bf16,
+# hybridized, SoftmaxCrossEntropyLoss, Trainer("sgd") with bench.py's lr
+# and momentum, the ImageNet recipe's wd and fp32 masters; one seeded batch
+GLUON = dict(batch=128, image_size=224, classes=1000, steps=10,
+             opt=dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+                      multi_precision=True))
+# card (fp32, TF32 off) against the CPU: the ResNet-18 thumbnail's loop
+# and examples/dcgan.py's, held by resnet_card_vs_cpu's rule (TOL_RESNET
+# relative L2 from a float64 run, or TOL_FLOOR x the CPU fp32 run's own
+# distance from it) after each step
+GLUON_CHECK = dict(batch=4, image_size=32, classes=10, steps=3,
+                   opt=dict(learning_rate=0.1, momentum=0.9, wd=1e-4))
+DCGAN = dict(size=16, latent=16, batch=32, iters=3,
+             opt=dict(learning_rate=2e-3, beta1=0.5))
+# the ops of ops/nn.py beyond the ResNet subset, card against the CPU in
+# fp32: relative L2 of the output and of each input's gradient
+TOL_OPS_E = 1e-4
+
+
+def _set_float64(net):
+    """Every parameter, its gradient buffer included, as float64 (the
+    reference run of a card-vs-CPU check; the port's dtype requests
+    narrow 64-bit types, so the tensors are set directly)."""
+    for p in net.collect_params().values():
+        p._data._set_data(p._data._data.detach().double())
+        if p._grad is not None:
+            p._grad._data = p._grad._data.double()
+
+
+def _gluon_clone(mt, make, values, ctx, float64, shape):
+    """A new net from ``make`` on ``ctx`` holding ``values`` (numpy, by
+    structural name), float64 when asked."""
+    import torch
+    net = make()
+    net.initialize(mt.init.Zero(), ctx=ctx)
+    net(mt.nd.zeros(shape, ctx=ctx))
+    for name, p in net._collect_params_with_prefix().items():
+        t = torch.from_numpy(values[name]).to(ctx.torch_device)
+        p.set_data(mt.nd.NDArray(t.double() if float64 else t, ctx))
+    if float64:
+        _set_float64(net)
+    return net
+
+
+def _params_of(net):
+    return {"parameter " + k: p.data()._data.detach().cpu().double()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def hold_card(torch, runs, what):
+    """``runs`` = {"card", "cpu32", "cpu64"}: per step, {key: tensor}.
+    Each key of each step within max(TOL_RESNET, TOL_FLOOR x the CPU fp32
+    run's distance from float64) of the float64 run, relative L2; logs
+    the worst of each kind and returns the largest card error."""
+    worst = {}
+    for step, (card, cpu32, cpu64) in enumerate(zip(
+            runs["card"], runs["cpu32"], runs["cpu64"])):
+        assert sorted(card) == sorted(cpu64)
+        for key in cpu64:
+            kind = key.split(" ")[0]
+            err = rel_l2(card[key], cpu64[key])
+            floor = rel_l2(cpu32[key], cpu64[key])
+            share = err / max(TOL_RESNET, TOL_FLOOR * floor)
+            if kind not in worst or share > worst[kind][0]:
+                worst[kind] = (share, step + 1, key, err, floor)
+    for kind, (share, step, key, err, floor) in sorted(worst.items()):
+        log("%s (%s), worst %s: %s at step %d: card vs float64 rel L2 %.3g, "
+            "CPU fp32 vs float64 %.3g; %.3f of its bound max(%g, %g x CPU "
+            "fp32's)" % (what, card_line(), kind, key, step, err, floor,
+                         share, TOL_RESNET, TOL_FLOOR))
+        if not share <= 1.0:
+            raise AssertionError("%s: %s differs between the card and the "
+                                 "CPU at step %d" % (what, key, step))
+    return max(w[3] for w in worst.values())
+
+
+def gluon_resnet_card_vs_cpu(torch, mt, device, spec=GLUON_CHECK):
+    """The ResNet-18 thumbnail, hybridized, ``spec["steps"]`` steps of
+    Trainer("sgd") with SoftmaxCrossEntropyLoss on the card, on the CPU
+    in fp32 and on the CPU in float64, from the same parameters (Xavier,
+    each residual block's last BatchNorm gamma at 0.01: from gammas of 1
+    the 3-step trajectory is chaotic, and fp32 rounding alone moves a
+    BatchNorm beta by 5%); loss, logits and every parameter after each
+    step held by ``hold_card``."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    b, s = spec["batch"], spec["image_size"]
+    make = lambda: vision.resnet18_v1(thumbnail=True,
+                                      classes=spec["classes"], prefix="r18_")
+    shape = (1, 3, s, s)
+    with mt.cpu():
+        mt.random.seed(5)
+        net = make()
+        net.initialize(mt.init.Xavier())
+        net(mt.nd.zeros(shape))
+        for name, p in net._collect_params_with_prefix().items():
+            if name.endswith("body.4.gamma"):
+                p.set_data(mt.nd.ones(p.shape) * 0.01)
+        values = {k: p.data().asnumpy()
+                  for k, p in net._collect_params_with_prefix().items()}
+    rs = np.random.RandomState(3)
+    data = [(rs.uniform(-1, 1, (b, 3, s, s)).astype(np.float32),
+             rs.randint(0, spec["classes"], b).astype(np.float32))
+            for _ in range(spec["steps"])]
+
+    def run(ctx, float64):
+        net = _gluon_clone(mt, make, values, ctx, float64, shape)
+        net.hybridize()
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(spec["opt"]))
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        out = []
+        for x, y in data:
+            xt = torch.from_numpy(x).to(ctx.torch_device)
+            xn = mt.nd.NDArray(xt.double() if float64 else xt, ctx)
+            with mt.autograd.record():
+                logits = net(xn)
+                loss = loss_fn(logits, mt.nd.array(y, ctx=ctx))
+            loss.backward()
+            trainer.step(b)
+            parts = {"loss": loss._data.detach().cpu().double(),
+                     "logits": logits._data.detach().cpu().double()}
+            parts.update(_params_of(net))
+            out.append(parts)
+        return out
+
+    t0 = time.perf_counter()
+    runs = {"cpu32": run(mt.cpu(), False)}
+    cpu_s = time.perf_counter() - t0
+    runs["cpu64"] = run(mt.cpu(), True)
+    runs["card"] = run(mt.gpu(0), False)
+    err = hold_card(torch, runs, "gluon resnet18 thumbnail, %d Trainer "
+                    "steps (sgd, momentum 0.9, wd 1e-4), batch %d x %d^2, "
+                    "fp32, TF32 off; %.1f s a run on the CPU"
+                    % (spec["steps"], b, s, cpu_s))
+    log("gluon resnet18 thumbnail card vs CPU (%s): %d tensors a step "
+        "held, largest card error %.3g" % (card_line(), len(runs["card"][0]),
+                                           err))
+    return err
+
+
+def dcgan_nets(mt):
+    """examples/dcgan.py's generator and discriminator."""
+    nn = mt.gluon.nn
+    net_g = nn.HybridSequential(prefix="gen_")
+    with net_g.name_scope():
+        net_g.add(nn.Conv2DTranspose(32, 4, strides=1, padding=0,
+                                     use_bias=False), nn.BatchNorm(),
+                  nn.Activation("relu"),
+                  nn.Conv2DTranspose(16, 4, strides=2, padding=1,
+                                     use_bias=False), nn.BatchNorm(),
+                  nn.Activation("relu"),
+                  nn.Conv2DTranspose(1, 4, strides=2, padding=1,
+                                     use_bias=False), nn.Activation("tanh"))
+    net_d = nn.HybridSequential(prefix="disc_")
+    with net_d.name_scope():
+        net_d.add(nn.Conv2D(16, 4, strides=2, padding=1), nn.LeakyReLU(0.2),
+                  nn.Conv2D(32, 4, strides=2, padding=1), nn.LeakyReLU(0.2),
+                  nn.Conv2D(1, 4, strides=1, padding=0), nn.Flatten())
+    return net_g, net_d
+
+
+def dcgan_real_batch(rs, n, size):
+    """examples/dcgan.py's data: a bright gaussian blob near the centre
+    on a dark background, in [-1, 1]."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    out = np.empty((n, 1, size, size), np.float32)
+    for i in range(n):
+        cx = size / 2 + rs.randn() * 1.5
+        cy = size / 2 + rs.randn() * 1.5
+        sig = 2.5 + rs.rand()
+        img = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * sig ** 2))
+        out[i, 0] = img * 2 - 1
+    return out
+
+
+def dcgan_card_vs_cpu(torch, mt, device, spec=DCGAN):
+    """examples/dcgan.py's loop at its own width (16^2 images, a 16-d
+    latent, batch 32): ``spec["iters"]`` iterations of a discriminator
+    step (real up, fake down) and a generator step through it, Adam with
+    beta1 0.5, SigmoidBinaryCrossEntropyLoss; on the card, on the CPU in
+    fp32 and in float64 from the same Normal(0.02) parameters; both
+    losses and every parameter after each iteration held by
+    ``hold_card``."""
+    size, latent, b = spec["size"], spec["latent"], spec["batch"]
+    shapes = ((1, latent, 1, 1), (1, 1, size, size))
+    with mt.cpu():
+        mt.random.seed(6)
+        nets = dcgan_nets(mt)
+        values = []
+        for net, shape in zip(nets, shapes):
+            net.initialize(mt.init.Normal(0.02))
+            net(mt.nd.zeros(shape))
+            values.append({k: p.data().asnumpy() for k, p in
+                           net._collect_params_with_prefix().items()})
+    rs = np.random.RandomState(0)
+    data = [(dcgan_real_batch(rs, b, size),
+             rs.randn(b, latent, 1, 1).astype(np.float32))
+            for _ in range(spec["iters"])]
+
+    def run(ctx, float64):
+        cast = (lambda t: t.double()) if float64 else (lambda t: t)
+        net_g, net_d = [
+            _gluon_clone(mt, (lambda k=k: dcgan_nets(mt)[k]), values[k], ctx,
+                         float64, shapes[k]) for k in (0, 1)]
+        trainer_g = mt.gluon.Trainer(net_g.collect_params(), "adam",
+                                     dict(spec["opt"]))
+        trainer_d = mt.gluon.Trainer(net_d.collect_params(), "adam",
+                                     dict(spec["opt"]))
+        loss_fn = mt.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+        ones = mt.nd.ones((b,), ctx=ctx)
+        zeros = mt.nd.zeros((b,), ctx=ctx)
+        arr = lambda a: mt.nd.NDArray(
+            cast(torch.from_numpy(a).to(ctx.torch_device)), ctx)
+        out = []
+        for real, z in data:
+            real, z = arr(real), arr(z)
+            with mt.autograd.record():
+                out_real = net_d(real).reshape((-1,))
+                fake = net_g(z)
+                out_fake = net_d(fake.detach()).reshape((-1,))
+                loss_d = loss_fn(out_real, ones) + loss_fn(out_fake, zeros)
+            loss_d.backward()
+            trainer_d.step(b)
+            with mt.autograd.record():
+                loss_g = loss_fn(net_d(net_g(z)).reshape((-1,)), ones)
+            loss_g.backward()
+            trainer_g.step(b)
+            parts = {"loss D": loss_d._data.detach().cpu().double(),
+                     "loss G": loss_g._data.detach().cpu().double()}
+            parts.update(_params_of(net_g))
+            parts.update(_params_of(net_d))
+            out.append(parts)
+        return out
+
+    runs = {"cpu32": run(mt.cpu(), False), "cpu64": run(mt.cpu(), True),
+            "card": run(mt.gpu(0), False)}
+    return hold_card(torch, runs, "dcgan loop, %d iterations of D and G "
+                     "(adam, beta1 0.5), batch %d x %d^2, fp32, TF32 off"
+                     % (spec["iters"], b, size))
+
+
+def _u(shape, seed, lo=-1.0, hi=1.0):
+    rs = np.random.RandomState(seed)
+    return np.asarray(lo + (hi - lo) * rs.rand(*shape), np.float32)
+
+
+def ops_e_cases():
+    """(label, op, [(input, numpy)], attrs, differentiated inputs): the
+    ops of ops/nn.py beyond the ResNet subset at small widths."""
+    from mxnet_tpu_torch.ops.nn import rnn_param_size
+    x = _u((8, 16, 14, 14), 1)
+    ctc = _u((40, 8, 21), 2, -2, 2)
+    rs = np.random.RandomState(3)
+    lab = rs.randint(0, 20, (8, 12)).astype(np.float32)
+    lab[:, 9:] = -1
+    rois = np.array([[i % 8, 0.4 + i, 1.2, 6.5 + i, 9.4] for i in range(8)],
+                    np.float32)
+    cases = [("LeakyReLU " + t, "LeakyReLU", [("data", x)] + (
+        [("gamma", _u((16,), 4, 0, 0.5))] if t == "prelu" else []),
+        dict(act_type=t, slope=0.2), ("data", "gamma"))
+        for t in ("leaky", "prelu", "elu", "selu", "gelu", "rrelu")]
+    cases += [
+        ("LayerNorm", "LayerNorm", [("data", x), ("gamma", _u((14,), 5)),
+                                    ("beta", _u((14,), 6))], {},
+         ("data", "gamma", "beta")),
+        ("GroupNorm", "GroupNorm", [("data", x), ("gamma", _u((16,), 5)),
+                                    ("beta", _u((16,), 6))],
+         dict(num_groups=4), ("data", "gamma", "beta")),
+        ("InstanceNorm", "InstanceNorm", [("data", x),
+                                          ("gamma", _u((16,), 5)),
+                                          ("beta", _u((16,), 6))], {},
+         ("data", "gamma", "beta")),
+        ("LRN", "LRN", [("data", x)], dict(nsize=5), ("data",)),
+        ("Deconvolution target_shape, 2 groups", "Deconvolution",
+         [("data", x), ("weight", _u((16, 4, 4, 4), 7)),
+          ("bias", _u((8,), 8))],
+         dict(kernel=(4, 4), num_filter=8, num_group=2, stride=(2, 2),
+              target_shape=(27, 28), no_bias=False),
+         ("data", "weight", "bias")),
+        ("LinearRegressionOutput", "LinearRegressionOutput",
+         [("data", _u((32, 10), 9)), ("label", _u((32, 10), 10))], {},
+         ("data",)),
+        ("MAERegressionOutput", "MAERegressionOutput",
+         [("data", _u((32, 10), 9)), ("label", _u((32, 10), 10))], {},
+         ("data",)),
+        ("LogisticRegressionOutput", "LogisticRegressionOutput",
+         [("data", _u((32, 10), 9)), ("label", _u((32, 10), 10, 0, 1))], {},
+         ("data",)),
+        ("SVMOutput", "SVMOutput",
+         [("data", _u((32, 10), 9)),
+          ("label", (np.arange(32) % 10).astype(np.float32))], {},
+         ("data",)),
+        ("ROIPooling", "ROIPooling", [("data", x), ("rois", rois)],
+         dict(pooled_size=(3, 3), spatial_scale=0.9), ("data",)),
+        ("SpatialTransformer", "SpatialTransformer",
+         [("data", x), ("loc", np.tile(np.array(
+             [[0.93, 0.04, 0.03, -0.05, 1.07, 0.02]], np.float32), (8, 1)))],
+         dict(target_shape=(12, 10)), ("data", "loc")),
+        ("CTCLoss", "CTCLoss", [("data", ctc), ("label", lab)],
+         dict(blank_label="last"), ("data",)),
+    ]
+    for mode, seed in (("lstm", 11), ("gru", 12)):
+        n = rnn_param_size(mode, 2, 32, 64, True)
+        cases.append(("RNN %s, 2 layers, bidirectional" % mode, "RNN",
+                      [("data", _u((20, 8, 32), seed)),
+                       ("parameters", _u((n,), seed + 1, -0.1, 0.1))],
+                      dict(state_size=64, num_layers=2, mode=mode,
+                           bidirectional=True), ("data", "parameters")))
+    return cases
+
+
+def ops_e_card_vs_cpu(torch, mt, device):
+    """Each op of ``ops_e_cases`` forward and backward (a seeded head
+    gradient on its first output) on the card and on the CPU in fp32
+    (TF32 off; rrelu in inference): the output and the gradient of each
+    differentiated input within TOL_OPS_E relative L2."""
+    worst = (0.0, "")
+    for label, op, inputs, attrs, diff in ops_e_cases():
+        res = {}
+        for where, ctx in (("cpu", mt.cpu()), ("card", mt.gpu(0))):
+            arrs = {k: mt.nd.array(v, ctx=ctx) for k, v in inputs}
+            for k in diff:
+                if k in arrs:
+                    arrs[k].attach_grad()
+            with mt.autograd.record(train_mode=op != "LeakyReLU"):
+                out = getattr(mt.nd, op)(**arrs, **attrs)
+            first = out[0] if isinstance(out, (list, tuple)) else out
+            first.backward(mt.nd.array(_u(first.shape, 99, 0.5, 1.5),
+                                       ctx=ctx))
+            got = {"output": first._data.detach().cpu()}
+            got.update(("gradient of " + k, arrs[k].grad._data.cpu())
+                       for k in diff if k in arrs)
+            res[where] = got
+        for key, want in res["cpu"].items():
+            err = rel_l2(res["card"][key], want)
+            if not bool(torch.isfinite(res["card"][key]).all()) \
+                    or not err <= TOL_OPS_E:
+                raise AssertionError("%s: %s differs between the card and "
+                                     "the CPU (rel L2 %.3g)"
+                                     % (label, key, err))
+            worst = max(worst, (err, "%s %s" % (label, key)))
+    log("ops/nn.py beyond the ResNet subset (%s): %d ops forward and "
+        "backward, card vs CPU fp32 within %g relative L2; worst %.3g (%s)"
+        % (card_line(), len(ops_e_cases()), TOL_OPS_E, worst[0], worst[1]))
+    return worst[0]
+
+
+def gluon_train(torch, mt, device, bench_step_ms, spec=GLUON):
+    """The Gluon loop at bench.py's shape on one seeded batch: ResNet-50
+    v1 (Xavier on gpu(0), cast to bf16, hybridized), each step
+    ``autograd.record`` of SoftmaxCrossEntropyLoss, ``backward`` and
+    ``Trainer.step`` (sgd, fp32 masters). ``spec["steps"]`` steps with a
+    finite loss that must fall; logs the step ms (host clock around a
+    step ending in a sync, mean of steps 2 on), img/s, peak device memory,
+    the host ms of ``trainer.step`` alone and, from a torch.profiler trace
+    of one ``trainer.step``, its kernel launches and device ms, beside
+    ``entry.build_train_step``'s step ms of this call. Returns what the
+    profile needs."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from torch.profiler import ProfilerActivity, profile
+    b, s, classes = spec["batch"], spec["image_size"], spec["classes"]
+    ctx = mt.gpu(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mt.random.seed(0)
+    net = vision.resnet50_v1(classes=classes)
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(spec["opt"]))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = mt.nd.NDArray(torch.rand((b, 3, s, s), generator=gen, device=device)
+                      .to(torch.bfloat16), ctx)
+    y = mt.nd.NDArray(torch.randint(0, classes, (b,), generator=gen,
+                                    device=device).float(), ctx)
+    n_params = sum(1 for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    step_host = []
+
+    def forward_backward():
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        return loss
+
+    def one():
+        loss = forward_backward()
+        t = time.perf_counter()
+        trainer.step(b)
+        step_host.append(time.perf_counter() - t)
+        return loss
+
+    losses, times = [], []
+    for _ in range(spec["steps"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = one()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss._data.detach().float().mean()))
+    step_ms = 1e3 * sum(times[1:]) / len(times[1:])
+    upd_ms = 1e3 * sum(step_host[1:]) / len(step_host[1:])
+    peak = torch.cuda.max_memory_allocated()
+    # one trainer.step alone under the profiler (CUDA activity)
+    forward_backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.step(b)
+        traced_ms = 1e3 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    launches = sum(e.count for e in rows)
+    upd_dev = sum(e.self_device_time_total for e in rows) / 1e3
+    log("gluon resnet50 bf16 train step (%s; batch %d, %d^2, %d classes, "
+        "hybridized, Trainer sgd lr %g momentum %g wd %g, fp32 masters): "
+        "%.3f ms per step (mean of steps 2-%d; step 1 %.1f ms, build %.1f "
+        "s), %.1f img/s, loss %.4f at step 1 -> %.4f at step %d, peak "
+        "device memory %.3f GB" % (
+            card_line(), b, s, classes, spec["opt"]["learning_rate"],
+            spec["opt"]["momentum"], spec["opt"]["wd"], step_ms,
+            spec["steps"], 1e3 * times[0], build_s, b / step_ms * 1e3,
+            losses[0], losses[-1], spec["steps"], peak / 1e9))
+    log("gluon resnet50 trainer.step (%s): host %.3f ms per call (mean of "
+        "steps 2-%d; %.3f traced), %d kernel launches and %.3f device ms "
+        "in one traced call over %d parameters (%.1f launches each); "
+        "entry.build_train_step's step %.3f ms in this call, gluon step / "
+        "build_train_step step %.3f" % (
+            card_line(), upd_ms, spec["steps"], traced_ms, launches,
+            upd_dev, n_params, launches / n_params, bench_step_ms,
+            step_ms / bench_step_ms))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("gluon resnet50 train step: non-finite loss %s"
+                             % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("gluon resnet50 train step: the loss on a "
+                             "fixed batch did not fall: %s" % losses)
+    return {"step": one, "step_ms": step_ms, "img_s": b / step_ms * 1e3,
+            "losses": losses, "peak_bytes": peak,
+            "trainer_step_host_ms": upd_ms, "trainer_step_launches": launches,
+            "trainer_step_device_ms": upd_dev}
+
+
+def gluon_train_phase(torch, mt, device, bench_step_ms):
+    """The Gluon training loop on the card (Trainer, optimizers, losses,
+    the rest of ops/nn.py): the card against the CPU for the ResNet-18
+    thumbnail's loop, dcgan's loop and each op beyond the ResNet subset,
+    then the loop at bench.py's shape and its profile; returns its
+    numbers."""
+    out = {"resnet18": gluon_resnet_card_vs_cpu(torch, mt, device),
+           "dcgan": dcgan_card_vs_cpu(torch, mt, device),
+           "ops": ops_e_card_vs_cpu(torch, mt, device)}
+    run = gluon_train(torch, mt, device, bench_step_ms)
+    profile_steps(torch, "gluon resnet50 bf16 train step, batch %d x %d^2 "
+                  "(%s)" % (GLUON["batch"], GLUON["image_size"], card_line()),
+                  run["step"], steps=3, top=12, kinds=RESNET_KINDS,
+                  by_op=RESNET_OPS)
+    out["train"] = {k: v for k, v in run.items() if k != "step"}
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def main():
+    import torch
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2622,7 +3112,9 @@ def main():
            rtc_run["triton_first_s"]))
     del rtc_run
     torch.cuda.empty_cache()
-    resnet_phase(torch, mxnet_tpu_torch, device)
+    resnet = resnet_phase(torch, mxnet_tpu_torch, device)
+    gluon_train_phase(torch, mxnet_tpu_torch, device,
+                      resnet["train"]["step_ms"])
     log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms; "
         "mesh forward %.3f ms" % (served["step_ms"], generated["step_ms"],
                                   trained["step_ms"], meshed["forward_ms"]))

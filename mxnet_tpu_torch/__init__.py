@@ -34,7 +34,10 @@ from . import (attribute, autograd, engine, kernels, models, name, ndarray,
                ops, parallel, random, registry, rtc, storage)
 from . import initializer, symbol
 from . import executor, cached_op, gluon, utils
+from . import lr_scheduler, optimizer
 from .attribute import AttrScope
+from .name import NameManager, Prefix
+from .symbol import Symbol
 
 nd = ndarray
 sym = symbol
@@ -44,5 +47,54 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "gpu_memory_info", "resolve_device", "nd", "ndarray",
            "autograd", "random", "rtc", "ops", "engine", "storage",
            "kernels", "models", "parallel", "name", "attribute", "AttrScope",
-           "registry", "initializer", "init", "symbol", "sym", "executor",
-           "cached_op", "gluon", "utils"]
+           "NameManager", "Prefix", "registry", "initializer", "init",
+           "symbol", "sym", "Symbol", "executor", "cached_op", "gluon",
+           "utils", "lr_scheduler", "optimizer"]
+
+# names of the JAX package's top level that the port has not ported yet:
+# name -> (JAX module, ROADMAP item)
+_QUEUED = {
+    "kvstore": ("kvstore.py", "A7"),
+    "kvstore_server": ("kvstore_server.py", "A7"),
+    "gradient_compression": ("gradient_compression.py", "A7"),
+    "io": ("io.py", "A8"),
+    "recordio": ("recordio.py", "A8"),
+    "image": ("image.py", "A8"),
+    "metric": ("metric.py", "A9"),
+    "callback": ("callback.py", "A9"),
+    "model": ("model.py", "A9"),
+    "module": ("module/", "A9"),
+    "mod": ("module/", "A9"),
+    "executor_manager": ("executor_manager.py", "A9"),
+    "sparse": ("sparse.py", "A9"),
+    "rnn": ("rnn/", "A9"),
+    "contrib": ("contrib/", "A9"),
+    "operator": ("operator.py", "A9"),
+    "numpy": ("numpy/", "A9"),
+    "np": ("numpy/", "A9"),
+    "numpy_extension": ("numpy_extension/", "A9"),
+    "npx": ("numpy_extension/", "A9"),
+    "profiler": ("profiler.py", "A9"),
+    "monitor": ("monitor.py", "A9"),
+    "Monitor": ("monitor.py", "A9"),
+    "visualization": ("visualization.py", "A9"),
+    "inspector": ("inspector.py", "A9"),
+    "TensorInspector": ("inspector.py", "A9"),
+    "libinfo": ("libinfo.py", "A9"),
+    "runtime": ("runtime.py", "A9"),
+    "library": ("library.py", "A9"),
+    "log": ("log.py", "A9"),
+    "util": ("util.py", "A9"),
+    "torch": ("torch.py", "A9"),
+    "test_utils": ("test_utils.py", "A9"),
+    "observability": ("observability/", "A10"),
+}
+
+
+def __getattr__(name):
+    if name in _QUEUED:
+        module, item = _QUEUED[name]
+        raise MXNetError(
+            "mx.%s is mxnet_tpu/%s, which the PyTorch port has not ported "
+            "yet (ROADMAP item %s)" % (name, module, item))
+    raise AttributeError(name)

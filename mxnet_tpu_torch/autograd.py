@@ -160,7 +160,7 @@ def backward(outputs, head_grads=None, retain_graph=False, train_mode=True):
         at += len(ts)
         if g is None:
             continue
-        g = g.to(v._grad.dtype)
+        g = g.to(v._grad._data.dtype)
         if v._grad_req == "add":
             v._grad._data = v._grad._data + g
         else:

@@ -192,7 +192,7 @@ class Executor:
         if is_train:
             leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
                       for n in self._diff_args
-                      if self.arg_dict[n].dtype.is_floating_point}
+                      if self.arg_dict[n]._data.dtype.is_floating_point}
             arg_arrays = {k: leaves.get(k, v._data.detach())
                           for k, v in self.arg_dict.items()}
             with torch.enable_grad():
@@ -234,7 +234,7 @@ class Executor:
         for name, g in zip(names, grads):
             tgt = self.grad_dict[name]
             g = torch.zeros_like(leaves[name]) if g is None else g
-            g = g.to(tgt.dtype)
+            g = g.to(tgt._data.dtype)
             if self._grad_req.get(name, "write") == "add":
                 tgt._data = tgt._data + g
             else:
@@ -263,7 +263,7 @@ class Executor:
             if k in self.arg_dict:
                 tgt = self.arg_dict[k]
                 tgt._set_data(v._data.to(device=tgt._data.device,
-                                         dtype=tgt.dtype))
+                                         dtype=tgt._data.dtype))
             elif not allow_extra_params:
                 raise MXNetError("unknown parameter %s" % k)
         if aux_params:

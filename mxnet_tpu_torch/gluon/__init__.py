@@ -2,10 +2,10 @@
 ``mxnet_tpu/gluon/``; reference: python/mxnet/gluon/).
 
 ``Parameter``/``ParameterDict``, ``Block``/``HybridBlock``/``SymbolBlock``
-(hybridized through ``cached_op``), the ``nn`` layers and the ResNet
-family of the ``model_zoo`` are here. ``Trainer``, ``loss`` and ``utils``
-wait for ROADMAP item A6, ``data`` for A8, ``rnn`` and ``contrib`` for
-A9: each raises ``MXNetError`` naming its item.
+(hybridized through ``cached_op``), the ``nn`` layers, the ResNet family
+of the ``model_zoo``, ``Trainer``, ``loss`` and ``utils`` are here.
+``data`` waits for ROADMAP item A8, ``rnn`` and ``contrib`` for A9: each
+raises ``MXNetError`` naming its item.
 """
 
 from ..base import MXNetError
@@ -18,16 +18,16 @@ from .block import Block, HybridBlock, SymbolBlock
 from . import nn
 from . import model_zoo
 
+from . import trainer
+from .trainer import Trainer
+
+from . import loss
+from . import utils
+from .utils import split_data, split_and_load, clip_global_norm
+
 # names of the JAX package's gluon that the port has not ported yet:
 # name -> (JAX module, ROADMAP item)
 _QUEUED = {
-    "Trainer": ("gluon/trainer.py", "A6"),
-    "trainer": ("gluon/trainer.py", "A6"),
-    "loss": ("gluon/loss.py", "A6"),
-    "utils": ("gluon/utils.py", "A6"),
-    "split_data": ("gluon/utils.py", "A6"),
-    "split_and_load": ("gluon/utils.py", "A6"),
-    "clip_global_norm": ("gluon/utils.py", "A6"),
     "data": ("gluon/data/", "A8"),
     "rnn": ("gluon/rnn/", "A9"),
     "contrib": ("gluon/contrib/", "A9"),

@@ -466,7 +466,7 @@ class HybridBlock(Block):
         real = [a for a in flat_args if a is not None]
         if not real:
             return
-        dtype = real[0].dtype
+        dtype = real[0]._data.dtype
         if not dtype.is_floating_point:
             return
         for param in self.collect_params().values():

@@ -1,9 +1,8 @@
 """Gluon activation layers (port of ``mxnet_tpu/gluon/nn/activations.py``;
 reference: python/mxnet/gluon/nn/activations.py).
 
-``Activation`` and ``Swish`` run; the layers over the ``LeakyReLU`` op
-(``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``) raise through the
-op registry, naming ROADMAP item A6, until that op is ported.
+``Activation`` and ``Swish``, and the layers over the ``LeakyReLU`` op:
+``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU`` and ``GELU``.
 """
 
 from ..block import HybridBlock

@@ -4,9 +4,9 @@ reference: python/mxnet/gluon/nn/basic_layers.py:34-758).
 BatchNorm's running-statistics update is functional: the op returns the
 batch statistics, and the layer (eagerly) or the graph executor
 (hybridized, ``executor.build_graph_fn``) folds the momentum update.
-``InstanceNorm``, ``LayerNorm`` and ``GroupNorm`` raise through the op
-registry, naming ROADMAP item A6, until their ops are ported; a sparse
-``Embedding`` gradient waits for ``sparse.py`` (A9).
+``InstanceNorm``, ``LayerNorm`` and ``GroupNorm`` run their ops of
+``ops/nn.py``; a sparse ``Embedding`` gradient waits for ``sparse.py``
+(A9).
 """
 
 import torch

@@ -2,10 +2,9 @@
 ``mxnet_tpu/gluon/nn/conv_layers.py``; reference:
 python/mxnet/gluon/nn/conv_layers.py:47-1202).
 
-Convolutions and pooling run the ``Convolution`` and ``Pooling`` ops of
-``ops/nn.py`` in MXNet's NC[DHW] layout; the transposed convolutions
-raise through the op registry, naming ROADMAP item A6, until
-``Deconvolution`` is ported.
+Convolutions, transposed convolutions and pooling run the
+``Convolution``, ``Deconvolution`` and ``Pooling`` ops of ``ops/nn.py``
+in MXNet's NC[DHW] layout.
 """
 
 from ..block import HybridBlock

@@ -229,7 +229,7 @@ class Parameter(object):
         if cast_dtype and dtype_source == "current" and self._dtype is not None:
             data = data.astype(self._dtype)
         else:
-            self._dtype = data.dtype
+            self._dtype = dtype_name(data.dtype)
         if self._shape is not None and self._shape_known():
             if tuple(self.shape) != tuple(data.shape):
                 raise AssertionError(

@@ -11,7 +11,8 @@ device (``random.generator``), on that device, so ``random.seed(n)``
 reproduces an initialization on one device. PyTorch's and JAX's streams
 never agree: an initialization crosses between the packages by
 ``save_parameters``/``load_parameters`` or ``models.convert``.
-``FusedRNN`` waits for the fused RNN op (ROADMAP item A9).
+``FusedRNN`` waits for the recurrent cells of ``rnn/`` (ROADMAP item
+A9).
 """
 
 import json
@@ -343,13 +344,13 @@ class Load(object):
 @register
 class FusedRNN(Initializer):
     """Init for the fused RNN's packed parameter vector: it waits for the
-    fused ``RNN`` op of ``mxnet_tpu/ops/nn.py`` (ROADMAP item A9)."""
+    recurrent cells of ``mxnet_tpu/rnn/`` (ROADMAP item A9)."""
 
     def __init__(self, *args, **kwargs):
         raise MXNetError(
             "initializer.FusedRNN lays out the fused RNN op's packed "
-            "parameters; the fused RNN (mxnet_tpu/ops/nn.py RNN, "
-            "mxnet_tpu/rnn/) waits for ROADMAP item A9")
+            "parameters by the cell geometry of mxnet_tpu/rnn/, which "
+            "waits for ROADMAP item A9")
 
 
 # Registry aliases matching the reference's registered names.

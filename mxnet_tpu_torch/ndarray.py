@@ -19,9 +19,12 @@ views (``reshape``, ``transpose``, slices) share storage:
 
 Dtypes follow the JAX package: ``float16`` requests give ``bfloat16``,
 64-bit requests their 32-bit types, and ``array`` turns float64 data into
-float32 and keeps int64 data. ``asnumpy`` of a bfloat16 array gives
-float32 (numpy has no bfloat16). ``stype`` other than ``"default"``
-(``sparse.py``) and ``nd.random`` (``random_ops``) wait for ROADMAP A9.
+float32 and keeps int64 data. ``dtype`` is a numpy dtype, as there
+(``base.np_dtype``); ``asnumpy`` of a bfloat16 array gives ``ml_dtypes``'
+bfloat16, or float32 where ``ml_dtypes`` is missing. ``stype`` other than
+``"default"`` (``sparse.py``: ``sparse``, ``csr_matrix``,
+``row_sparse_array``) and ``nd.random`` (``random_ops``) wait for ROADMAP
+A9.
 """
 
 import builtins
@@ -38,7 +41,7 @@ import torch
 from . import autograd, engine, ops
 from . import random as _random_mod
 from . import storage as _storage
-from .base import MXNetError, dtype_name, torch_dtype
+from .base import BFLOAT16, MXNetError, dtype_name, np_dtype, torch_dtype
 from .context import Context, context_of, current_context
 from .ops._queued import QUEUED
 
@@ -137,7 +140,7 @@ class NDArray:
 
     @property
     def dtype(self):
-        return self._data.dtype
+        return np_dtype(self._data.dtype)
 
     @property
     def size(self):
@@ -168,9 +171,11 @@ class NDArray:
     # ------------------------------------------------------- conversion --
     def asnumpy(self):
         t = self._data.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.to(torch.float32)
-        return t.cpu().numpy()
+        if t.dtype != torch.bfloat16:
+            return t.cpu().numpy()
+        host = t.to(torch.float32).cpu().numpy()
+        bf16 = np_dtype(torch.bfloat16)
+        return host if bf16 is BFLOAT16 else host.astype(bf16)
 
     def __reduce__(self):
         return (_ndarray_unpickle,
@@ -187,7 +192,7 @@ class NDArray:
 
     def astype(self, dtype, copy=True):
         dt = _to_torch_dtype(dtype)
-        if dt == self.dtype and not copy:
+        if dt == self._data.dtype and not copy:
             return self
         return imperative_invoke("Cast", [self], {"dtype": dtype_name(dt)})
 
@@ -233,7 +238,7 @@ class NDArray:
         """python/mxnet/ndarray/ndarray.py attach_grad."""
         if stype not in (None, "default"):
             raise _sparse_error(stype)
-        self._mark_variable(zeros(self.shape, dtype=self.dtype,
+        self._mark_variable(zeros(self.shape, dtype=self._data.dtype,
                                   ctx=self._ctx), grad_req)
 
     def detach(self):
@@ -498,7 +503,7 @@ class NDArray:
         with _grad_mode():
             if isinstance(key, builtins.slice) and key == builtins.slice(None):
                 value = torch.as_tensor(value, device=self._data.device)
-                new = value.to(self.dtype).expand(self.shape).clone(
+                new = value.to(self._data.dtype).expand(self.shape).clone(
                     memory_format=torch.contiguous_format)
             else:
                 new = self._data.clone()
@@ -551,9 +556,26 @@ def imperative_invoke(op_name, nd_inputs, attrs, out=None, input_names=None,
             outs = op.fn(**call)
     multi = isinstance(outs, (tuple, list))
     results = [NDArray(o, out_ctx) for o in (outs if multi else [outs])]
-    # BatchNorm shows its batch statistics only on request, as the
-    # reference's op does (output_mean_var)
-    if op.name == "BatchNorm" and not attrs.get("output_mean_var", False):
+    if op.mutate_inputs:
+        # in-place state (FMutateInputs): the trailing outputs are the
+        # new values of the mutable inputs, written back into them
+        spec = op.mutate_inputs(attrs) if callable(op.mutate_inputs) \
+            else op.mutate_inputs
+        results, new_states = results[:-len(spec)], results[-len(spec):]
+        multi = len(results) > 1
+        for slot, new in zip(spec, new_states):
+            if not isinstance(slot, int):
+                if not arr_names or slot not in arr_names:
+                    continue
+                slot = arr_names.index(slot)
+            if slot < len(nd_inputs):
+                nd_inputs[slot]._set_data(new._data)
+    # BatchNorm and RNN show their extra outputs only on request, as the
+    # reference's ops do (output_mean_var, state_outputs)
+    if op.name in ("BatchNorm", "_contrib_SyncBatchNorm") and \
+            not attrs.get("output_mean_var", False):
+        results, multi = results[:1], False
+    elif op.name == "RNN" and not attrs.get("state_outputs", False):
         results, multi = results[:1], False
 
     if out is not None:
@@ -668,6 +690,8 @@ for _name in QUEUED:
 # Friendlier python names used by NDArray methods above
 slice_op = _g["slice"]
 abs_op = _g["abs"]
+maximum_nd = _g["broadcast_maximum"]
+minimum_nd = _g["broadcast_minimum"]
 
 _REVERSED_SCALAR_OP = {
     "_plus_scalar": "_plus_scalar", "_mul_scalar": "_mul_scalar",
@@ -917,7 +941,10 @@ def save(fname, data):
         f.write(struct.pack("<Q", len(hb)))
         f.write(hb)
         for a in arrays:
-            f.write(np.ascontiguousarray(a.asnumpy()).tobytes())
+            host = a._data.detach()
+            if host.dtype == torch.bfloat16:
+                host = host.to(torch.float32)
+            f.write(np.ascontiguousarray(host.cpu().numpy()).tobytes())
 
 
 def load(fname, ctx=None):
@@ -1009,6 +1036,23 @@ class _PrefixNamespace:
 contrib = _PrefixNamespace("_contrib_", ("foreach", "while_loop", "cond"))
 linalg = _PrefixNamespace("linalg_")
 image = _PrefixNamespace("_image_")
+
+
+def onehot_encode(indices, out):
+    """One-hot rows of ``indices`` written into ``out`` (its second axis
+    is the depth)."""
+    return one_hot(indices, depth=out.shape[1], out=out)
+
+
+_SPARSE_NAMES = ("sparse", "csr_matrix", "row_sparse_array")
+
+
+def __getattr__(name):
+    if name in _SPARSE_NAMES:
+        raise MXNetError(
+            "nd.%s is mxnet_tpu/sparse.py, which the PyTorch port has not "
+            "ported yet (ROADMAP item A9)" % name)
+    raise AttributeError(name)
 
 
 # ------------------------------------------------- fluent methods -------

@@ -11,9 +11,15 @@ That one function carries what the reference's NNVM attributes did:
                         torch's gradient at a tie or a kink differs from
                         JAX's, the op computes JAX's (``elemwise.py``)
 
-The port registers the ops of ``elemwise.py``, ``reduce_ops.py`` and
-``matrix.py``, and the ResNet subset of ``nn.py``. The JAX registry's other names (``_queued.py``) raise
-``MXNetError`` naming the module and the ROADMAP item that ports them.
+An op with ``mutate_inputs`` (the optimizer updates' state inputs, the
+reference's FMutateInputs) returns its declared outputs followed by the
+new values of those inputs, which the dispatcher writes back into the
+NDArrays passed (``ndarray.imperative_invoke``).
+
+The port registers the ops of ``elemwise.py``, ``reduce_ops.py``,
+``matrix.py``, ``nn.py`` and ``optimizer_ops.py``. The JAX registry's
+other names (``_queued.py``) raise ``MXNetError`` naming the module and
+the ROADMAP item that ports them.
 """
 
 import inspect
@@ -31,12 +37,16 @@ class Op:
     """A registered operator."""
 
     def __init__(self, name, fn, differentiable=True, stateful_rng=False,
-                 num_outputs=1):
+                 num_outputs=1, mutate_inputs=()):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
         self.stateful_rng = stateful_rng
         self.num_outputs = num_outputs
+        # input names or positions, or a callable attrs -> positions (the
+        # fused multi-weight ops, whose state slots follow num_weights)
+        self.mutate_inputs = mutate_inputs if callable(mutate_inputs) \
+            else tuple(mutate_inputs)
         self._sig = None
         self._has_varargs = None
         self._param_names = None
@@ -46,13 +56,14 @@ class Op:
 
 
 def register(name=None, aliases=(), differentiable=True, stateful_rng=False,
-             num_outputs=1):
+             num_outputs=1, mutate_inputs=()):
     """Decorator: register a function on torch tensors as an operator."""
     def deco(fn):
         opname = name or fn.__name__
         _REGISTRY[opname] = Op(opname, fn, differentiable=differentiable,
                                stateful_rng=stateful_rng,
-                               num_outputs=num_outputs)
+                               num_outputs=num_outputs,
+                               mutate_inputs=mutate_inputs)
         for a in aliases:
             _ALIAS[a] = opname
         return fn
@@ -124,3 +135,4 @@ from . import elemwise  # noqa: E402,F401
 from . import reduce_ops  # noqa: E402,F401
 from . import matrix  # noqa: E402,F401
 from . import nn  # noqa: E402,F401
+from . import optimizer_ops  # noqa: E402,F401

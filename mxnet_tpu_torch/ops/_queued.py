@@ -1,7 +1,6 @@
 """Op names of the JAX package's registry that the port does not have
 yet, by the JAX module that defines them and the ROADMAP queue item that
-ports it (A6: the rest of ``ops/nn.py`` beside the ResNet subset the port
-has, and ``ops/optimizer_ops.py``; A9: the rest).
+ports it (A9).
 Calling one raises ``MXNetError`` naming its module and item."""
 
 QUEUED_MODULES = {
@@ -43,11 +42,6 @@ linalg_extractdiag linalg_extracttrian linalg_gelqf linalg_gemm
 linalg_gemm2 linalg_inverse linalg_makediag linalg_maketrian
 linalg_potrf linalg_potri linalg_slogdet linalg_sumlogdiag
 linalg_syevd linalg_syrk linalg_trmm linalg_trsm slogdet"""),
-    "ops/nn.py": ("A6", """
-CTCLoss Deconvolution GroupNorm IdentityAttachKLSparseReg
-InstanceNorm LRN LayerNorm LeakyReLU LinearRegressionOutput
-LogisticRegressionOutput MAERegressionOutput RNN ROIPooling
-SVMOutput SpatialTransformer _contrib_SyncBatchNorm ctc_loss"""),
     "ops/numpy_ops.py": ("A9", """
 _np_broadcast_to _np_copy _np_cumsum _np_dot _np_ones_like
 _np_prod _np_reshape _np_squeeze _np_sum _np_transpose
@@ -56,16 +50,6 @@ _npi_concatenate _npi_cumsum _npi_log _npi_ones _npi_reshape
 _npi_rtrue_divide_scalar _npi_stack _npi_stack_concat_guard
 _npi_sum _npi_tensordot _npi_tensordot_int_axes _npi_true_divide
 _npi_true_divide_scalar _npi_uniform _npi_zeros"""),
-    "ops/optimizer_ops.py": ("A6", """
-_adamw_update _contrib_adamw_update
-_contrib_group_adagrad_update _contrib_mp_adamw_update
-_mp_adamw_update _sparse_adagrad_update adam_update adamw_update
-ftml_update ftrl_update mp_nag_mom_update mp_sgd_mom_update
-mp_sgd_update multi_mp_sgd_mom_update multi_mp_sgd_update
-multi_sgd_mom_update multi_sgd_update nag_mom_update
-preloaded_multi_sgd_mom_update preloaded_multi_sgd_update
-rmsprop_update rmspropalex_update sgd_mom_update sgd_update
-signsgd_update signum_update"""),
     "ops/quantization_ops.py": ("A9", """
 _contrib_calibrate_entropy _contrib_dequantize _contrib_quantize
 _contrib_quantize_v2 _contrib_quantized_act

@@ -109,7 +109,12 @@ for _n, _f in [
 
         @register(name=n, aliases=aliases)
         def _op(data, axis=None, keepdims=False, exclude=False):
-            return f(data, _norm_axes(axis, data.dim(), exclude), keepdims)
+            axes = _norm_axes(axis, data.dim(), exclude)
+            if not axes and data.dim():
+                # no axis left (``exclude`` of every axis) reduces nothing,
+                # as in JAX; torch reads dim=() as every axis
+                return f(data.unsqueeze(-1), (data.dim(),), False)
+            return f(data, axes, keepdims)
     _mk()
 
 

@@ -383,17 +383,17 @@ class CudaKernel:
                     raise MXNetError("argument %d of %s is %s *, so it must "
                                      "be an NDArray, not %s"
                                      % (i, self._name, ctype, type(arg)))
-                if (ctype, arg.dtype) in _NARROWED:
+                if (ctype, arg._data.dtype) in _NARROWED:
                     raise MXNetError(
                         "argument %d of %s is %s *, but the NDArray is %s: "
                         "%s, as in the JAX package, so declare the parameter "
-                        "%s" % ((i, self._name, ctype, arg.dtype)
-                                + _NARROWED[ctype, arg.dtype]))
-                if arg.dtype != dtype:
+                        "%s" % ((i, self._name, ctype, arg._data.dtype)
+                                + _NARROWED[ctype, arg._data.dtype]))
+                if arg._data.dtype != dtype:
                     raise MXNetError("argument %d of %s is %s *: the NDArray "
                                      "must be %s, not %s" % (
                                          i, self._name, ctype, dtype,
-                                         arg.dtype))
+                                         arg._data.dtype))
                 if arg.context != ctx:
                     raise MXNetError("argument %d of %s lies on %s, not on "
                                      "%s" % (i, self._name, arg.context, ctx))

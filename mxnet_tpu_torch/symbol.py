@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from . import ops
-from .base import MXNetError, dtype_name, torch_dtype
+from .base import MXNetError, dtype_name, np_dtype, torch_dtype
 from .ops._queued import QUEUED
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json", "zeros",
@@ -109,6 +109,14 @@ def _fc_w(data_shape, attrs):
     return (nh, in_units)
 
 
+def _rnn_params(data_shape, attrs):
+    from .ops.nn import rnn_param_size
+    return (rnn_param_size(attrs.get("mode", "lstm"),
+                           attrs.get("num_layers", 1), data_shape[2],
+                           attrs.get("state_size", 1),
+                           attrs.get("bidirectional", False)),)
+
+
 PARAM_SHAPE_RULES = {
     "Convolution": {"weight": _conv_w,
                     "bias": lambda ds, at: (at.get("num_filter", 1),)},
@@ -125,6 +133,7 @@ PARAM_SHAPE_RULES = {
                   "beta": lambda ds, at: (ds[at.get("axis", -1) % len(ds)],)},
     "GroupNorm": {"gamma": _NORM_PARAM, "beta": _NORM_PARAM},
     "InstanceNorm": {"gamma": _NORM_PARAM, "beta": _NORM_PARAM},
+    "RNN": {"parameters": _rnn_params},
     "LeakyReLU": {"gamma": lambda ds, at: (ds[1] if len(ds) > 1 else 1,)},
     "Embedding": {"weight": lambda ds, at: (at.get("input_dim", 1),
                                             at.get("output_dim", 1))},
@@ -373,9 +382,11 @@ class Symbol:
         known.update({k: torch_dtype(v) for k, v in kwargs.items()})
         shapes, dtypes = _infer_graph(self._active_nodes(), {}, known,
                                       partial=True)
-        args_t = [dtypes.get(n) for n in self.list_arguments()]
-        aux_t = [dtypes.get(n) for n in self.list_auxiliary_states()]
-        out_t = [dtypes.get(_out_key(self._nodes, ni, oi))
+        np_of = lambda dt: None if dt is None else np_dtype(dt)
+        args_t = [np_of(dtypes.get(n)) for n in self.list_arguments()]
+        aux_t = [np_of(dtypes.get(n))
+                 for n in self.list_auxiliary_states()]
+        out_t = [np_of(dtypes.get(_out_key(self._nodes, ni, oi)))
                  for ni, oi in self._outputs]
         return args_t, out_t, aux_t
 
@@ -491,6 +502,13 @@ _VARIADIC_ARITY = {
     "_split_v2": lambda a: (int(a["sections"]) if int(a.get("sections", 0)) > 0
                             else len(tuple(a.get("indices", ())))),
     "amp_multicast": lambda a: int(a.get("num_outputs", 1)),
+    "RNN": lambda a: 3 if a.get("mode", "lstm") == "lstm" else 2,
+    "multi_sgd_update": lambda a: int(a.get("num_weights", 1)),
+    "multi_sgd_mom_update": lambda a: int(a.get("num_weights", 1)),
+    "preloaded_multi_sgd_update": lambda a: int(a.get("num_weights", 1)),
+    "preloaded_multi_sgd_mom_update": lambda a: int(a.get("num_weights", 1)),
+    "multi_mp_sgd_update": lambda a: int(a.get("num_weights", 1)),
+    "multi_mp_sgd_mom_update": lambda a: int(a.get("num_weights", 1)),
 }
 
 

@@ -55,8 +55,10 @@ def test_import_loads_no_jax(tmp_path):
     step of its training path on the CPU (rope, MoE, remat through the
     flash autograd function), and importing Gluon, Symbol, the model zoo
     and ``entry`` and taking one hybridized SGD step of ResNet-18
-    (thumbnail) on the CPU, leaves jax and mxnet_tpu out of sys.modules,
-    and needs no nvcc."""
+    (thumbnail) on the CPU, then one ``Trainer`` step with a Gluon loss,
+    an LR scheduler and ``gluon.utils``, and the ``LeakyReLU``,
+    ``Deconvolution``, ``CTCLoss`` and ``RNN`` ops, leaves jax and
+    mxnet_tpu out of sys.modules, and needs no nvcc."""
     code = ("import sys, mxnet_tpu_torch\n"
             "from mxnet_tpu_torch.models import serving, convert\n"
             "from mxnet_tpu_torch.models import transformer as tf\n"
@@ -78,6 +80,22 @@ def test_import_loads_no_jax(tmp_path):
             "        if q.grad_req != 'null':\n"
             "            q.set_data(q.data() - 0.1 * q.grad())\n"
             "    assert sym.load_json(net._cached_graph[1].tojson())\n"
+            "    sched = mxnet_tpu_torch.lr_scheduler.FactorScheduler(2)\n"
+            "    trainer = gluon.Trainer(net.collect_params(), 'sgd', "
+            "{'momentum': 0.9, 'lr_scheduler': sched})\n"
+            "    with autograd.record():\n"
+            "        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)\n"
+            "    loss.backward()\n"
+            "    gluon.utils.clip_global_norm(\n"
+            "        [q.grad() for q in net.collect_params().values()\n"
+            "         if q.grad_req != 'null'], 1.0)\n"
+            "    trainer.step(2)\n"
+            "    z = nd.LeakyReLU(nd.ones((1, 2, 3, 3)), act_type='elu')\n"
+            "    z = nd.Deconvolution(z, nd.ones((2, 1, 2, 2)), "
+            "kernel=(2, 2), num_filter=1)\n"
+            "    nd.CTCLoss(nd.ones((4, 1, 3)), nd.array([[1, 2]]))\n"
+            "    nd.RNN(nd.ones((3, 1, 2)), nd.ones((36,)), state_size=2, "
+            "mode='gru')\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "%r)\n"
             "print('BAD', bad)\n" % (FORBIDDEN,))

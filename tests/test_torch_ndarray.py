@@ -4,6 +4,8 @@ dtypes, contexts (the default ``gpu(0)`` raises without CUDA), fluent
 methods, indexing, value semantics under writes and views, the save
 format in both directions (bitwise, bfloat16 included) and DLPack."""
 
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -39,7 +41,7 @@ def cpu():
         yield ctx
 
 
-@pytest.mark.parametrize("source, dtype", [
+DTYPE_CASES = [
     ([[1.5, 2.0], [3.0, 4.0]], None),
     ([[1, 2], [3, 4]], None),
     (np.arange(6, dtype=np.float64).reshape(2, 3), None),
@@ -50,9 +52,65 @@ def cpu():
     (X, "bfloat16"),
     (X, "int32"),
     (X, np.float64),
-])
+]
+
+
+@pytest.mark.parametrize("source, dtype", DTYPE_CASES)
 def test_array_dtypes_follow_jax(cpu, source, dtype):
     _same(jnd.array(source, dtype=dtype), tnd.array(source, dtype=dtype))
+
+
+@pytest.mark.parametrize("source, dtype", DTYPE_CASES)
+def test_dtype_is_numpys_as_in_jax(cpu, source, dtype):
+    """``dtype`` is a numpy dtype, as the reference's: it equals numpy's
+    type and JAX's, ``np.dtype`` takes it, and ``asnumpy`` gives that
+    type (bfloat16 through ``ml_dtypes``)."""
+    j, t = jnd.array(source, dtype=dtype), tnd.array(source, dtype=dtype)
+    want = np.dtype(j.dtype)
+    assert t.dtype == want and t.dtype == j.dtype
+    assert np.dtype(t.dtype) == want and t.dtype.name == want.name
+    assert t.dtype == getattr(np, want.name, want)
+    assert t.asnumpy().dtype == j.asnumpy().dtype
+    assert t.astype(t.dtype).dtype == j.astype(j.dtype).dtype
+    assert tnd.zeros((2,), dtype=t.dtype).dtype == \
+        jnd.zeros((2,), dtype=j.dtype).dtype
+
+
+def test_bfloat16_without_ml_dtypes(cpu, monkeypatch):
+    """Where ``ml_dtypes`` is missing a bf16 array's dtype is an object
+    that compares equal to "bfloat16" and to itself, and ``asnumpy``
+    gives float32; the arithmetic is unchanged."""
+    import sys
+    from mxnet_tpu_torch import base
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    monkeypatch.setattr(base, "_NP_DTYPES", {})
+    x = tnd.array(X, dtype="bfloat16")
+    assert x.dtype is base.BFLOAT16
+    assert x.dtype == "bfloat16" and x.dtype == base.BFLOAT16
+    assert x.dtype != np.float32 and x.dtype != "float32"
+    assert str(x.dtype) == "bfloat16" and dtype_name(x.dtype) == "bfloat16"
+    assert hash(x.dtype) == hash("bfloat16")
+    host = x.asnumpy()
+    assert host.dtype == np.float32
+    want = jnd.array(X, dtype="bfloat16").asnumpy().astype(np.float32)
+    np.testing.assert_array_equal(host, want)
+    y = (x * 2).astype(x.dtype)
+    assert y.dtype == "bfloat16"
+    np.testing.assert_array_equal(y.asnumpy(), want * 2)
+    back = pickle.loads(pickle.dumps(x))
+    assert back.dtype == "bfloat16"
+    assert tnd.zeros((2,), dtype=x.dtype)._data.dtype == torch.bfloat16
+
+
+def test_infer_type_gives_numpy_dtypes_as_jax_does():
+    def infer(pkg):
+        net = pkg.sym.FullyConnected(pkg.sym.var("data"), num_hidden=3,
+                                     name="fc")
+        return net.infer_type(data="float32")
+    port, ref = infer(mt), infer(mx)
+    assert port == ref
+    known = [d for part in port for d in part if d is not None]
+    assert known and all(isinstance(d, np.dtype) for d in known)
 
 
 @pytest.mark.parametrize("make", [
@@ -258,8 +316,8 @@ def test_what_waits_for_later_items_raises_naming_them(cpu):
         tnd.array(X).tostype("csr")
     with pytest.raises(mt.MXNetError, match="A9"):
         tnd.random.uniform(0, 1, shape=(2,))
-    with pytest.raises(mt.MXNetError, match="A6"):
-        tnd.LeakyReLU(tnd.array(X))
+    with pytest.raises(mt.MXNetError, match="A9"):
+        tnd.MultiBoxPrior(tnd.array(X))
     with pytest.raises(mt.MXNetError, match="A9"):
         tnd.contrib.foreach
     with pytest.raises(mt.MXNetError, match="A9"):
@@ -280,7 +338,6 @@ def test_shuffle_is_a_seeded_permutation(cpu):
 
 
 def test_storage_tracking_engine_and_pickle(cpu):
-    import pickle
     mt.storage.reset_stats()
     mt.storage.start_tracking()
     try:

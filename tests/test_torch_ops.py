@@ -33,11 +33,11 @@ from mxnet_tpu_torch import ops as tops
 from mxnet_tpu_torch.base import dtype_name
 
 MODULES = ("elemwise", "reduce_ops", "matrix")
-# the ResNet subset of ops/nn.py the port has (with their aliases)
-NN_PORTED = {"Convolution", "Pooling", "FullyConnected", "BatchNorm",
-             "Activation", "softmax", "log_softmax", "softmin",
-             "SoftmaxActivation", "SoftmaxOutput", "softmax_cross_entropy",
-             "Dropout"}
+# ops/nn.py and ops/optimizer_ops.py, both ported whole; their cases are
+# in test_torch_nn_ops.py, test_torch_nn_ops_rest.py and
+# test_torch_optimizer_ops.py
+NN_PORTED = {n for n, op in jops._REGISTRY.items()
+             if op.fn.__module__.split(".")[-1] in ("nn", "optimizer_ops")}
 TOL = (1e-6, 1e-6)                  # (rtol, atol) at fp32
 
 
@@ -289,10 +289,10 @@ def test_gate_every_op_of_the_three_modules_is_ported_and_cased():
 
 
 def test_gate_other_jax_ops_raise_naming_their_queue_item():
-    """Every JAX op outside MODULES and the ported ResNet subset of
-    ``ops/nn.py`` (``test_torch_nn_ops.py``) is queued, and its ``nd``
-    function, its registry entry and a Gluon layer over it raise naming
-    the queue item."""
+    """Every JAX op outside MODULES, ``ops/nn.py`` and
+    ``ops/optimizer_ops.py`` is queued, and its ``nd`` function, its
+    registry entry and a Gluon layer over it raise naming the queue
+    item."""
     names = {n for n, op in jops._REGISTRY.items()
              if op.fn.__module__.split(".")[-1] not in MODULES
              and n not in NN_PORTED and n != "_index"}
@@ -301,16 +301,17 @@ def test_gate_other_jax_ops_raise_naming_their_queue_item():
     assert all(tops.exists(n) for n in NN_PORTED)
     assert {n for n in jops._ALIAS if jops._ALIAS[n] in NN_PORTED} <= \
         set(tops._ALIAS)
-    for name, item in (("LayerNorm", "A6"), ("sgd_mom_update", "A6"),
+    for name, item in (("MultiBoxPrior", "A9"), ("_contrib_quantize", "A9"),
                        ("linalg_gemm2", "A9"), ("_random_uniform", "A9")):
         with pytest.raises(mt.MXNetError, match=item):
             getattr(tnd, name)(tnd.zeros((2,), ctx=mt.cpu()))
         with pytest.raises(mt.MXNetError, match=item):
             tops.get(name)
     with mt.cpu():
-        layer = mt.gluon.nn.GroupNorm(in_channels=2)
+        layer = mt.gluon.nn.HybridLambda(
+            lambda F, x: F.linalg_gemm2(x, x))
         layer.initialize()
-        with pytest.raises(mt.MXNetError, match="A6"):
+        with pytest.raises(mt.MXNetError, match="A9"):
             layer(tnd.zeros((1, 2, 3, 3)))
 
 
@@ -466,3 +467,20 @@ def test_integer_and_bf16_inputs_take_jax_dtypes(name, inputs, attrs):
                                    rtol=2.0 ** -7, atol=0)
         return
     _compare(name, jout, tout, TOL)
+
+
+@pytest.mark.parametrize("name", ["sum", "mean", "prod", "max", "min",
+                                  "nansum", "nanprod"])
+def test_reduce_excluding_every_axis_reduces_nothing(name):
+    """``exclude=True`` over every axis leaves no axis to reduce: the
+    value comes back as it is (the batch-wise mean of a 1-d loss), as in
+    JAX; torch reads an empty dim list as every axis."""
+    x = U((4,), 3)
+    for keepdims in (False, True):
+        want = getattr(jnd, name)(jnd.array(x), axis=0, exclude=True,
+                                  keepdims=keepdims)
+        with mt.cpu():
+            got = getattr(tnd, name)(tnd.array(x), axis=0, exclude=True,
+                                     keepdims=keepdims)
+        assert got.shape == want.shape == (4,)
+        np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())

@@ -1,0 +1,78 @@
+"""The public names of the JAX package's top level and of its
+``ndarray``, in the port: each exists there, or raises ``MXNetError``
+naming the ROADMAP item that ports it. The JAX-only internals (``jax``,
+``jnp``, ``ensure_backend``, ``num_tpus``, ``tpu``) are the listed
+exceptions. The names of ported modules are checked against JAX:
+``nd.onehot_encode``, ``nd.maximum_nd``/``minimum_nd`` and the top-level
+``Symbol``, ``NameManager``, ``Prefix``, ``optimizer`` and
+``lr_scheduler``. Tolerance: exact (the same integer and float values)."""
+
+import re
+
+import numpy as np
+import pytest
+
+import mxnet_tpu as jmx
+
+import mxnet_tpu_torch as mt
+
+JAX_ONLY = {"jax", "jnp", "ensure_backend", "num_tpus", "tpu"}
+
+
+def _public(module):
+    return sorted(n for n in dir(module)
+                  if not n.startswith("_") and n not in JAX_ONLY)
+
+
+def _exists_or_names_its_item(module, name):
+    try:
+        getattr(module, name)
+    except mt.MXNetError as exc:
+        assert re.search(r"ROADMAP item A\d+", str(exc)), (name, str(exc))
+
+
+@pytest.mark.parametrize("name", _public(jmx))
+def test_top_level_name(name):
+    _exists_or_names_its_item(mt, name)
+
+
+@pytest.mark.parametrize("name", _public(jmx.ndarray))
+def test_ndarray_name(name):
+    _exists_or_names_its_item(mt.ndarray, name)
+
+
+def test_ported_names_exist_and_unported_ones_refuse():
+    assert mt.Symbol is mt.symbol.Symbol
+    assert mt.NameManager is mt.name.NameManager
+    assert mt.Prefix is mt.name.Prefix
+    assert mt.optimizer.SGD and mt.lr_scheduler.FactorScheduler
+    for name, item in (("metric", "A9"), ("kvstore", "A7"), ("io", "A8"),
+                       ("observability", "A10")):
+        with pytest.raises(mt.MXNetError, match=item):
+            getattr(mt, name)
+    for name in ("sparse", "csr_matrix", "row_sparse_array"):
+        with pytest.raises(mt.MXNetError, match="A9"):
+            getattr(mt.nd, name)
+    with pytest.raises(AttributeError):
+        mt.no_such_name
+    with pytest.raises(AttributeError):
+        mt.nd.no_such_name
+
+
+def test_onehot_encode_and_broadcast_max_min_match_jax():
+    idx = np.array([1, 0, 3, 2], np.float32)
+    a = np.random.RandomState(0).uniform(-1, 1, (3, 1)).astype(np.float32)
+    b = np.random.RandomState(1).uniform(-1, 1, (1, 4)).astype(np.float32)
+    with mt.cpu():
+        got = {}
+        for key, mx in (("jax", jmx), ("port", mt)):
+            out = mx.nd.zeros((4, 5))
+            res = mx.nd.onehot_encode(mx.nd.array(idx), out)
+            assert res is out
+            got[key] = (out.asnumpy(),
+                        mx.nd.maximum_nd(mx.nd.array(a), mx.nd.array(b))
+                        .asnumpy(),
+                        mx.nd.minimum_nd(mx.nd.array(a), mx.nd.array(b))
+                        .asnumpy())
+    for t, j in zip(got["port"], got["jax"]):
+        np.testing.assert_array_equal(t, j)

@@ -207,7 +207,7 @@ def test_cuda_kernel_argument_checks_and_a_written_argument_owns_its_buffer():
 
     # half pointers: float16 requests make bfloat16 here
     bf = tnd.array(np.ones(4, dtype=np.float16), dtype="float16")
-    assert bf.dtype == torch.bfloat16
+    assert bf.dtype == "bfloat16" and bf._data.dtype == torch.bfloat16
     with pytest.raises(mt.MXNetError, match="__nv_bfloat16"):
         rtc.CudaKernel(None, "h", rtc.parse_signature(
             "const __half *x"))._marshal([bf], ctx)

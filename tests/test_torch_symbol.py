@@ -181,8 +181,8 @@ def test_executor_backward_takes_head_gradients_and_repeats():
 
 
 def test_refusals_name_their_item():
-    with pytest.raises(mt.MXNetError, match="A6"):
-        tsym.LayerNorm(tsym.var("x"))
+    with pytest.raises(mt.MXNetError, match="A9"):
+        tsym.MultiBoxPrior(tsym.var("x"))
     with pytest.raises(mt.MXNetError, match="A9"):
         tsym.random.uniform(shape=(2,))
     with pytest.raises(mt.MXNetError, match="HybridBlock"):
