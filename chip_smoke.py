@@ -71,7 +71,24 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    width, bfloat16, random weights): ``generate()`` through the flash
    forward and flash decode, and 8 requests through the batcher and the
    paged kernel at head dim 128, each with the launch and teacher-forced
-   checks;
+   checks; then (``serve_dispatch_phase``) serves the job mix of
+   ``benchmark/serving_bench.py``'s pipelining A/B (16 requests of
+   256-511 prompt tokens and 128 new ones, 8 lanes, SERVE_CFG's model)
+   through dense lanes (the flash-decode kernel) and the paged pool (the
+   paged kernel) at (chunk, depth) (1, 1), (16, 1) and (16, 2), greedy
+   and sampled (temperature 0.8, top-k 50, top-p 0.95, a seed per
+   request): each dispatch must launch the layout's kernel n_layers x
+   chunk times and nothing else, the streams must be bitwise equal across
+   the settings, greedy tokens must pass the teacher-forced check and
+   sampled ones lie in their row's kept set on the teacher-forced logits
+   (``TOL_TEACHER`` slack at the threshold), the sampling noise's integer
+   bits must equal the CPU's, a cached 256-token prefix must give the
+   uncached streams (up to a token whose teacher-forced gap is within
+   ``TOL_TEACHER``) and, paged, hold fewer blocks; every pipelined
+   dispatch, lane patch and free runs under
+   ``torch.cuda.set_sync_debug_mode("error")``; it prints tokens/s at
+   each setting (greedy three times, in turns) and each setting's step
+   profile;
 6. takes one training step of the LM of ``benchmark/train_lm_bench.py``
    at full width (vocab 32000, d_model 1024, 8 heads of 128, 12 layers,
    d_ff 4096, 1024 positions, batch 8, rope, random weights from a seed)
@@ -1122,7 +1139,7 @@ def serve_jobs(cfg, n_new, spec=SERVE):
 
 def batcher(sv, params, cfg, device, spec=SERVE):
     return sv.ContinuousBatcher(params, cfg, max_batch=spec["max_batch"],
-                                block_size=spec["block_size"],
+                                paged=True, block_size=spec["block_size"],
                                 num_blocks=spec["num_blocks"], device=device)
 
 
@@ -1253,6 +1270,286 @@ def serve_rope(torch, tf, sv, kernels, device):
                  "generate rope")
     serve(torch, tf, sv, kernels, params, cfg, device, "paged_decode",
           "serve rope", ROPE_SERVE)
+
+
+# ---------------------------------------------------- serve dispatch ---
+# The width of benchmark/serving_bench.py's pipelining A/B (SERVE_CFG's
+# model): 16 jobs from RandomState(1), prompts of 256-511 tokens, 128 new
+# tokens each, 8 lanes, at each (chunk, depth) of DISPATCH_SETTINGS.
+DISPATCH = dict(max_batch=8, block_size=16, requests=16, prompt_lo=256,
+                prompt_hi=511, n_new=128)
+DISPATCH_SETTINGS = ((1, 1), (16, 1), (16, 2))
+DISPATCH_SAMPLE = dict(temperature=0.8, top_k=50, top_p=0.95)
+# the prefix run: a 256-token prefix cached, 8 requests extending it by
+# 1-64 tokens, 32 new tokens each, at (16, 2)
+DISPATCH_PREFIX = dict(prefix=256, requests=8, suffix_hi=64, n_new=32)
+# each setting's step traced for its idle share: tokens per request, and
+# steps of chunk 16 traced (as many decode steps at every chunk size)
+DISPATCH_PROFILE_NEW = 600
+DISPATCH_PROFILE_STEPS = 4
+
+
+def dispatch_jobs(cfg, spec=DISPATCH):
+    """(prompt, n_new, seed) jobs of the dispatch phase."""
+    rng = np.random.RandomState(1)
+    return [(list(rng.randint(1, cfg.vocab_size,
+                              rng.randint(spec["prompt_lo"],
+                                          spec["prompt_hi"] + 1))),
+             spec["n_new"], 1000 + i) for i in range(spec["requests"])]
+
+
+def dispatch_batcher(sv, params, cfg, device, paged, chunk, depth,
+                     controls=None):
+    """A batcher of the dispatch phase; with depth > 1 each dispatch, lane
+    patch and free runs under torch.cuda.set_sync_debug_mode("error"), so
+    a host read there (a hidden .item(), .cpu() or pageable copy) fails
+    the run."""
+    import torch
+    kw = dict(paged=True, block_size=DISPATCH["block_size"]) if paged \
+        else {}
+    srv = sv.ContinuousBatcher(params, cfg, max_batch=DISPATCH["max_batch"],
+                               chunk_size=chunk, pipeline_depth=depth,
+                               device=device, **dict(kw, **(controls or {})))
+    if depth > 1:
+        def no_sync(fn):
+            def run(*args):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            return run
+
+        for name in ("_dispatch_chunk", "_patch_lane", "_free"):
+            setattr(srv, name, no_sync(getattr(srv, name)))
+    return srv
+
+
+def dispatch_run(torch, sv, kernels, params, cfg, device, paged, chunk, depth,
+                 jobs, controls=None):
+    """Serve ``jobs`` at one (chunk, depth): each decode step must launch
+    the layout's decode kernel once per layer (n_layers x chunk per
+    dispatch) and nothing else, every stream must have its length, and
+    the lanes and blocks must balance. Returns the streams in admission
+    order, tokens/s (host clock, admissions included) and the counts."""
+    kernel = "paged_decode" if paged else "flash_decode"
+    srv = dispatch_batcher(sv, params, cfg, device, paged, chunk, depth,
+                           controls)
+    kernels.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, order = srv.run(jobs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    what = "%s (%d, %d)%s" % ("paged" if paged else "dense", chunk, depth,
+                              " sampled" if controls else "")
+    check_only(kernels, {kernel: cfg.n_layers * chunk * srv.dispatch_count},
+               what)
+    srv.check_invariants(quiesce=True)
+    streams = [results[r] for r in order]
+    for toks, (prompt, n_new, _) in zip(streams, jobs):
+        if len(toks) != len(prompt) + n_new or toks[:len(prompt)] != prompt:
+            raise AssertionError("%s: a malformed stream" % what)
+    new = sum(n for _, n, _ in jobs)
+    log("dispatch %s: %d dispatches, %s launches %d, %.3f s, %.1f tokens/s"
+        % (what, srv.dispatch_count, kernel, kernels.launches[kernel],
+           seconds, new / seconds))
+    return {"streams": streams, "tok_s": new / seconds,
+            "dispatches": srv.dispatch_count,
+            "launches": kernels.launches[kernel]}
+
+
+def teacher_rows(torch, tf, params, cfg, toks, t_p):
+    """The fp32 logits that chose each generated token of ``toks``,
+    teacher-forced through prefill_chunk, and those tokens."""
+    x = torch.tensor([toks[:-1]], dtype=torch.long, device=params.device)
+    logits, _ = tf.prefill_chunk(params, tf.init_cache(cfg, 1, params.device),
+                                 x, 0, cfg, attend_limit=len(toks) - 1)
+    return logits[0, t_p - 1:].float(), torch.tensor(toks[t_p:],
+                                                     device=params.device)
+
+
+def kept_set_gap(torch, tf, params, cfg, streams, t_prompt, temperature,
+                 top_k, top_p):
+    """Largest distance, in raw logits, by which a sampled token falls
+    under its row's kept set (the sampler's top-k and top-p threshold)
+    on the teacher-forced logits; 0 when every token is kept."""
+    worst = 0.0
+    for toks, t_p in zip(streams, t_prompt):
+        rows, emitted = teacher_rows(torch, tf, params, cfg, toks, t_p)
+        s = rows / temperature
+        kth = torch.topk(s, top_k, dim=-1).values[:, -1:]
+        s = torch.where(s < kth, float("-inf"), s)
+        srt = torch.sort(s, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(srt, dim=-1), dim=-1)
+        keep = torch.cat([torch.ones_like(cum[:, :1], dtype=torch.bool),
+                          cum[:, :-1] < top_p], dim=-1)
+        thresh = torch.where(keep, srt, float("inf")).amin(dim=-1)
+        tok = (rows / temperature).gather(1, emitted[:, None])[:, 0]
+        worst = max(worst, float((thresh - tok).clamp(min=0).max())
+                    * temperature)
+    return worst
+
+
+def first_split(torch, tf, params, cfg, got, want, t_p):
+    """Where stream ``got`` first leaves ``want`` (None if nowhere), and
+    want's teacher-forced top-1/top-2 gap at that token."""
+    n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if n is None:
+        return None, None
+    rows, _ = teacher_rows(torch, tf, params, cfg, want[:n + 1], t_p)
+    top = torch.topk(rows[-1], 2).values
+    return n, float(top[0] - top[1])
+
+
+def dispatch_prefix(torch, tf, sv, kernels, params, cfg, device, paged):
+    """The prefix run at (16, 2): 8 requests extending one 256-token
+    prefix, with the prefix cached and without. Cached streams must pass
+    the teacher-forced check and equal the uncached ones up to a token
+    whose teacher-forced gap is within TOL_TEACHER; paged, the blocks in
+    use with every request admitted must be fewer when shared."""
+    spec = DISPATCH_PREFIX
+    rng = np.random.RandomState(3)
+    prefix = list(rng.randint(1, cfg.vocab_size, spec["prefix"]))
+    jobs = [(prefix + list(rng.randint(1, cfg.vocab_size,
+                                       rng.randint(1, spec["suffix_hi"] + 1))),
+             spec["n_new"]) for _ in range(spec["requests"])]
+    out = {}
+    for cached in (False, True):
+        srv = dispatch_batcher(sv, params, cfg, device, paged, 16, 2)
+        if cached:
+            srv.cache_prefix(prefix)
+        kernels.launches.clear()
+        rids = [srv.admit(p, n) for p, n in jobs]
+        if any(r is None for r in rids):
+            raise AssertionError("a prefix request was refused admission")
+        used = srv.num_blocks - 1 - srv.free_blocks if paged else None
+        done = {}
+        while srv.active_count:
+            done.update(srv.step())
+        kernel = "paged_decode" if paged else "flash_decode"
+        check_only(kernels, {kernel: cfg.n_layers * 16 * srv.dispatch_count},
+                   "prefix run")
+        srv.check_invariants(quiesce=True)
+        out[cached] = ([done[r] for r in rids], used)
+    (plain, used_plain), (shared, used_shared) = out[False], out[True]
+    gap = teacher_gap(torch, tf, params, cfg, shared,
+                      [len(p) for p, _ in jobs])
+    splits = [first_split(torch, tf, params, cfg, a, b, len(p))
+              for a, b, (p, _) in zip(shared, plain, jobs)]
+    late = [g for _, g in splits if g is not None and g > TOL_TEACHER]
+    log("dispatch prefix %s: %d of %d streams equal the uncached run's "
+        "(first splits at teacher gaps %s), teacher-forced max gap %.4f, "
+        "blocks in use %s shared vs %s not"
+        % ("paged" if paged else "dense",
+           sum(n is None for n, _ in splits), len(jobs),
+           [round(g, 4) for _, g in splits if g is not None], gap,
+           used_shared, used_plain))
+    if not gap <= TOL_TEACHER or late:
+        raise AssertionError("prefix-cached streams disagree")
+    if paged and not used_shared < used_plain:
+        raise AssertionError("prefix sharing saved no blocks")
+    return {"used": (used_shared, used_plain)}
+
+
+def serve_dispatch_phase(torch, tf, sv, kernels, params, cfg, device):
+    """Dense lanes (B4) and paged lanes (B3) at each (chunk, depth) of
+    DISPATCH_SETTINGS, greedy and sampled: streams bitwise equal across
+    the settings, the teacher-forced (greedy) and kept-set (sampled)
+    checks, the noise's integer bits equal the CPU's, the prefix run, and
+    the pipelined step's idle share. Returns the (16, 2) greedy runs."""
+    t_phase = time.perf_counter()
+    # the sync detector is armed: a host read under it raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.zeros(1, device=device).item()
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("set_sync_debug_mode('error') let .item() "
+                             "through")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    grid = torch.arange(64, device=device)
+    bits = tf._gumbel_bits(grid * 7919 - 5, grid % 9, grid % 3,
+                           cfg.vocab_size, device).cpu()
+    want = tf._gumbel_bits(grid.cpu() * 7919 - 5, grid.cpu() % 9,
+                           grid.cpu() % 3, cfg.vocab_size, "cpu")
+    if not torch.equal(bits, want):
+        raise AssertionError("the noise's integer bits differ on the card")
+    log("dispatch: the noise's integer bits equal the CPU's on a 64 x %d "
+        "grid" % cfg.vocab_size)
+    jobs = dispatch_jobs(cfg)
+    t_prompt = [len(p) for p, _, _ in jobs]
+    for paged in (False, True):
+        # warm-up: every setting's shapes once, untimed
+        for chunk, depth in DISPATCH_SETTINGS:
+            for controls in (None, DISPATCH_SAMPLE):
+                dispatch_batcher(sv, params, cfg, device, paged, chunk, depth,
+                                 controls).run([(p, 2 * chunk + 1, s)
+                                                for p, _, s in jobs[:9]])
+    runs = {}
+    for paged in (False, True):
+        for controls in (None, DISPATCH_SAMPLE):
+            # greedy: each setting timed three times, in turns (1 2 3 3 2
+            # 1 1 2 3): the host's clock spreads by a quarter between runs
+            order = DISPATCH_SETTINGS if controls else (
+                DISPATCH_SETTINGS + DISPATCH_SETTINGS[::-1]
+                + DISPATCH_SETTINGS)
+            got = collections.defaultdict(list)
+            for kd in order:
+                got[kd].append(dispatch_run(torch, sv, kernels, params, cfg,
+                                            device, paged, kd[0], kd[1],
+                                            jobs, controls))
+            base = got[DISPATCH_SETTINGS[0]][0]["streams"]
+            label = "%s%s" % ("paged" if paged else "dense",
+                              " sampled" if controls else "")
+            for kd, both in got.items():
+                if any(run["streams"] != base for run in both):
+                    raise AssertionError("%s: streams at %s differ from %s"
+                                         % (label, kd, DISPATCH_SETTINGS[0]))
+            if controls:
+                gap = kept_set_gap(torch, tf, params, cfg, base, t_prompt,
+                                   **controls)
+            else:
+                gap = teacher_gap(torch, tf, params, cfg, base, t_prompt)
+            log("dispatch %s: streams bitwise equal at %s; %s max gap %.4f "
+                "(tol %g); tokens/s %s (%s)" % (
+                    label, ", ".join(map(str, DISPATCH_SETTINGS)),
+                    "kept-set" if controls else "teacher-forced", gap,
+                    TOL_TEACHER, ", ".join(
+                        "%s %s (median %.1f)" % (
+                            kd, " / ".join("%.1f" % r["tok_s"] for r in both),
+                            np.median([r["tok_s"] for r in both]))
+                        for kd, both in got.items()), card_line()))
+            if not gap <= TOL_TEACHER:
+                raise AssertionError("%s: tokens disagree with the "
+                                     "teacher-forced logits" % label)
+            runs[paged, bool(controls)] = {kd: both[0]
+                                           for kd, both in got.items()}
+    prefix = {paged: dispatch_prefix(torch, tf, sv, kernels, params, cfg,
+                                     device, paged)
+              for paged in (False, True)}
+    log("dispatch phase: %.1f s before the profiles"
+        % (time.perf_counter() - t_phase))
+    for paged, expect in ((False, FLASH_SPLIT), (True, PAGED_SPLIT)):
+        for chunk, depth in DISPATCH_SETTINGS:
+            srv = dispatch_batcher(sv, params, cfg, device, paged, chunk,
+                                   depth)
+            for prompt, _, _ in jobs[:DISPATCH["max_batch"]]:
+                srv.admit(prompt, DISPATCH_PROFILE_NEW)
+            for _ in range(2):
+                srv.step()
+            profile_steps(torch, "%s serve step, chunk %d, depth %d, 8 live "
+                          "lanes (%s)" % ("paged" if paged else "dense",
+                                          chunk, depth, card_line()),
+                          srv.step,
+                          steps=DISPATCH_PROFILE_STEPS * 16 // chunk,
+                          expect=expect)
+            del srv
+    log("dispatch phase: %.1f s" % (time.perf_counter() - t_phase))
+    return {"dense": runs[False, False], "paged": runs[True, False],
+            "prefix": prefix}
 
 
 # ------------------------------------------------------------ training ---
@@ -3021,6 +3318,9 @@ def main():
     served8, params8, cfg8 = serve_int8(torch, tf, sv, kernels, device)
     serve_rope(torch, tf, sv, kernels, device)
     torch.cuda.empty_cache()
+    dispatched = serve_dispatch_phase(torch, tf, sv, kernels, params, cfg,
+                                      device)
+    torch.cuda.empty_cache()
 
     train_equivalence(torch, tf, kernels, device)
     torch.cuda.empty_cache()
@@ -3060,6 +3360,12 @@ def main():
                      "bound_ms": bound, "bound_by": bound_by,
                      "library_ms": lib, "device_ms": res["device_ms"],
                      "library_device_ms": lib_dev})
+        layout = {"paged_decode": "paged", "flash_decode": "dense"}.get(name)
+        if layout:
+            # the dispatch phase's greedy runs: n_layers x chunk a dispatch
+            rows[-1]["dispatch_launches"] = {
+                "%d,%d" % kd: r["launches"]
+                for kd, r in dispatched[layout].items()}
     outputs = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
     timed = time_flash_attention(torch, F, kernels, device)

@@ -3,7 +3,8 @@
 training path (``forward``, ``loss_fn``, ``make_train_step``,
 ``init_momentum``), the forward path under a mesh (``shard_params``, and
 ``forward`` / ``loss_fn`` with ``mesh``), and the serving path (prompt
-prefill, dense-cache and paged decode steps, greedy ``generate()``).
+prefill, dense-cache and paged decode steps, ``generate()`` greedy or
+sampled).
 
 Function names, argument order and numerics follow the JAX module, so a
 reader finds each counterpart and one seed gives the same weights in
@@ -43,8 +44,8 @@ the batcher's admission read the prompt through the same quantiser.
 
 Not ported yet; each raises NotImplementedError where it would be asked
 for: training under a mesh, tensor / expert sharding and pipeline stages
-(the next parallel slice), int8 weight trees, sampling and speculative
-verification.
+(the next parallel slice), int8 weight trees, ``generate(mesh=...)``
+(ROADMAP item A7) and speculative verification (A4).
 """
 
 import dataclasses
@@ -870,22 +871,125 @@ def decode_step_paged(params, pool, tables, tokens, pos, cfg):
     return torch.einsum("bd,vd->bv", x, params.embed), pool
 
 
-# ----------------------------------------------------------- generate ---
+# ----------------------------------------------------------- sampling ---
+# The port's random source is its own: torch's and JAX's generators never
+# agree, so sampling draws Gumbel noise from a counter-based hash of
+# (request seed, token counter, row, vocab index), written in int64 torch
+# ops that give the same bits on the CPU and the card. A chain mirrors
+# generate()'s key chain: counter 0 draws the token chosen from the
+# prefill logits, counter t the t-th decode token; a batcher lane is row
+# 0 of a batch-1 chain, so a request's sampled stream equals its solo
+# generate(seed=...) at any lane, chunk size and pipeline depth.
 
-def _check_greedy(greedy, temperature, top_k, top_p):
-    """generate()'s rule for the decoding controls; only greedy decoding
-    is ported."""
+_M32 = 0xFFFFFFFF
+_VOCAB_WORDS = {}        # (device, vocab) -> hashed vocab indices [V]
+
+
+def _mul32(x, c):
+    """(x * c) mod 2^32 for int64 ``x`` in [0, 2^32) and a constant
+    c < 2^32, in 16-bit halves so no product reaches 2^63."""
+    lo, hi = c & 0xFFFF, c >> 16
+    xl, xh = x & 0xFFFF, x >> 16
+    return (xl * lo + (((xh * lo + xl * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A bijective 32-bit mixer (xor-shift-multiply) on int64 values in
+    [0, 2^32); the shifts are logical since every value is >= 0."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _vocab_words(vocab, device):
+    key = (str(device), int(vocab))
+    if key not in _VOCAB_WORDS:
+        j = torch.arange(vocab, dtype=torch.int64, device=device)
+        _VOCAB_WORDS[key] = _mix32((j + 0x9E3779B9) & _M32)
+    return _VOCAB_WORDS[key]
+
+
+def _gumbel_bits(seeds, counters, rows, vocab, device):
+    """[N, V] int64 words in [0, 2^32): a pure function of (seeds[n]
+    taken as a 64-bit word, counters[n], rows[n], vocab index)."""
+    s = torch.as_tensor(seeds, dtype=torch.int64, device=device)
+    c = torch.as_tensor(counters, dtype=torch.int64, device=device)
+    r = torch.as_tensor(rows, dtype=torch.int64, device=device)
+    key = _mix32((s & _M32) ^ 0x2545F491)
+    key = _mix32(key ^ ((s >> 32) & _M32))
+    key = _mix32(key ^ (c & _M32))
+    key = _mix32(key ^ (r & _M32))
+    return _mix32(key[:, None] ^ _vocab_words(vocab, device)[None, :])
+
+
+def _gumbel(seeds, counters, rows, vocab, device):
+    """Gumbel noise [N, V] fp32 for the draws (seeds[n], counters[n],
+    rows[n]): u = (23 hashed bits + 0.5) / 2^23, exact in fp32, then
+    -log(-log(u))."""
+    bits = _gumbel_bits(seeds, counters, rows, vocab, device)
+    u = ((bits >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
+    return -torch.log(-torch.log(u))
+
+
+def _sample_logits(logits, noise, temperature, top_k, top_p):
+    """One sampling step over [B, V] logits, step for step the JAX
+    package's ``_sample_logits``: fp32 logits over the temperature,
+    top-k masking everything below the kth value (ties at it are kept),
+    top-p keeping every token whose preceding cumulative mass is under
+    ``top_p`` (thresholded at the smallest kept logit), then
+    ``argmax(filtered + noise)``, which is ``jax.random.categorical``
+    with Gumbel ``noise``. Returns int32 [B]."""
+    logits = logits.float() / max(temperature, 1e-6)
+    if top_k is not None and 0 < top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if top_p is not None and top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        keep = torch.cat([torch.ones_like(cum[..., :1], dtype=torch.bool),
+                          cum[..., :-1] < top_p], dim=-1)
+        thresh = torch.where(keep, sorted_logits, float("inf")).amin(
+            dim=-1, keepdim=True)
+        logits = torch.where(logits < thresh, float("-inf"), logits)
+    # torch.argmax takes the first maximum, as jnp.argmax does
+    return torch.argmax(logits + noise, dim=-1).to(torch.int32)
+
+
+def _resolve_greedy(greedy, temperature, top_k, top_p):
+    """generate()'s rule: greedy unless a sampling control is given;
+    greedy=False alone is pure ancestral sampling; greedy=True with a
+    control is a contradiction."""
     sampling_requested = (temperature != 1.0 or top_k is not None
                           or top_p is not None)
+    if greedy is None:
+        return not sampling_requested
     if greedy and sampling_requested:
         raise ValueError(
             "greedy=True ignores temperature/top_k/top_p — pass "
             "greedy=False (or omit greedy) to sample")
-    if sampling_requested or greedy is False:
-        raise NotImplementedError(
-            "sampling arrives with the sampling slice; only greedy "
-            "decoding is ported")
+    return bool(greedy)
 
+
+def _choose_tokens(logits, controls, seeds, counters, rows):
+    """The next token of each [B, V] logits row under ``controls``
+    (greedy, temperature, top_k, top_p): the argmax, or a sample drawn
+    with the noise of (seeds, counters, rows) ([B] each)."""
+    greedy, temperature, top_k, top_p = controls
+    if greedy:
+        # torch.argmax takes the first maximum, as jnp.argmax does
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    noise = _gumbel(seeds, counters, rows, logits.shape[-1], logits.device)
+    return _sample_logits(logits, noise, temperature, top_k, top_p)
+
+
+def _seed_word(seed):
+    """A Python int seed as the int64 of its low 64 bits."""
+    return (int(seed) + 2 ** 63) % 2 ** 64 - 2 ** 63
+
+
+# ----------------------------------------------------------- generate ---
 
 def _check_params_device(params, device):
     if params.device != device:
@@ -894,30 +998,51 @@ def _check_params_device(params, device):
                          % (params.device, device, device))
 
 
-def _generate_core(params, prompt, cache, n_new, cfg):
-    """Prefill, then greedy decode steps, as a Python loop."""
+def _generate_core(params, prompt, cache, n_new, cfg, controls, seed):
+    """Prefill, then decode steps as a Python loop; token t (0 from the
+    prefill logits) is chosen with counter t of row b's chain."""
     b, t_prompt = prompt.shape
     total = t_prompt + n_new
-    buf = torch.zeros((b, total), dtype=torch.int32, device=prompt.device)
+    device = prompt.device
+    buf = torch.zeros((b, total), dtype=torch.int32, device=device)
     buf[:, :t_prompt] = prompt
+    seeds = torch.full((b,), _seed_word(seed), dtype=torch.int64,
+                       device=device)
+    rows = torch.arange(b, dtype=torch.int64, device=device)
+
+    def choose(logits, t):
+        counters = torch.full((b,), t, dtype=torch.int64, device=device)
+        return _choose_tokens(logits, controls, seeds, counters, rows)
+
     last_logits, cache = prefill(params, cache, prompt, cfg)
-    # torch.argmax takes the first maximum, as jnp.argmax does
-    buf[:, t_prompt] = torch.argmax(last_logits, dim=-1).to(torch.int32)
+    buf[:, t_prompt] = choose(last_logits, 0)
     for pos in range(t_prompt, total - 1):
         logits, cache = decode_step(params, cache, buf[:, pos], pos, cfg)
-        buf[:, pos + 1] = torch.argmax(logits, dim=-1).to(torch.int32)
+        buf[:, pos + 1] = choose(logits, pos + 1 - t_prompt)
     return buf
 
 
 @torch.no_grad()
-def generate(params, prompt, n_new, cfg, greedy=None, temperature=1.0,
-             top_k=None, top_p=None, device=None):
-    """Greedy generation: prompt [B, Tp] int -> int32 [B, Tp+n_new] on
-    ``device`` (the current CUDA device by default; raises when there is
-    none). The prompt is prefilled in one forward pass, then each token
-    is one :func:`decode_step`."""
+def generate(params, prompt, n_new, cfg, greedy=None, seed=0,
+             temperature=1.0, top_k=None, top_p=None, mesh=None,
+             device=None):
+    """Autoregressive generation: prompt [B, Tp] int -> int32 [B,
+    Tp+n_new] on ``device`` (the current CUDA device by default; raises
+    when there is none). The prompt is prefilled in one forward pass,
+    then each token is one :func:`decode_step`.
+
+    Decoding is greedy unless ``temperature`` (!= 1.0), ``top_k`` or
+    ``top_p`` is given, or ``greedy=False`` (pure ancestral sampling);
+    greedy=True with a sampling control raises. Samples come from the
+    port's counter-based noise for ``seed`` (not ``jax.random``'s): row
+    b's token t uses counter t of row b. ``mesh`` is not ported yet."""
     _check_supported(cfg)
-    _check_greedy(greedy, temperature, top_k, top_p)
+    if mesh is not None:
+        raise NotImplementedError(
+            "generate(mesh=...) (sharded parameters and cache) waits for "
+            "ROADMAP item A7")
+    controls = (_resolve_greedy(greedy, temperature, top_k, top_p),
+                float(temperature), top_k, top_p)
     device = resolve_device(device)
     _check_params_device(params, device)
     if not torch.is_tensor(prompt):
@@ -931,4 +1056,4 @@ def generate(params, prompt, n_new, cfg, greedy=None, temperature=1.0,
     if n_new == 0:
         return prompt
     cache = init_cache(cfg, b, device)
-    return _generate_core(params, prompt, cache, n_new, cfg)
+    return _generate_core(params, prompt, cache, n_new, cfg, controls, seed)

@@ -368,8 +368,8 @@ def test_generate_and_batcher_streams_match_jax():
     np.testing.assert_array_equal(got.numpy(), want)
     jout, jorder = jsv.ContinuousBatcher(jp, jcfg, max_batch=3, paged=True,
                                          block_size=BS).run(jobs)
-    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=3, block_size=BS,
-                                device="cpu")
+    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=3, paged=True,
+                                block_size=BS, device="cpu")
     out, order = srv.run(jobs)
     assert order == jorder and out == jout
     for rid, (p, n_new) in zip(order, jobs):
@@ -383,8 +383,8 @@ def test_admission_writes_scale_rows_in_whole_blocks():
     pool blocks beside their codes: each block the lane owns holds its
     bs positions of every leaf of the row cache."""
     _, _, tcfg, tp = _models(6)
-    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=2, block_size=BS,
-                                device="cpu")
+    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=2, paged=True,
+                                block_size=BS, device="cpu")
     prompt = list(np.random.RandomState(6).randint(0, 97, 13))
     srv.admit(prompt, 4)
     blocks = srv._lane_blocks[0]

@@ -168,8 +168,8 @@ def test_generate_and_batcher_streams_match_jax():
     np.testing.assert_array_equal(got.numpy(), want)
     jout, jorder = jsv.ContinuousBatcher(jp, jcfg, max_batch=3, paged=True,
                                          block_size=BS).run(jobs)
-    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=3, block_size=BS,
-                                device="cpu")
+    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=3, paged=True,
+                                block_size=BS, device="cpu")
     out, order = srv.run(jobs)
     assert order == jorder and out == jout
     for rid, (p, n_new) in zip(order, jobs):

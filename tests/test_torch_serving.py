@@ -2,7 +2,9 @@
 the CPU, at a small size (vocab 97, d_model 32, 4 heads over 2 KV heads,
 2 layers, max_len 64, 8-position blocks, fp32): the same seeded job mix
 gives the same greedy streams token for token, and the block accounting
-balances.
+balances. Dense lanes, sampling, chunked and pipelined dispatch and prefix
+caching have their own files: tests/test_torch_serving_*.py,
+tests/test_torch_sampling.py and tests/test_torch_prefix_cache.py.
 """
 
 import importlib
@@ -53,8 +55,8 @@ def test_batcher_streams_match_jax():
     jobs = _jobs(12)
     want, want_order = jsv.ContinuousBatcher(
         jp, jcfg, max_batch=3, paged=True, block_size=BS).run(jobs)
-    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=3, block_size=BS,
-                                device="cpu")
+    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=3, paged=True,
+                                block_size=BS, device="cpu")
     got, order = srv.run(jobs)
     assert order == want_order
     if got != want:
@@ -74,8 +76,8 @@ def test_batcher_stream_equals_solo_generate():
     tp = ttf.init_params(tcfg, seed=3, device="cpu")
     prompt = list(np.random.RandomState(3).randint(0, 97, 13))
     solo = ttf.generate(tp, np.asarray([prompt]), 10, tcfg, device="cpu")
-    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=2, block_size=BS,
-                                device="cpu")
+    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=2, paged=True,
+                                block_size=BS, device="cpu")
     rid = srv.admit(prompt, 10)
     out = {}
     while srv.active_count:
@@ -90,8 +92,8 @@ def test_block_accounting_and_admission_refusal():
     a freed lane parks on the null block."""
     tcfg = ttf.TransformerConfig(**CFG)
     tp = ttf.init_params(tcfg, seed=0, device="cpu")
-    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=2, block_size=BS,
-                                num_blocks=6, device="cpu")
+    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=2, paged=True,
+                                block_size=BS, num_blocks=6, device="cpu")
     # lifetime: positions up to 5 + 20 - 2 = 23 -> 3 blocks, 1 up front
     rid = srv.admit([1, 2, 3, 4, 5], 20)
     assert srv._alloc.available == 5 - 3 and srv.free_blocks == 4
@@ -115,9 +117,10 @@ def test_stop_token_and_one_token_requests():
     prompt = [5, 6, 7]
     solo = ttf.generate(tp, np.asarray([prompt]), 6, tcfg, device="cpu")
     stop = int(solo[0, 5])                       # the third new token
-    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=2, block_size=BS,
-                                device="cpu")
-    out, order = srv.run([(prompt, 6, stop), (prompt, 1)])
+    srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=2, paged=True,
+                                block_size=BS, device="cpu")
+    # jobs are (prompt, n_new[, seed[, stop_token]]), as in the JAX batcher
+    out, order = srv.run([(prompt, 6, 0, stop), (prompt, 1)])
     first = solo[0].tolist()
     assert out[order[0]] == first[:first.index(stop, 3) + 1]
     assert out[order[1]] == first[:4]
@@ -143,29 +146,49 @@ def test_allocator_invariants_catch_leaks():
         tsv.BlockAllocator(3).alloc(3)
 
 
-@pytest.mark.parametrize("kwargs, error", [
-    (dict(chunk_size=2), NotImplementedError),
-    (dict(pipeline_depth=2), NotImplementedError),
-    (dict(spec_k=2), NotImplementedError),
-    (dict(paged=False), NotImplementedError),
-    (dict(temperature=0.8), NotImplementedError),
-    (dict(greedy=False), NotImplementedError),
-    (dict(chunk_size=0), ValueError),
-    (dict(block_size=7), ValueError),
+@pytest.mark.parametrize("kwargs, error, match", [
+    (dict(spec_k=2), NotImplementedError, "A4"),
+    (dict(draft_cfg=object()), NotImplementedError, "A4"),
+    (dict(journal="/nowhere"), NotImplementedError, "A10"),
+    (dict(chunk_size=0), ValueError, "chunk_size"),
+    (dict(pipeline_depth=0), ValueError, "pipeline_depth"),
+    (dict(greedy=True, top_k=3), ValueError, "greedy=True"),
+    (dict(paged=True, block_size=7), ValueError, "block_size"),
 ])
-def test_unported_batcher_options_raise(kwargs, error):
+def test_unported_batcher_options_raise(kwargs, error, match):
+    """What is still refused or invalid: speculative dispatch and the
+    journal name their ROADMAP items; a zero chunk or depth, greedy with
+    a sampling control and a block size that does not divide max_len are
+    invalid, as in the JAX batcher."""
     tcfg = ttf.TransformerConfig(**CFG)
     tp = ttf.init_params(tcfg, device="cpu")
-    with pytest.raises(error):
+    with pytest.raises(error, match=match):
         tsv.ContinuousBatcher(tp, tcfg, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(priority=1), dict(key="k")])
+def test_unported_admission_options_raise(kwargs):
+    tcfg = ttf.TransformerConfig(**CFG)
+    tp = ttf.init_params(tcfg, device="cpu")
+    srv = tsv.ContinuousBatcher(tp, tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A4"):
+        srv.admit([1, 2, 3], 2, **kwargs)
+    assert srv.active_count == 0
+
+
+def test_cache_prefix_disabled_by_zero_slots():
+    tcfg = ttf.TransformerConfig(**CFG)
+    tp = ttf.init_params(tcfg, device="cpu")
+    for paged in (False, True):
+        srv = tsv.ContinuousBatcher(tp, tcfg, prefix_cache_slots=0,
+                                    paged=paged, block_size=BS, device="cpu")
+        with pytest.raises(ValueError, match="prefix_cache_slots=0"):
+            srv.cache_prefix([1, 2, 3])
 
 
 def test_batcher_needs_cuda_unless_told(monkeypatch):
     tcfg = ttf.TransformerConfig(**CFG)
     tp = ttf.init_params(tcfg, device="cpu")
-    srv = tsv.ContinuousBatcher(tp, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="prefix"):
-        srv.cache_prefix([1, 2, 3])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsv.ContinuousBatcher(tp, tcfg)

@@ -246,11 +246,14 @@ def test_unported_config_fields_raise(field, value):
 
 
 def test_unported_decoding_controls_raise():
+    """generate(mesh=...) names its ROADMAP item; greedy with a sampling
+    control is a contradiction, as in JAX; int8 weight trees are not
+    ported. (Sampling is: tests/test_torch_sampling.py.)"""
     _, tcfg = _cfgs()
     tp = ttf.init_params(tcfg, device="cpu")
     prompt = np.zeros((1, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        ttf.generate(tp, prompt, 2, tcfg, temperature=0.7, device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        ttf.generate(tp, prompt, 2, tcfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="greedy=True"):
         ttf.generate(tp, prompt, 2, tcfg, greedy=True, top_k=3,
                      device="cpu")
@@ -258,6 +261,26 @@ def test_unported_decoding_controls_raise():
     tree = dict(convert.params_to_numpy(tp), embed=q8)
     with pytest.raises(NotImplementedError, match="int8 weight"):
         convert.params_from_jax(tree, tcfg, device="cpu")
+
+
+def test_generate_positional_order_is_the_references():
+    """generate()'s positional parameters are the JAX package's, in its
+    order (the port adds ``device`` last): the sixth is ``seed``, so
+    ``generate(p, x, n, cfg, None, 3)`` samples with seed 3 in both, never
+    at temperature 3."""
+    import inspect
+    want = list(inspect.signature(jtf.generate).parameters)
+    got = list(inspect.signature(ttf.generate).parameters)
+    assert got == want + ["device"]
+    _, tcfg = _cfgs()
+    tp = ttf.init_params(tcfg, device="cpu")
+    prompt = np.random.RandomState(9).randint(0, 97, (2, 5)).astype(np.int32)
+    by_position = ttf.generate(tp, prompt, 6, tcfg, False, 3, 0.9, 20, 0.95,
+                               None, "cpu")
+    by_name = ttf.generate(tp, prompt, 6, tcfg, greedy=False, seed=3,
+                           temperature=0.9, top_k=20, top_p=0.95,
+                           device="cpu")
+    assert torch.equal(by_position, by_name)
 
 
 def test_long_prefill_needs_the_flash_kernel(monkeypatch):
