@@ -88,7 +88,30 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    dispatch, lane patch and free runs under
    ``torch.cuda.set_sync_debug_mode("error")``; it prints tokens/s at
    each setting (greedy three times, in turns) and each setting's step
-   profile;
+   profile; then (``spec_phase``) serves the speculative mix of
+   ``benchmark/serving_bench.py`` (its model with an int8 KV pool of
+   16-position blocks, 24 jobs from ``RandomState(17)`` of 32-255 prompt
+   and 8-127 new tokens) at (lanes, max_len) (8, 1024), (8, 4096),
+   (16, 1024) and (16, 4096) with spec_k off and on (3, n-gram drafts;
+   off on on off, tokens/s paired), on a bf16 pool at (8, 4096), and
+   with a 2-layer draft model at (8, 1024), dense (its steps through
+   the flash-decode kernel) and paged (through the paged kernel on the
+   target's tables), and at (8, 1024) once more at chunk 16 and
+   pipeline depth 2: every verify round launches the paged kernel once
+   a layer at span 4 and nothing else runs, streams equal the spec_k-off
+   run's up to a token within ``TOL_TEACHER`` of its row's runner-up,
+   blocks balance at the end, no dispatch is requeued; one profiled spec
+   dispatch of each arm; a run at (8, 1024) where a priority-1
+   admission preempts a lane, an injected dispatch failure is requeued
+   (the one requeue the phase allows) and a ``shrink_pool``/``grow_pool``
+   round trip preempts more, all resumed through
+   ``admit_continuation``;
+   the paged kernel at the verify window (span 4, 8 and 16 lanes, full
+   4096-position tables, bf16 and int8) against its plain version, timed
+   beside its bound and SDPA, and a 20-row window that takes two
+   launches; ``speculative_generate`` and ``beam_search`` (beam 4, batch
+   2) at the serving model's width with exact launches; every
+   speculative dispatch, lane patch and free under the sync detector;
 6. takes one training step of the LM of ``benchmark/train_lm_bench.py``
    at full width (vocab 32000, d_model 1024, 8 heads of 128, 12 layers,
    d_ff 4096, 1024 positions, batch 8, rope, random weights from a seed)
@@ -191,7 +214,10 @@ Run from the root of a checkout on a machine with one CUDA GPU and
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
 14. prints the card's name and power limit again, the kernels' JSON
-    line, then as its last line ``{"ok": true, "device": {...}}``.
+    line (the paged kernel's rows with their speculative launches and
+    their time at the verify window, the flash-decode row with the
+    draft, solo-speculative and beam launches), then as its last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
 result line. It imports nothing of JAX or of the JAX package.
@@ -808,6 +834,14 @@ def check_flash_bwd_long(torch, kernels, device):
 
 
 PROFILE_ATTEMPTS = 5     # sessions tried before a trace with no kernel fails
+# device_ms_each's marker: a spin kernel of this many cycles (under a
+# microsecond) before each label's calls, found in a trace by its name
+MARK_CYCLES = 1000
+MARK_KERNEL = "spin_kernel"
+# markers that open and close every profiler session (pad_trace), and
+# that open each label's calls (two: either stands in for the other)
+PAD_KERNELS = 64
+LABEL_MARKERS = 2
 
 
 def traced(torch, run, what):
@@ -832,38 +866,67 @@ def device_ms(torch, fn, iters=5):
     return sum(device_ms_each(torch, {0: fn}, iters)[0].values())
 
 
+def pad_trace(torch):
+    """PAD_KERNELS markers, waited for: what opens and closes a profiler
+    session, so that no kernel that is counted sits at either end. A trace
+    can lose the events at its start (seen: one marker of six missing,
+    five sessions in a row, in two calls; before the markers, the first
+    label of the sweep's shortest session found no kernel of its own)."""
+    for _ in range(PAD_KERNELS):
+        torch.cuda._sleep(MARK_CYCLES)
+    torch.cuda.synchronize()
+
+
 def device_ms_each(torch, fns, iters=5):
     """{label: {kernel name: ms per call}} for several calls timed in ONE
-    torch.profiler session: each label's ``iters`` calls run inside their
-    own record_function range that ends in a sync, and a kernel (a CUDA
-    event) counts for the range its start falls in."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.profiler session: each label's ``iters`` calls follow
+    LABEL_MARKERS marker kernels (``torch.cuda._sleep``'s spin kernel) and
+    end in a sync, inside the padding of ``pad_trace``. On the device's
+    clock, each marker that a kernel follows opens the next label's run of
+    kernels, so one lost marker of a label's pair, or of the padding,
+    changes nothing; a session with another count of runs than labels is
+    tried again. (Host record_function ranges attributed until a
+    session's first label kept finding no kernel of its own.)"""
+    from torch.profiler import ProfilerActivity, profile
     device_type = torch.autograd.DeviceType.CUDA
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    labels = dict(enumerate(fns))
+    labels = list(fns)
 
     def run():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for i, label in labels.items():
-                with record_function("timed: %d" % i):
-                    for _ in range(iters):
-                        fns[label]()
-                    torch.cuda.synchronize()
-        events = prof.events()
-        spans = {labels[int(e.name[len("timed: "):])]: e.time_range
-                 for e in events if e.name.startswith("timed: ")}
-        out = {label: collections.Counter() for label in fns}
+            pad_trace(torch)
+            for label in labels:
+                for _ in range(LABEL_MARKERS):
+                    torch.cuda._sleep(MARK_CYCLES)
+                for _ in range(iters):
+                    fns[label]()
+                torch.cuda.synchronize()
+            pad_trace(torch)
+        events = sorted((e for e in prof.events()
+                         if e.device_type == device_type),
+                        key=lambda e: e.time_range.start)
+        runs, after_marker, markers = [], False, 0
         for e in events:
-            if e.device_type != device_type or e.name.startswith("timed: "):
+            if MARK_KERNEL in e.name:
+                after_marker = True
+                markers += 1
                 continue
-            for label, span in spans.items():
-                if span.start <= e.time_range.start <= span.end:
-                    out[label][e.name] += \
-                        e.time_range.elapsed_us() / 1e3 / iters
-        return out if all(out.values()) else None
+            if after_marker:
+                runs.append(collections.Counter())
+                after_marker = False
+            if runs:
+                runs[-1][e.name] += e.time_range.elapsed_us() / 1e3 / iters
+        if len(runs) == len(labels):
+            return dict(zip(labels, runs))
+        log("profiler: %d device events, %d markers of %d, %d runs of "
+            "kernels for %d labels" % (len(events), markers,
+                                        LABEL_MARKERS * len(labels)
+                                        + 2 * PAD_KERNELS,
+                                        len(runs), len(labels)))
+        return None
     return traced(torch, run, "the calls %s" % ", ".join(map(str, fns)))
 
 
@@ -1174,6 +1237,7 @@ def serve(torch, tf, sv, kernels, params, cfg, device, kernel, label="serve",
     launches = kernels.launches[kernel]
     steps = srv.dispatch_count
     check_only(kernels, {kernel: cfg.n_layers * steps}, label)
+    check_clean(srv, label)
     srv.check_invariants(quiesce=True)
     for rid, (prompt, n_new) in zip(rids, jobs):
         if len(results[rid]) != len(prompt) + n_new \
@@ -1311,17 +1375,7 @@ def dispatch_batcher(sv, params, cfg, device, paged, chunk, depth,
                                chunk_size=chunk, pipeline_depth=depth,
                                device=device, **dict(kw, **(controls or {})))
     if depth > 1:
-        def no_sync(fn):
-            def run(*args):
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    return fn(*args)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-            return run
-
-        for name in ("_dispatch_chunk", "_patch_lane", "_free"):
-            setattr(srv, name, no_sync(getattr(srv, name)))
+        no_sync(torch, srv, ("_dispatch_chunk", "_patch_lane", "_free"))
     return srv
 
 
@@ -1345,6 +1399,7 @@ def dispatch_run(torch, sv, kernels, params, cfg, device, paged, chunk, depth,
                               " sampled" if controls else "")
     check_only(kernels, {kernel: cfg.n_layers * chunk * srv.dispatch_count},
                what)
+    check_clean(srv, what)
     srv.check_invariants(quiesce=True)
     streams = [results[r] for r in order]
     for toks, (prompt, n_new, _) in zip(streams, jobs):
@@ -1430,6 +1485,7 @@ def dispatch_prefix(torch, tf, sv, kernels, params, cfg, device, paged):
         kernel = "paged_decode" if paged else "flash_decode"
         check_only(kernels, {kernel: cfg.n_layers * 16 * srv.dispatch_count},
                    "prefix run")
+        check_clean(srv, "prefix run")
         srv.check_invariants(quiesce=True)
         out[cached] = ([done[r] for r in rids], used)
     (plain, used_plain), (shared, used_shared) = out[False], out[True]
@@ -1485,9 +1541,10 @@ def serve_dispatch_phase(torch, tf, sv, kernels, params, cfg, device):
         # warm-up: every setting's shapes once, untimed
         for chunk, depth in DISPATCH_SETTINGS:
             for controls in (None, DISPATCH_SAMPLE):
-                dispatch_batcher(sv, params, cfg, device, paged, chunk, depth,
-                                 controls).run([(p, 2 * chunk + 1, s)
-                                                for p, _, s in jobs[:9]])
+                srv = dispatch_batcher(sv, params, cfg, device, paged, chunk,
+                                       depth, controls)
+                srv.run([(p, 2 * chunk + 1, s) for p, _, s in jobs[:9]])
+                check_clean(srv, "dispatch warm-up")
     runs = {}
     for paged in (False, True):
         for controls in (None, DISPATCH_SAMPLE):
@@ -1546,10 +1603,610 @@ def serve_dispatch_phase(torch, tf, sv, kernels, params, cfg, device):
                           srv.step,
                           steps=DISPATCH_PROFILE_STEPS * 16 // chunk,
                           expect=expect)
+            check_clean(srv, "dispatch profile")
             del srv
     log("dispatch phase: %.1f s" % (time.perf_counter() - t_phase))
     return {"dense": runs[False, False], "paged": runs[True, False],
             "prefix": prefix}
+
+
+# -------------------------------------------------------- speculative ---
+
+# the speculative mix of benchmark/serving_bench.py (megakernel_ab,
+# :560-600) at its full width: its model with an int8 KV pool of
+# 16-position blocks, spec_k 3 with n-gram drafts, 24 jobs from
+# RandomState(17) of 32-255 prompt tokens and 8-127 new ones, at each
+# (lanes, max_len) of SPEC_ARMS, each with spec_k off and on
+SPEC_CFG = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=8,
+                d_ff=2048, kv_cache_int8=True)
+SPEC = dict(jobs=24, prompt=256, seed=17, spec_k=3, block_size=16)
+SPEC_ARMS = ((8, 1024), (8, 4096), (16, 1024), (16, 4096))
+# B3's fp mode at span 4: the same jobs on a bf16 pool
+SPEC_BF16_ARM = (8, 4096)
+# the draft-model provider: a 2-layer draft of the same vocab (bf16, its
+# decode through B4 dense and B3 fp paged), dense and paged lanes
+SPEC_DRAFT_ARM = (8, 1024)
+SPEC_DRAFT_CFG = dict(vocab_size=32000, d_model=256, n_heads=4, n_layers=2,
+                      d_ff=1024, use_flash_kernel=True)
+# B3 timed at the verify window: span 4, every lane's 256-entry table full
+SPEC_VERIFY_LANES = (8, 16)
+# spans x G of the sliced window check: 20 rows, two launches
+SPEC_SLICED = (10, 2)
+SPEC_PROFILE_STEPS = 4
+# the (8, 1024) int8 arm's spec run at a chunk and a pipeline depth
+SPEC_PIPELINED = (16, 2)
+SPEC_PROFILE_NEW = 600          # new tokens a profiled lane asks for
+# speculative_generate and beam_search at SERVE_CFG's width
+SPEC_SOLO = dict(prompt=256, n_new=64, k_draft=4)
+SPEC_BEAM = dict(batch=2, prompt=128, n_new=32, beam=4)
+
+
+def spec_jobs(cfg):
+    """serving_bench.py's speculative jobs: (prompt, n_new)."""
+    spec = SPEC
+    rng = np.random.RandomState(spec["seed"])
+    t_prompt, jobs = spec["prompt"], []
+    for _ in range(spec["jobs"]):
+        t_p = int(rng.randint(max(2, t_prompt // 8), t_prompt))
+        n_new = int(rng.randint(8, max(9, t_prompt // 2)))
+        jobs.append((list(rng.randint(1, cfg.vocab_size, t_p)), n_new))
+    return jobs
+
+
+def no_sync(torch, srv, names):
+    """Run the batcher's methods ``names`` under
+    torch.cuda.set_sync_debug_mode("error"): a host read there raises.
+    Each exception that leaves one of them is kept in ``srv.escapes``, as
+    the dispatch requeue would otherwise swallow it (see check_clean)."""
+    srv.escapes = []
+
+    def wrap(fn):
+        def run(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args)
+            except Exception as exc:
+                srv.escapes.append(repr(exc))
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+    for name in names:
+        setattr(srv, name, wrap(getattr(srv, name)))
+    return srv
+
+
+def check_clean(srv, what, failures=0, escapes=()):
+    """The batcher requeued exactly ``failures`` dispatches over its life,
+    and the exceptions that left its sync-checked methods are exactly
+    ``escapes`` (substrings, in order): a requeue keeps the streams
+    exact, so a host read under the sync detector or a failed launch
+    shows only here."""
+    got = getattr(srv, "escapes", [])
+    if srv.dispatch_failures != failures or len(got) != len(escapes) \
+            or any(w not in g for w, g in zip(escapes, got)):
+        raise AssertionError("%s: %d dispatches requeued (not %d); raised "
+                             "in the checked methods: %s"
+                             % (what, srv.dispatch_failures, failures, got))
+
+
+def spec_batcher(torch, sv, params, cfg, device, lanes, spec_k, paged=True,
+                 draft=None, num_blocks=None, chunk=1, depth=1):
+    """A batcher of the speculative phase; each speculative dispatch, lane
+    patch and free runs under the sync detector."""
+    kw = dict(max_batch=lanes, paged=paged, spec_k=spec_k, device=device,
+              chunk_size=chunk, pipeline_depth=depth)
+    if paged:
+        bs = SPEC["block_size"]
+        kw.update(block_size=bs, num_blocks=num_blocks
+                  or lanes * (cfg.max_len // bs) + 1)
+    if draft is not None and spec_k:
+        kw.update(draft_params=draft[0], draft_cfg=draft[1])
+    srv = sv.ContinuousBatcher(params, cfg, **kw)
+    return no_sync(torch, srv, ("_dispatch_spec", "_patch_lane", "_free")
+                   if spec_k else ("_patch_lane", "_free"))
+
+
+def spec_run(torch, tf, sv, kernels, params, cfg, device, lanes, spec_k,
+             jobs, paged=True, draft=None, expect=None, chunk=1, depth=1):
+    """Serve ``jobs`` with spec_k (None: off) at (chunk, depth).
+    ``expect(rounds)`` is {kernel: launches} of the run (rounds: decode
+    steps or speculative rounds, chunk of them a dispatch), checked
+    exactly with no other kernel; each paged-kernel call's span is
+    counted, and no dispatch may be requeued. Returns the streams in
+    admission order, tokens/s (host clock, admissions included), the
+    dispatches, rounds, launches, spans and the acceptance ratio."""
+    srv = spec_batcher(torch, sv, params, cfg, device, lanes, spec_k, paged,
+                       draft, chunk=chunk, depth=depth)
+    spans, real = collections.Counter(), tf.paged_attention
+
+    def counted(q, layer_pool, tables, pos):
+        spans[q.shape[1]] += 1
+        return real(q, layer_pool, tables, pos)
+    tf.paged_attention = counted
+    try:
+        kernels.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, order = srv.run(jobs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        tf.paged_attention = real
+    launches = {n: c for n, c in kernels.launches.items() if c}
+    what = "spec %s lanes %d max_len %d spec_k %s%s%s" % (
+        "paged" if paged else "dense", lanes, cfg.max_len, spec_k,
+        " draft model" if draft and spec_k else "",
+        " at (chunk %d, depth %d)" % (chunk, depth)
+        if (chunk, depth) != (1, 1) else "")
+    rounds = chunk * srv.dispatch_count
+    if expect is not None:
+        check_only(kernels, expect(rounds), what)
+    check_clean(srv, what)
+    srv.check_invariants(quiesce=True)
+    if paged and srv.free_blocks != srv.num_blocks - 1:
+        raise AssertionError("%s: %d of %d blocks free at the end"
+                             % (what, srv.free_blocks, srv.num_blocks - 1))
+    streams = [results[r] for r in order]
+    for toks, (prompt, n_new) in zip(streams, jobs):
+        if len(toks) != len(prompt) + n_new or toks[:len(prompt)] != prompt:
+            raise AssertionError("%s: a malformed stream" % what)
+    new = sum(n for _, n in jobs)
+    accept = srv.health_snapshot().get("serving.spec_draft_ratio")
+    log("%s: %d dispatches (%.4f a token), launches %s, paged spans %s, "
+        "acceptance %s, %.3f s, %.1f tokens/s"
+        % (what, srv.dispatch_count, srv.dispatch_count / new, launches,
+           dict(spans), "-" if accept is None else "%.4f" % accept,
+           seconds, new / seconds))
+    return {"streams": streams, "tok_s": new / seconds,
+            "dispatches": srv.dispatch_count, "rounds": rounds,
+            "launches": launches, "spans": dict(spans), "accept": accept}
+
+
+def spec_gate(torch, tf, params, cfg, got, want, prompts, what):
+    """Streams ``got`` equal ``want`` (the spec_k-off run's), or first
+    leave them at a token whose teacher-forced top-1/top-2 gap on
+    ``want`` is within TOL_TEACHER. Returns the count of such tokens."""
+    splits = [first_split(torch, tf, params, cfg, a, b, len(p))
+              for a, b, p in zip(got, want, prompts)]
+    gaps = [g for n, g in splits if n is not None]
+    log("%s: %d of %d streams equal the spec_k-off run's; first splits at "
+        "teacher gaps %s (tol %g)" % (what, len(got) - len(gaps), len(got),
+                                      [round(g, 4) for g in gaps],
+                                      TOL_TEACHER))
+    if any(g > TOL_TEACHER for g in gaps):
+        raise AssertionError("%s: a stream leaves the spec_k-off run's at a "
+                             "token the target is sure of" % what)
+    return len(gaps)
+
+
+def b3_name(cfg):
+    return "paged_decode_int8" if cfg.kv_cache_int8 else "paged_decode"
+
+
+def spec_arm(torch, tf, sv, kernels, params, cfg, device, lanes, jobs,
+             turns=2, draft=None, paged=True, pipelined=None):
+    """One arm: the jobs with spec_k off and on, ``turns`` times each in
+    turns (off on on off), launches exact (paged: B3 n_layers times a
+    round, at span 4 when on; the draft model's steps through its own
+    kernel), streams gated; with ``pipelined`` (chunk, depth), one more
+    spec_k run there, held to the same gates. Then one spec dispatch of
+    the arm profiled for its idle share. Returns the runs' figures."""
+    k, n = SPEC["spec_k"], cfg.n_layers
+    b3 = b3_name(cfg)
+
+    def expect(on):
+        def counts(rounds):
+            out = collections.Counter()
+            if paged:
+                out[b3] += n * rounds
+            if on and draft is not None:
+                dn = draft[1].n_layers * k * rounds
+                out[b3_name(draft[1]) if paged else "flash_decode"] += dn
+            return out
+        return counts
+
+    order = (None, k, k, None) if turns == 2 else (None, k)
+    runs = collections.defaultdict(list)
+    for spec_k in order:
+        runs[spec_k].append(spec_run(torch, tf, sv, kernels, params, cfg,
+                                     device, lanes, spec_k, jobs, paged,
+                                     draft, expect(spec_k is not None)))
+    off, on = runs[None], runs[k]
+    piped = None
+    if pipelined:
+        piped = spec_run(torch, tf, sv, kernels, params, cfg, device, lanes,
+                         k, jobs, paged, draft, expect(True), *pipelined)
+    for r in on + ([piped] if piped else []):
+        if paged and r["spans"].get(k + 1, 0) != n * r["rounds"]:
+            raise AssertionError("B3 ran %s spans, not %d at span %d"
+                                 % (r["spans"], n * r["rounds"], k + 1))
+    label = "spec %s %d x %d%s%s" % (
+        "paged" if paged else "dense", lanes, cfg.max_len,
+        "" if cfg.kv_cache_int8 else " bf16 pool",
+        " draft model" if draft else "")
+    split = spec_gate(torch, tf, params, cfg, on[0]["streams"],
+                      off[0]["streams"], [p for p, _ in jobs], label)
+    if piped:
+        spec_gate(torch, tf, params, cfg, piped["streams"],
+                  off[0]["streams"], [p for p, _ in jobs],
+                  "%s at (chunk %d, depth %d)" % ((label,) + pipelined))
+        log("%s at (chunk %d, depth %d): %.1f tokens/s, %d dispatches of "
+            "%d rounds, streams %s the (1, 1) spec run's (%s)"
+            % ((label,) + pipelined + (
+                piped["tok_s"], piped["dispatches"], pipelined[0],
+                "equal" if piped["streams"] == on[0]["streams"]
+                else "differ from", card_line())))
+    if any(r["streams"] != on[0]["streams"] for r in on) or \
+            any(r["streams"] != off[0]["streams"] for r in off):
+        raise AssertionError("%s: repeated runs gave other streams" % label)
+    tok_off = [r["tok_s"] for r in off]
+    tok_on = [r["tok_s"] for r in on]
+    new = sum(n_new for _, n_new in jobs)
+    launched = ", ".join("%s %.2f" % (name, count / on[0]["dispatches"])
+                         for name, count in sorted(on[0]["launches"].items()))
+    log("%s: tokens/s off %s, on %s (on / off %.3f by means), target "
+        "dispatches a token %.4f off, %.4f on, acceptance %.4f, launches a "
+        "spec dispatch: %s; %d diverging streams (%s)"
+        % (label, " / ".join("%.1f" % t for t in tok_off),
+           " / ".join("%.1f" % t for t in tok_on),
+           np.mean(tok_on) / np.mean(tok_off), off[0]["dispatches"] / new,
+           on[0]["dispatches"] / new, on[0]["accept"], launched or "none",
+           split, card_line()))
+    profile_spec(torch, sv, params, cfg, device, lanes, jobs, label, draft,
+                 paged)
+    return {"off": off, "on": on, "split": split, "pipelined": piped}
+
+
+def profile_spec(torch, sv, params, cfg, device, lanes, jobs, label, draft,
+                 paged):
+    """One spec dispatch of the arm under the profiler: every lane live
+    (the first ``lanes`` prompts, SPEC_PROFILE_NEW new tokens each),
+    warmed up by two dispatches; its idle share, and its kernels
+    (those of B3's mode on a paged pool, the draft's decode kernel)."""
+    srv = spec_batcher(torch, sv, params, cfg, device, lanes, SPEC["spec_k"],
+                       paged, draft)
+    for prompt, _ in jobs[:lanes]:
+        srv.admit(prompt, SPEC_PROFILE_NEW)
+    for _ in range(2):
+        srv.step()
+    expect = (INT8_SPLIT if cfg.kv_cache_int8 else PAGED_SPLIT) \
+        if paged else ()
+    if draft is not None:
+        expect += PAGED_SPLIT if paged else FLASH_SPLIT
+    profile_steps(torch, "%s: spec dispatch (spec_k %d, %s), %d live lanes "
+                  "(%s)" % (label, SPEC["spec_k"], "draft model" if draft
+                            else "n-gram", lanes, card_line()),
+                  srv.step, steps=SPEC_PROFILE_STEPS,
+                  expect=tuple(dict.fromkeys(expect)))
+    check_clean(srv, label + " profile")
+
+
+def verify_case(torch, device, lanes, seed, int8, span, g=1, bs=16,
+                nbl=256):
+    """The verify window at full tables: each lane's 256 entries its own
+    blocks (lanes x 256 + 1 of them), its window ending in its last
+    block; q bf16 [lanes, span, 8 * g, 64]."""
+    rng = np.random.RandomState(seed)
+    nb = lanes * nbl + 1
+    tables = (1 + rng.permutation(nb - 1)).reshape(lanes, nbl)
+    pos = nbl * bs - span - rng.randint(0, bs, size=lanes)
+    return paged_tensors(torch, device, torch.bfloat16, tables, pos, span, g,
+                         seed, nb=nb, int8=int8)
+
+
+def time_verify(torch, F, kernels, device):
+    """B3 at the verify window (span 4, max_len 4096) on 8 and 16 lanes,
+    bf16 and int8 pools: held against its plain version, then ms by
+    events, the plain version's ms, the bound (bytes) and, for bf16, SDPA
+    on the gathered dense view with the window mask (gather not timed),
+    and every call's device ms from one profiler session; then a 20-row
+    window (span 10, G 2), which runs as two launches, against its plain
+    version."""
+    span = SPEC["spec_k"] + 1
+    out, calls = {}, {}
+    for int8 in (False, True):
+        name = "paged_decode_int8" if int8 else "paged_decode"
+        for lanes in SPEC_VERIFY_LANES:
+            q, pool, tables, pos = verify_case(torch, device, lanes,
+                                               300 + lanes, int8, span)
+            got = kernels.paged_attention(q, pool, tables, pos)
+            want = kernels.paged_attention_reference(q, pool, tables, pos)
+            what = "%s verify %d lanes span %d" % (name, lanes, span)
+            if int8:
+                err = compare_int8(got, want, int8_code_step(
+                    torch, q, pool, tables, pos), "bfloat16", what)[0]
+            else:
+                err = compare(got, want, "bfloat16", what)
+            calls[name, lanes] = functools.partial(
+                kernels.paged_attention, q, pool, tables, pos)
+            plain = time_ms(lambda: kernels.paged_attention_reference(
+                q, pool, tables, pos), 3)
+            nbytes, ops = paged_work(q, pool, tables, pos)
+            out[name, lanes] = {
+                "ms": time_ms(calls[name, lanes], 20), "plain_ms": plain,
+                "bound": bound_ms(nbytes, ops, "int8" if int8 else "bfloat16"),
+                "library_ms": None, "err": err}
+            if not int8:
+                h, d = q.shape[2:]
+                t = tables.shape[1] * pool["k"].shape[1]
+                idx = tables.long()
+                kd, vd = (pool[n][idx].reshape(lanes, t, h, d)
+                          .transpose(1, 2) for n in ("k", "v"))
+                rows = pos.long()[:, None] \
+                    + torch.arange(span, device=device)
+                mask = (torch.arange(t, device=device)[None, None, :]
+                        <= rows[:, :, None])[:, None]
+                calls["sdpa", lanes] = functools.partial(
+                    F.scaled_dot_product_attention, q.transpose(1, 2), kd, vd,
+                    attn_mask=mask)
+                out[name, lanes]["library_ms"] = time_ms(calls["sdpa", lanes],
+                                                         20)
+    dev = {label: sum(parts.values())
+           for label, parts in device_ms_each(torch, calls).items()}
+    for (name, lanes), r in out.items():
+        r["device_ms"] = dev[name, lanes]
+        lib_dev = dev.get(("sdpa", lanes)) if r["library_ms"] else None
+        r["library_device_ms"] = lib_dev
+        bound, bound_by = r["bound"]
+        log("%s verify %d lanes span %d: %.4f ms (device %.4f), plain %.4f "
+            "ms, sdpa %s ms (device %s), bound %.4f ms (%s); device / bound "
+            "%.2f (%s)" % (name, lanes, span, r["ms"], r["device_ms"],
+                           r["plain_ms"], "-" if lib_dev is None else
+                           "%.4f" % r["library_ms"], "-" if lib_dev is None
+                           else "%.4f" % lib_dev, bound, bound_by,
+                           r["device_ms"] / bound, card_line()))
+    del calls
+    torch.cuda.empty_cache()
+    width, g = SPEC_SLICED
+    for int8 in (False, True):
+        name = "paged_decode_int8" if int8 else "paged_decode"
+        q, pool, tables, pos = verify_case(torch, device, 8, 400, int8,
+                                           width, g)
+        kernels.launches.clear()
+        got = kernels.paged_attention(q, pool, tables, pos)
+        torch.cuda.synchronize()
+        if kernels.launches[name] != 2:
+            raise AssertionError("a %d-row window took %d launches, not 2"
+                                 % (width * g, kernels.launches[name]))
+        want = kernels.paged_attention_reference(q, pool, tables, pos)
+        what = "%s sliced window span %d G %d (2 launches)" % (name, width, g)
+        if int8:
+            compare_int8(got, want, int8_code_step(torch, q, pool, tables,
+                                                   pos), "bfloat16", what)
+        else:
+            compare(got, want, "bfloat16", what)
+        del pool
+    return out
+
+
+def spec_solo_beam(torch, tf, kernels, params, cfg, device):
+    """speculative_generate (a 2-layer draft, its steps through B4) and
+    beam_search (its steps through B4) at SERVE_CFG's width: exact
+    launches, tokens gated against generate()."""
+    dcfg = tf.TransformerConfig(dtype=cfg.dtype, max_len=cfg.max_len,
+                                **SPEC_DRAFT_CFG)
+    dparams = tf.init_params(dcfg, seed=1, device=device)
+    rng = np.random.RandomState(5)
+    s = SPEC_SOLO
+    prompt = rng.randint(1, cfg.vocab_size, (1, s["prompt"]))
+    want = tf.generate(params, prompt, s["n_new"], cfg,
+                       device=device)[0].tolist()
+    kernels.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, stats = tf.speculative_generate(params, dparams, prompt, s["n_new"],
+                                         cfg, dcfg, k_draft=s["k_draft"],
+                                         return_stats=True, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rounds = len(stats["acceptances"])
+    solo = {"flash_fwd": cfg.n_layers + dcfg.n_layers,
+            "flash_decode": dcfg.n_layers * s["k_draft"] * rounds}
+    check_only(kernels, solo, "speculative_generate")
+    got = out[0].tolist()
+    n, gap = first_split(torch, tf, params, cfg, got, want, s["prompt"])
+    log("speculative_generate: %d rounds, %d of %d drafts accepted, "
+        "big-model launches %d, launches %s, %.3f s (%.1f tokens/s), %s "
+        "generate()'s stream%s (%s)"
+        % (rounds, sum(stats["acceptances"]), s["k_draft"] * rounds,
+           stats["big_model_launches"], solo,
+           seconds, s["n_new"] / seconds, "equals" if n is None else
+           "leaves", "" if n is None else " at token %d, teacher gap %.4f"
+           % (n, gap), card_line()))
+    if n is not None and gap > TOL_TEACHER:
+        raise AssertionError("speculative_generate left generate()'s stream")
+    b = SPEC_BEAM
+    prompt = rng.randint(1, cfg.vocab_size, (b["batch"], b["prompt"]))
+    kernels.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, scores = tf.beam_search(params, prompt, b["n_new"], cfg,
+                                  beam=b["beam"], device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    beam = {"flash_fwd": cfg.n_layers,
+            "flash_decode": cfg.n_layers * (b["n_new"] - 1)}
+    check_only(kernels, beam, "beam_search")
+    total = b["prompt"] + b["n_new"]
+    if tuple(seqs.shape) != (b["batch"], b["beam"], total) \
+            or not torch.isfinite(scores).all() \
+            or (scores[:, 1:] > scores[:, :-1]).any() \
+            or not torch.equal(seqs[:, :, :b["prompt"]].cpu(), torch.from_numpy(
+                prompt).to(torch.int32)[:, None].expand(-1, b["beam"], -1)):
+        raise AssertionError("beam_search: malformed beams or scores")
+    ones, _ = tf.beam_search(params, prompt, b["n_new"], cfg, beam=1,
+                             device=device)
+    greedy = tf.generate(params, prompt, b["n_new"], cfg, device=device)
+    for i in range(b["batch"]):
+        n, gap = first_split(torch, tf, params, cfg, ones[i, 0].tolist(),
+                             greedy[i].tolist(), b["prompt"])
+        if n is not None and gap > TOL_TEACHER:
+            raise AssertionError("beam 1 left generate()'s stream")
+    log("beam_search: batch %d x beam %d, %d new tokens, launches %s, %.3f "
+        "s, best scores %s; beam 1 gives generate()'s streams (%s)"
+        % (b["batch"], b["beam"], b["n_new"], beam, seconds,
+           [round(float(x), 3) for x in scores[:, 0]], card_line()))
+    return {"solo": solo, "beam": beam}
+
+
+def spec_robust(torch, tf, sv, params, cfg, device, lanes, jobs, want):
+    """At the served width (int8 pool, max_len 1024, 8 lanes, spec_k 3) a
+    pool sized so that a priority-1 admission must preempt a lane, one
+    injected dispatch failure requeued, one shrink_pool / grow_pool round
+    trip that preempts, then every victim resumed through
+    admit_continuation: streams gated against ``want`` (the spec_k-off
+    run's), blocks balanced."""
+    bs, live = SPEC["block_size"], jobs[:6]
+
+    def lifetime(prompt, n_new):
+        t_p = len(prompt)
+        return max(t_p, t_p + n_new - 2) // bs + 1
+    num_blocks = sum(lifetime(p, n) for p, n in live) + 3
+    srv = spec_batcher(torch, sv, params, cfg, device, lanes, SPEC["spec_k"],
+                       num_blocks=num_blocks)
+    job_of = {srv.admit(p, n): i for i, (p, n) in enumerate(live)}
+    done = {}
+    for _ in range(3):
+        done.update(srv.step())
+    rid = srv.admit(*jobs[6], priority=1)
+    if rid is None or not srv.preempted:
+        raise AssertionError("the priority admission preempted nothing")
+    job_of[rid] = 6
+    preempted = len(srv.preempted)
+    real, calls = srv._run_spec_rounds, []
+
+    def once(*args):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("injected dispatch failure")
+        return real(*args)
+    srv._run_spec_rounds = once
+    done.update(srv.step())
+    if calls != [1] or srv._dispatch_failures != 1:
+        raise AssertionError("the injected failure was not requeued")
+    check_clean(srv, "spec robust run", 1, ("injected dispatch failure",))
+    before = len(srv.preempted)
+    parked = srv.shrink_pool(srv.free_blocks + 8)
+    srv.check_invariants()
+    shrunk = len(srv.preempted) - before
+    if not shrunk:
+        raise AssertionError("shrink_pool past the free blocks preempted "
+                             "nothing")
+    grown = srv.grow_pool(parked + 8)
+    srv.check_invariants()
+    alias = {}
+    while srv.active_count or srv.preempted:
+        while srv.preempted:
+            req, _ = srv.preempted[0]
+            new = srv.admit_continuation(
+                req.tokens, req.n_new - req.emitted, emitted=req.emitted,
+                priority=req.priority)
+            if new is None:
+                break
+            srv.preempted.pop(0)
+            alias[new] = alias.get(req.rid, req.rid)
+        done.update(srv.step())
+    srv.check_invariants(quiesce=True)
+    check_clean(srv, "spec robust run", 1, ("injected dispatch failure",))
+    if srv.free_blocks != srv.num_blocks - 1:
+        raise AssertionError("the robust run leaked blocks")
+    got = {job_of[alias.get(r, r)]: toks for r, toks in done.items()}
+    idx = sorted(got)
+    if idx != list(range(7)):
+        raise AssertionError("the robust run lost a request: %s" % idx)
+    split = spec_gate(torch, tf, params, cfg, [got[i] for i in idx],
+                      [want[i] for i in idx], [jobs[i][0] for i in idx],
+                      "spec robust run")
+    log("spec robust run: %d lanes preempted by the priority admission, "
+        "the injected failure requeued, shrink_pool parked %d blocks and "
+        "preempted %d lanes, grow_pool returned %d (pool %d blocks), %d "
+        "resumed through admit_continuation, %d diverging streams"
+        % (preempted, parked, shrunk, grown, srv.num_blocks, len(alias),
+           split))
+
+
+def spec_launches(specd, name):
+    """The speculative phase's launches of kernel ``name`` with spec_k on,
+    by run, for the kernels line."""
+    arms = dict(specd["arms"])
+    out = {}
+    if name == "paged_decode_int8":
+        for (lanes, max_len), arm in arms.items():
+            out["%d,%d" % (lanes, max_len)] = arm["on"][0]["launches"][name]
+            if arm["pipelined"]:
+                out["%d,%d at chunk %d, depth %d" % (
+                    (lanes, max_len) + SPEC_PIPELINED)] = \
+                    arm["pipelined"]["launches"][name]
+        out["draft model paged %d,%d" % SPEC_DRAFT_ARM] = \
+            specd["drafted"][True]["on"][0]["launches"][name]
+    elif name == "paged_decode":
+        out["bf16 pool %d,%d" % SPEC_BF16_ARM] = \
+            specd["bf16"]["on"][0]["launches"][name]
+        out["draft steps, paged %d,%d" % SPEC_DRAFT_ARM] = \
+            specd["drafted"][True]["on"][0]["launches"][name]
+    else:
+        out["draft steps, dense %d,%d" % SPEC_DRAFT_ARM] = \
+            specd["drafted"][False]["on"][0]["launches"][name]
+        out["speculative_generate"] = specd["solo"]["solo"][name]
+        out["beam_search"] = specd["solo"]["beam"][name]
+    return out
+
+def spec_phase(torch, F, tf, sv, kernels, params, cfg, device):
+    """Speculative serving (see SPEC): the int8 arms, the bf16 pool, the
+    draft model dense and paged (each arm with its profiled spec
+    dispatch), the pipelined spec run, the robust run, B3 timed at the
+    verify window, and speculative_generate /
+    beam_search at SERVE_CFG's width (``params``, ``cfg``)."""
+    t_phase = time.perf_counter()
+    models = {}
+
+    def model(max_len, int8=True):
+        key = (max_len, int8)
+        if key not in models:
+            c = tf.TransformerConfig(dtype=torch.bfloat16, max_len=max_len,
+                                     **dict(SPEC_CFG, kv_cache_int8=int8))
+            models[key] = (tf.init_params(c, seed=0, device=device), c)
+        return models[key]
+
+    lanes0, len0 = SPEC_ARMS[0]
+    p0, c0 = model(len0)
+    jobs = spec_jobs(c0)
+    # warm-up: both modes' shapes once, untimed
+    for spec_k in (None, SPEC["spec_k"]):
+        srv = spec_batcher(torch, sv, p0, c0, device, lanes0, spec_k)
+        srv.run(jobs[:3])
+        check_clean(srv, "spec warm-up")
+    arms = {}
+    for lanes, max_len in SPEC_ARMS:
+        p, c = model(max_len)
+        arms[lanes, max_len] = spec_arm(
+            torch, tf, sv, kernels, p, c, device, lanes, jobs,
+            pipelined=SPEC_PIPELINED if (lanes, max_len) == SPEC_ARMS[0]
+            else None)
+    p, c = model(SPEC_BF16_ARM[1], int8=False)
+    bf16 = spec_arm(torch, tf, sv, kernels, p, c, device, SPEC_BF16_ARM[0],
+                    jobs, turns=1)
+    models.pop((SPEC_BF16_ARM[1], False))
+    dcfg = tf.TransformerConfig(dtype=torch.bfloat16,
+                                max_len=SPEC_DRAFT_ARM[1], **SPEC_DRAFT_CFG)
+    draft = (tf.init_params(dcfg, seed=1, device=device), dcfg)
+    p, c = model(SPEC_DRAFT_ARM[1])
+    drafted = {paged: spec_arm(torch, tf, sv, kernels, p, c, device,
+                               SPEC_DRAFT_ARM[0], jobs, turns=1, draft=draft,
+                               paged=paged)
+               for paged in (False, True)}
+    spec_robust(torch, tf, sv, p0, c0, device, lanes0, jobs,
+                arms[lanes0, len0]["off"][0]["streams"])
+    log("spec phase: %.1f s before the timings"
+        % (time.perf_counter() - t_phase))
+    del models
+    torch.cuda.empty_cache()
+    verify = time_verify(torch, F, kernels, device)
+    solo = spec_solo_beam(torch, tf, kernels, params, cfg, device)
+    log("spec phase: %.1f s" % (time.perf_counter() - t_phase))
+    return {"arms": arms, "bf16": bf16, "drafted": drafted,
+            "verify": verify, "solo": solo}
 
 
 # ------------------------------------------------------------ training ---
@@ -1933,11 +2590,13 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
 
     untraced = host_ms()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_trace(torch)
         traced = host_ms()
+        pad_trace(torch)
     # kernel rows only: an operator's row repeats its kernels' time
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and MARK_KERNEL not in e.key]
     if not rows:
         raise AssertionError("the profiler saw no kernel in " + what)
     for word in expect:
@@ -1966,7 +2625,9 @@ def profile_steps(torch, what, step, steps=PROFILE_STEPS, top=PROFILE_TOP,
     if by_op:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            pad_trace(torch)
             host_ms()
+            pad_trace(torch)
         ops = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CPU
                and e.self_device_time_total > 0]
@@ -1987,6 +2648,7 @@ def profile_serve(torch, sv, params, cfg, device, what, expect=()):
     for _ in range(2):
         srv.step()
     profile_steps(torch, what, srv.step, expect=expect)
+    check_clean(srv, what)
 
 
 def profile_decode(torch, tf, sv, params, cfg, device):
@@ -3208,13 +3870,15 @@ def gluon_train(torch, mt, device, bench_step_ms, spec=GLUON):
     forward_backward()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_trace(torch)
         t = time.perf_counter()
         trainer.step(b)
         traced_ms = 1e3 * (time.perf_counter() - t)
         torch.cuda.synchronize()
+        pad_trace(torch)
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and MARK_KERNEL not in e.key]
     launches = sum(e.count for e in rows)
     upd_dev = sum(e.self_device_time_total for e in rows) / 1e3
     log("gluon resnet50 bf16 train step (%s; batch %d, %d^2, %d classes, "
@@ -3268,8 +3932,6 @@ def gluon_train_phase(torch, mt, device, bench_step_ms):
 
 def main():
     import torch
-def main():
-    import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     try:
@@ -3321,6 +3983,8 @@ def main():
     dispatched = serve_dispatch_phase(torch, tf, sv, kernels, params, cfg,
                                       device)
     torch.cuda.empty_cache()
+    specd = spec_phase(torch, F, tf, sv, kernels, params, cfg, device)
+    torch.cuda.empty_cache()
 
     train_equivalence(torch, tf, kernels, device)
     torch.cuda.empty_cache()
@@ -3366,6 +4030,15 @@ def main():
             rows[-1]["dispatch_launches"] = {
                 "%d,%d" % kd: r["launches"]
                 for kd, r in dispatched[layout].items()}
+        rows[-1]["spec_launches"] = spec_launches(specd, name)
+        if name != "flash_decode":
+            # B3 at the verify window, span spec_k + 1, max_len 4096
+            rows[-1]["verify_ms"] = {
+                "%d lanes" % n: specd["verify"][name, n]["ms"]
+                for n in SPEC_VERIFY_LANES}
+            rows[-1]["verify_device_ms"] = {
+                "%d lanes" % n: specd["verify"][name, n]["device_ms"]
+                for n in SPEC_VERIFY_LANES}
     outputs = {"flash_fwd": ("o",), "flash_bwd_dq": ("dq",),
                "flash_bwd_dkv": ("dk", "dv")}
     timed = time_flash_attention(torch, F, kernels, device)

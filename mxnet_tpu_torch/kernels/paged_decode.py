@@ -48,11 +48,11 @@ import math
 import torch
 
 from . import _build
-from .common import (DTYPE_CODE, NEG_INF, check_cuda_inputs, decode_splits,
-                     int8_cache_attention, lane_ints)
+from .common import (DTYPE_CODE, MAX_ROWS, NEG_INF, check_cuda_inputs,
+                     decode_splits, int8_cache_attention, lane_ints)
 
 __all__ = ["paged_attention", "paged_attention_reference",
-           "paged_decode_splits"]
+           "paged_decode_splits", "span_slices"]
 
 
 def _gather(layer_pool, tables):
@@ -117,6 +117,9 @@ def paged_attention(q, layer_pool, tables, pos):
     pos: [B] int32 (or a scalar, broadcast) — row (b, c) attends pool
     positions <= pos[b] + c, whose K/V must already be in the pool.
 
+    Any span is taken: a window of more than MAX_ROWS // G positions
+    launches the kernel once per slice (:func:`span_slices`).
+
     Returns [B, C, H, D] in q.dtype.
     """
     int8 = "ks" in layer_pool
@@ -124,8 +127,8 @@ def paged_attention(q, layer_pool, tables, pos):
     if q.dim() != 4 or kpool.dim() != 4 or tables.dim() != 2:
         raise ValueError("q must be [B, C, H, D], pools [NB, bs, KVH, D] "
                          "and tables [B, NB_lane]")
-    b, span, h, d = q.shape
-    _, bs, kvh, dk = kpool.shape
+    b, _, h, d = q.shape
+    kvh, dk = kpool.shape[2:]
     if h % kvh:
         raise ValueError("query heads %d must be a multiple of KV heads %d"
                          % (h, kvh))
@@ -138,6 +141,34 @@ def paged_attention(q, layer_pool, tables, pos):
     pos = lane_ints(pos, b, q.device)
     if q.device.type == "cpu":
         return paged_attention_reference(q, layer_pool, tables, pos)
+    return span_slices(_launch, q, layer_pool, tables, pos)
+
+
+def span_slices(launch, q, layer_pool, tables, pos):
+    """``launch(q, layer_pool, tables, pos)`` over the span of q [B, C, H,
+    D] in slices the kernels take: a CTA holds at most MAX_ROWS query rows
+    of a (lane, KV head), span x G, so a window with C * G > MAX_ROWS (a
+    verify window of spec_k + 1 at a large group) runs as slices of
+    MAX_ROWS // G positions, each launched with pos shifted by the slice's
+    offset. Rows are independent, so the slices give the one-piece result
+    exactly. One launch when the window fits."""
+    span = q.shape[1]
+    g = q.shape[2] // layer_pool["k"].shape[2]
+    step = max(MAX_ROWS // g, 1)
+    if span <= step:
+        return launch(q, layer_pool, tables, pos)
+    return torch.cat([launch(q[:, c:c + step].contiguous(), layer_pool,
+                             tables, pos + c)
+                      for c in range(0, span, step)], dim=1)
+
+
+def _launch(q, layer_pool, tables, pos):
+    """One launch of the paged kernel (its int8 mode for an int8 pool) on
+    CUDA tensors whose span x G fits a CTA."""
+    int8 = "ks" in layer_pool
+    kpool, vpool = layer_pool["k"], layer_pool["v"]
+    b, span, h, d = q.shape
+    _, bs, kvh, _ = kpool.shape
     g = h // kvh
     out = torch.empty_like(q)
     if int8:

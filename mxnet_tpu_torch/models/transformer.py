@@ -3,8 +3,9 @@
 training path (``forward``, ``loss_fn``, ``make_train_step``,
 ``init_momentum``), the forward path under a mesh (``shard_params``, and
 ``forward`` / ``loss_fn`` with ``mesh``), and the serving path (prompt
-prefill, dense-cache and paged decode steps, ``generate()`` greedy or
-sampled).
+prefill, dense-cache and paged decode steps, the ragged verify windows
+of speculative decoding, ``generate()`` greedy or sampled,
+``speculative_generate`` and ``beam_search``).
 
 Function names, argument order and numerics follow the JAX module, so a
 reader finds each counterpart and one seed gives the same weights in
@@ -21,8 +22,13 @@ Hand-written kernels carry the path on the GPU: the flash forward and
 backward kernels in ``_causal_attention`` whenever
 ``cfg.use_flash_kernel`` (training, prefill, and ``generate()``'s
 prompt), the dense-cache flash-decode kernel in ``decode_step`` with the
-same flag, and the paged kernel in ``decode_step_paged`` (always, on
-CUDA tensors; its int8 mode for an int8 KV pool). Under a mesh, attention
+same flag (so also ``beam_search``'s steps and
+``speculative_generate``'s draft steps), and the paged kernel in
+``decode_step_paged`` and ``verify_chunk_paged`` (always, on CUDA
+tensors; its int8 mode for an int8 KV pool; the verify window at span
+k + 1, sliced where the kernel's 16 query rows a KV head do not hold
+it). ``verify_chunk`` and ``speculative_generate``'s verify are plain
+torch contractions, as the JAX functions are. Under a mesh, attention
 runs as ring attention over ``cfg.sp_axis`` (``parallel.ring``), each
 fold through the ring-carry kernel with ``cfg.use_flash_kernel``.
 
@@ -42,10 +48,16 @@ through the one int8 contraction ``_int8_cache_attention``, and
 ``prefill`` delegates to ``prefill_chunk``, so solo ``generate()`` and
 the batcher's admission read the prompt through the same quantiser.
 
+``speculative_generate`` runs the JAX function's one device program as
+a host loop over device tensors: each round's draft steps, verify
+window, acceptance and buffer write are queued without a host read, and
+the one read of a round is the loop's condition, the emitted count
+compared with the budget (``int(n) < total`` in ``_spec_core``).
+
 Not ported yet; each raises NotImplementedError where it would be asked
 for: training under a mesh, tensor / expert sharding and pipeline stages
-(the next parallel slice), int8 weight trees, ``generate(mesh=...)``
-(ROADMAP item A7) and speculative verification (A4).
+(the next parallel slice), int8 weight trees, and ``generate(mesh=...)``
+and ``beam_search(mesh=...)`` (ROADMAP item A7).
 """
 
 import dataclasses
@@ -71,7 +83,9 @@ __all__ = ["TransformerConfig", "TransformerLM", "init_params", "forward",
            "loss_fn", "make_train_step", "init_momentum", "shard_params",
            "init_cache",
            "prefill", "prefill_chunk", "decode_step", "init_paged_cache",
-           "paged_cache_nbytes", "decode_step_paged", "generate"]
+           "paged_cache_nbytes", "grow_paged_cache", "decode_step_paged",
+           "verify_chunk", "verify_chunk_paged", "generate",
+           "speculative_generate", "beam_search"]
 
 
 @dataclasses.dataclass
@@ -699,6 +713,24 @@ def prefill(params, cache, tokens, cfg):
     return torch.einsum("bd,vd->bv", x, params.embed), cache
 
 
+def _chunk_attention(qg, att, mask, cfg, out_dtype):
+    """The chunk contraction of prefill_chunk and the verify windows: qg
+    [B, C, KVH, G, D] against cache leaves [B, T, KVH, D], attending where
+    mask [B|1, C, T] holds: the masked grouped softmax with the
+    probabilities cast to the cache dtype and PV in fp32, or under
+    kv_cache_int8 ``_int8_cache_attention``. Returns [B, C, KVH, G, D] in
+    ``out_dtype``."""
+    if cfg.kv_cache_int8:
+        return _int8_cache_attention(qg, att, mask, out_dtype)
+    ck, cv = att["k"], att["v"]
+    s = torch.einsum("bckgd,btkd->bckgt", qg.float(), ck.float()) \
+        / math.sqrt(qg.shape[-1])
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    a = torch.softmax(s, dim=-1)
+    return torch.einsum("bckgt,btkd->bckgd", a.to(cv.dtype).float(),
+                        cv.float()).to(out_dtype)
+
+
 def prefill_chunk(params, cache, tokens, start, cfg, logits_row=None,
                   attend_limit=None):
     """Process a chunk tokens [B, C] beginning at position ``start``,
@@ -732,16 +764,7 @@ def prefill_chunk(params, cache, tokens, start, cfg, logits_row=None,
             {name: leaf[:, :attend_limit] for name, leaf in layer_cache.items()}
         t_pos = torch.arange(att["k"].shape[1], device=x.device)
         mask = (t_pos[None, :] <= chunk_pos[:, None])[None]      # [1, C, T]
-        if cfg.kv_cache_int8:
-            o = _int8_cache_attention(qg, att, mask, x.dtype)
-        else:
-            ck, cv = att["k"], att["v"]
-            s = torch.einsum("bckgd,btkd->bckgt", qg.float(), ck.float()) \
-                / math.sqrt(dh)
-            s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
-            a = torch.softmax(s, dim=-1)
-            o = torch.einsum("bckgt,btkd->bckgd", a.to(cv.dtype).float(),
-                             cv.float()).to(x.dtype)
+        o = _chunk_attention(qg, att, mask, cfg, x.dtype)
         o = o.reshape(b, c, cfg.n_heads, dh)
         x = x + torch.einsum("bchk,hkd->bcd", o, p.wo)
         x = x + _ffn(_rms_norm(x, p.ln2), p, cfg)
@@ -869,6 +892,152 @@ def decode_step_paged(params, pool, tables, tokens, pos, cfg):
         x = x + _ffn(_rms_norm(x, p.ln2)[:, None], p, cfg)[:, 0]
     x = _rms_norm(x, params.ln_f)
     return torch.einsum("bd,vd->bv", x, params.embed), pool
+
+
+def grow_paged_cache(pool, extra_blocks):
+    """The pool with ``extra_blocks`` zero blocks appended to every leaf's
+    block axis. Existing blocks keep their ids and values, so block tables
+    stay valid and the allocator extends its free list with the new ids
+    (new tensors: the pools passed in are left as they are)."""
+    if extra_blocks <= 0:
+        return pool
+    return [{name: torch.cat([leaf, leaf.new_zeros((extra_blocks,)
+                                                   + tuple(leaf.shape[1:]))])
+             for name, leaf in layer.items()} for layer in pool]
+
+
+# ----------------------------------------------------- batched verify ---
+# The ragged-chunk forward of batched speculative decoding: C tokens per
+# lane, lane b's window anchored at its own position pos[b]. Row (b, i)
+# carries the stream token at position pos[b] + i, writes its K/V there,
+# attends positions <= pos[b] + i, and its logits predict position
+# pos[b] + i + 1. Stale K/V of rejected drafts heals by position: the next
+# round's window starts at the first rejected position and rewrites every
+# stale position before any row attends it.
+
+def _window(params, tokens, pos, cfg):
+    """(embedded window [B, C, D], positions [B, C] int64) of a verify
+    window at per-lane positions ``pos`` [B]. Rows past the position
+    table take its last row: JAX's ``take`` fills them with NaN, which the
+    paged path would write into the null block, while the port keeps a
+    coasting row's garbage finite (its writes drop, or land in the null
+    block, and its tokens are never credited)."""
+    device = params.device
+    c = tokens.shape[1]
+    positions = pos.to(device=device, dtype=torch.long)[:, None] \
+        + torch.arange(c, device=device)[None]
+    x = params.embed[tokens.to(device).long()]
+    if not cfg.rope:
+        x = x + params.pos[positions.clamp(0, cfg.max_len - 1)]
+    return x, positions
+
+
+def _window_layer(x, p, cfg, positions, attend):
+    """One layer over a verify window: q/k/v (rotated under cfg.rope),
+    ``attend(q, k, v)`` -> [B, C, H, D] writing the window's K/V and
+    attending, then the output projection and the FFN."""
+    h = _rms_norm(x, p.ln1)
+    q, k, v = _qkv(h, p)
+    if cfg.rope:
+        q = _rope(q, positions, cfg.rope_base)
+        k = _rope(k, positions, cfg.rope_base)
+    o = attend(q, k, v)
+    x = x + torch.einsum("bchk,hkd->bcd", o, p.wo)
+    return x + _ffn(_rms_norm(x, p.ln2), p, cfg)
+
+
+def _cache_write_ragged_chunk(layer_cache, k_new, v_new, positions, cfg):
+    """Row b writes its C fresh k/v [B, C, KVH, D] at its own positions[b]
+    (the C > 1 case of ``_cache_write_ragged``), in place, quantised on
+    the way in under kv_cache_int8. Positions past the cache are dropped,
+    as JAX's scatter with mode="drop" drops them, so a window running
+    past max_len never touches an earlier row. Written as one scatter
+    with every index inside the cache: a dropped row aims at the last
+    position with the value that position gets anyway (the window's own
+    row there, or what the cache holds), so duplicate indices always
+    carry equal values."""
+    t = layer_cache["k"].shape[1]
+    b, c = positions.shape
+    rows = torch.arange(b, device=positions.device)[:, None]
+    at = positions.clamp(0, t - 1)
+    src = (at - positions[:, :1]).clamp(0, c - 1)
+    own = at >= positions[:, :1]          # `at` lies in the row's window
+    for name, new in _cache_rows(k_new, v_new, cfg).items():
+        leaf = layer_cache[name]
+        tail = (1,) * (new.dim() - 2)
+        picked = new.gather(1, src.reshape((b, c) + tail).expand_as(new))
+        leaf[rows, at] = torch.where(own.reshape((b, c) + tail),
+                                     picked.to(leaf.dtype), leaf[rows, at])
+    return layer_cache
+
+
+def verify_chunk(params, cache, tokens, pos, cfg):
+    """A ragged chunk against the dense cache: tokens [B, C], lane b's
+    window starting at its own position pos[b] ([B] int tensor). Returns
+    (logits [B, C, vocab], cache). The batched generalisation of
+    prefill_chunk (whose start is one scalar) and the target pass of
+    batched speculative decoding: the [B, k+1] window [tok, d_1..d_k]
+    gives every lane's verification targets in one pass. Plain torch
+    ops, as the JAX function is a plain einsum (int8 through
+    ``_int8_cache_attention``); windows past max_len drop their
+    writes."""
+    _check_supported(cfg)
+    b, c = tokens.shape
+    x, positions = _window(params, tokens, pos, cfg)
+    kvh = _kvh(cfg)
+    g = cfg.n_heads // kvh
+    t_pos = torch.arange(cfg.max_len, device=x.device)
+    mask = t_pos[None, None, :] <= positions[:, :, None]        # [B, C, T]
+    for p, layer_cache in zip(params.layers, cache):
+        def attend(q, k, v, layer_cache=layer_cache):
+            _cache_write_ragged_chunk(layer_cache, k, v, positions, cfg)
+            qg = q.reshape(b, c, kvh, g, q.shape[-1])
+            o = _chunk_attention(qg, layer_cache, mask, cfg, x.dtype)
+            return o.reshape(b, c, cfg.n_heads, q.shape[-1])
+        x = _window_layer(x, p, cfg, positions, attend)
+    x = _rms_norm(x, params.ln_f)
+    return torch.einsum("bcd,vd->bcv", x, params.embed), cache
+
+
+def _paged_write_ragged_chunk(layer_pool, k_new, v_new, tables, positions,
+                              cfg):
+    """Window scatter through the block tables: row b writes its C fresh
+    k/v at positions[b], each routed to block tables[b, position // bs]
+    at offset position % bs, in place, quantised on the way in under
+    kv_cache_int8. Positions past the table go to the null block, not
+    clamped: a near-budget lane's window can overrun while its last block
+    is still attended. Unallocated entries are the null block too."""
+    bs = layer_pool["k"].shape[1]
+    nb = tables.shape[1]
+    idx = torch.div(positions, bs, rounding_mode="floor")
+    blk = tables.gather(1, idx.clamp(0, nb - 1)).long()
+    blk = torch.where((idx >= 0) & (idx < nb), blk, 0)
+    off = torch.remainder(positions, bs)
+    for name, new in _cache_rows(k_new, v_new, cfg).items():
+        leaf = layer_pool[name]
+        leaf[blk, off] = new.to(leaf.dtype)
+    return layer_pool
+
+
+def verify_chunk_paged(params, pool, tables, tokens, pos, cfg):
+    """verify_chunk through the block tables: the same ragged windows,
+    their K/V scattered into the pool, attention read through the tables
+    by the paged kernel at span C (its int8 mode for an int8 pool) on
+    CUDA tensors, and by its plain version on the CPU, which is the JAX
+    function's gather path. Tables are read-only here; allocation,
+    including the speculative over-reserve and its release on reject, is
+    the batcher's. Returns (logits [B, C, vocab], pool)."""
+    _check_supported(cfg)
+    pos = pos.to(device=params.device, dtype=torch.int32)
+    x, positions = _window(params, tokens, pos, cfg)
+    for p, layer_pool in zip(params.layers, pool):
+        def attend(q, k, v, layer_pool=layer_pool):
+            _paged_write_ragged_chunk(layer_pool, k, v, tables, positions,
+                                      cfg)
+            return paged_attention(q.contiguous(), layer_pool, tables, pos)
+        x = _window_layer(x, p, cfg, positions, attend)
+    x = _rms_norm(x, params.ln_f)
+    return torch.einsum("bcd,vd->bcv", x, params.embed), pool
 
 
 # ----------------------------------------------------------- sampling ---
@@ -1057,3 +1226,179 @@ def generate(params, prompt, n_new, cfg, greedy=None, seed=0,
         return prompt
     cache = init_cache(cfg, b, device)
     return _generate_core(params, prompt, cache, n_new, cfg, controls, seed)
+
+
+# -------------------------------------------------- speculative decode ---
+
+def _spec_core(params, draft_params, prompt, cfg, dcfg, k, n_new):
+    """Prefill both models, then rounds of k draft steps and one verify
+    window of the big model, with the acceptance test and the masked
+    window write into the token buffer on the device. The JAX function
+    is one device program; here the rounds are a host loop over device
+    tensors, and a round's positions stay tensors, so nothing of a round
+    is read back except the one scalar that decides whether another
+    round runs. Returns (buffer [max_len + k + 1], acceptances
+    [max_len], rounds)."""
+    device = prompt.device
+    t_prompt = prompt.shape[1]
+    total = t_prompt + n_new
+    cache = init_cache(cfg, 1, device)
+    dcache = init_cache(dcfg, 1, device)
+    logits, cache = prefill(params, cache, prompt, cfg)
+    _, dcache = prefill(draft_params, dcache, prompt, dcfg)
+    # padded so the fixed-width (k + 1) window write near the budget edge
+    # stays in bounds; emissions past `total` are masked
+    buf = torch.zeros((cfg.max_len + k + 1,), dtype=torch.int32,
+                      device=device)
+    buf[:t_prompt] = prompt[0]
+    buf[t_prompt] = torch.argmax(logits[0]).to(torch.int32)
+    acc_log = torch.zeros((cfg.max_len,), dtype=torch.int32, device=device)
+    n = torch.full((1,), t_prompt + 1, dtype=torch.int64, device=device)
+    slots = torch.arange(k + 1, device=device)
+    rounds = 0
+    while int(n) < total:            # the one host read of a round
+        tok = buf[n - 1]
+        at = (n - 1).to(torch.int32)
+        drafts = []
+        for i in range(k):
+            dlogits, dcache = decode_step(draft_params, dcache, tok, at + i,
+                                          dcfg)
+            tok = torch.argmax(dlogits, dim=-1).to(torch.int32)
+            drafts.append(tok)
+        drafts = torch.cat(drafts)
+        # the k + 1 window rows are the contexts ending at buf[n - 1], d1,
+        # ..., dk: row i predicts position n + i (row k is the bonus after
+        # a full acceptance)
+        window = torch.cat([buf[n - 1], drafts])[None]
+        vlogits, cache = verify_chunk(params, cache, window, at, cfg)
+        target = torch.argmax(vlogits[0], dim=-1).to(torch.int32)
+        accepted = torch.cumprod((drafts == target[:k]).to(torch.int64),
+                                 dim=0).sum()
+        emit = torch.minimum(accepted + 1, total - n)
+        idx = n + slots
+        buf[idx] = torch.where(slots < emit, target, buf[idx])
+        acc_log[rounds] = accepted
+        n = n + emit
+        rounds += 1
+    return buf, acc_log, rounds
+
+
+@torch.no_grad()
+def speculative_generate(params, draft_params, prompt, n_new, cfg, draft_cfg,
+                         k_draft=4, return_stats=False, device=None):
+    """Greedy speculative decoding: the draft model proposes ``k_draft``
+    tokens a round, the big model verifies them all in one window
+    (:func:`verify_chunk`), and the longest agreeing prefix is accepted
+    with the big model's own next token. Every emitted token is the big
+    model's greedy argmax, so the stream is generate()'s up to
+    reduction-order ties between the window and the stepped decode.
+    Batch 1. k is clamped near max_len so every write stays inside both
+    caches. Returns [1, Tp+n_new] int32 on ``device`` (the current CUDA
+    device by default); with ``return_stats`` also {"acceptances": per
+    round, "big_model_launches": 1 + rounds}. Draft steps go through
+    :func:`decode_step` (the flash-decode kernel under the draft's
+    ``use_flash_kernel``). Both configs must share vocab_size."""
+    _check_supported(cfg)
+    _check_supported(draft_cfg)
+    device = resolve_device(device)
+    _check_params_device(params, device)
+    _check_params_device(draft_params, device)
+    if not torch.is_tensor(prompt):
+        prompt = torch.from_numpy(np.asarray(prompt))
+    prompt = prompt.to(device=device, dtype=torch.int32)
+    if prompt.shape[0] != 1:
+        raise ValueError("speculative decoding serves batch=1")
+    if cfg.vocab_size != draft_cfg.vocab_size:
+        raise ValueError("draft and target must share the vocab")
+    t_prompt = int(prompt.shape[1])
+    total = t_prompt + n_new
+    if total > min(cfg.max_len, draft_cfg.max_len):
+        raise ValueError("prompt+n_new exceeds a model's max_len")
+    if n_new < 1:
+        raise ValueError("n_new must be >= 1")
+    # the deepest in-round write is position n-1+k with n <= total-1
+    k = max(1, min(int(k_draft), cfg.max_len - total + 1,
+                   draft_cfg.max_len - total + 1))
+    buf, acc_log, rounds = _spec_core(params, draft_params, prompt, cfg,
+                                      draft_cfg, k, n_new)
+    out = buf[None, :total]
+    if return_stats:
+        return out, {"acceptances": acc_log[:rounds].tolist(),
+                     "big_model_launches": 1 + rounds}
+    return out
+
+
+# -------------------------------------------------------- beam search ---
+
+def _beam_core(params, prompt, cache, n_new, k, length_penalty, cfg):
+    """Prefill, the first expansion, then one decode_step a token with the
+    surviving beams' parents re-gathered (see beam_search)."""
+    b, t_prompt = prompt.shape
+    total = t_prompt + n_new
+    vocab = cfg.vocab_size
+    device = prompt.device
+    last_logits, cache = prefill(params, cache, prompt, cfg)
+    logp0 = torch.log_softmax(last_logits.float(), dim=-1)
+    # the top-k tokens of the last prompt position seed the beams; each
+    # row of the cache is repeated per beam (rows grouped b0's k beams,
+    # then b1's, ...)
+    scores, tok0 = torch.topk(logp0, k, dim=-1)                  # [B, k]
+    cache = [{n: leaf.repeat_interleave(k, dim=0) for n, leaf in layer.items()}
+             for layer in cache]
+    buf = torch.zeros((b * k, total), dtype=torch.int32, device=device)
+    buf[:, :t_prompt] = prompt.repeat_interleave(k, dim=0)
+    buf[:, t_prompt] = tok0.reshape(-1).to(torch.int32)
+    first = torch.arange(b, device=device)[:, None] * k
+    for pos in range(t_prompt, total - 1):
+        logits, cache = decode_step(params, cache, buf[:, pos], pos, cfg)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        cand = scores.reshape(b, k, 1) + logp.reshape(b, k, vocab)
+        scores, flat = torch.topk(cand.reshape(b, k * vocab), k, dim=-1)
+        row = (first + torch.div(flat, vocab, rounding_mode="floor")) \
+            .reshape(-1)
+        cache = [{n: leaf.index_select(0, row) for n, leaf in layer.items()}
+                 for layer in cache]
+        buf = buf.index_select(0, row)
+        buf[:, pos + 1] = torch.remainder(flat, vocab).reshape(-1) \
+            .to(torch.int32)
+    if length_penalty:
+        scores = scores / (float(total) ** length_penalty)
+    # beams come out sorted, best first (topk's order)
+    return buf.reshape(b, k, total), scores
+
+
+@torch.no_grad()
+def beam_search(params, prompt, n_new, cfg, beam=4, length_penalty=0.0,
+                mesh=None, device=None):
+    """Beam-search decoding over the KV cache: prompt [B, Tp] ->
+    (sequences [B, beam, Tp+n_new] int32, scores [B, beam] fp32), beams
+    sorted best first by total log-probability, divided by
+    (Tp+n_new)^length_penalty when it is set. The cache rides at batch
+    width B*beam and each step re-gathers the surviving beams' parents'
+    rows; each token is one :func:`decode_step` (the flash-decode kernel
+    under ``cfg.use_flash_kernel``). beam=1 is greedy generate() exactly.
+    Runs on ``device`` (the current CUDA device by default); ``mesh`` is
+    not ported yet (ROADMAP item A7)."""
+    _check_supported(cfg)
+    if mesh is not None:
+        raise NotImplementedError(
+            "beam_search(mesh=...) (sharded parameters and cache) waits for "
+            "ROADMAP item A7")
+    device = resolve_device(device)
+    _check_params_device(params, device)
+    if not torch.is_tensor(prompt):
+        prompt = torch.from_numpy(np.asarray(prompt))
+    prompt = prompt.to(device=device, dtype=torch.int32)
+    b, t_prompt = prompt.shape
+    total = t_prompt + n_new
+    if total > cfg.max_len:
+        raise ValueError("prompt+n_new %d exceeds max_len %d"
+                         % (total, cfg.max_len))
+    if n_new < 1:
+        raise ValueError("beam search needs n_new >= 1")
+    if not 1 <= beam <= cfg.vocab_size:
+        raise ValueError("beam width %d must be in [1, vocab_size=%d]"
+                         % (beam, cfg.vocab_size))
+    cache = init_cache(cfg, b, device)
+    return _beam_core(params, prompt, cache, n_new, int(beam),
+                      float(length_penalty), cfg)

@@ -147,8 +147,8 @@ def test_allocator_invariants_catch_leaks():
 
 
 @pytest.mark.parametrize("kwargs, error, match", [
-    (dict(spec_k=2), NotImplementedError, "A4"),
-    (dict(draft_cfg=object()), NotImplementedError, "A4"),
+    (dict(spec_k=2, greedy=False), ValueError, "greedy-only"),
+    (dict(draft_cfg=object()), ValueError, "without spec_k"),
     (dict(journal="/nowhere"), NotImplementedError, "A10"),
     (dict(chunk_size=0), ValueError, "chunk_size"),
     (dict(pipeline_depth=0), ValueError, "pipeline_depth"),
@@ -156,10 +156,11 @@ def test_allocator_invariants_catch_leaks():
     (dict(paged=True, block_size=7), ValueError, "block_size"),
 ])
 def test_unported_batcher_options_raise(kwargs, error, match):
-    """What is still refused or invalid: speculative dispatch and the
-    journal name their ROADMAP items; a zero chunk or depth, greedy with
-    a sampling control and a block size that does not divide max_len are
-    invalid, as in the JAX batcher."""
+    """What is still refused or invalid: the journal names its ROADMAP
+    item; speculative dispatch with sampling, a draft model without
+    spec_k, a zero chunk or depth, greedy with a sampling control and a
+    block size that does not divide max_len are invalid, with the JAX
+    batcher's errors."""
     tcfg = ttf.TransformerConfig(**CFG)
     tp = ttf.init_params(tcfg, device="cpu")
     with pytest.raises(error, match=match):
@@ -168,12 +169,17 @@ def test_unported_batcher_options_raise(kwargs, error, match):
 
 @pytest.mark.parametrize("kwargs", [dict(priority=1), dict(key="k")])
 def test_unported_admission_options_raise(kwargs):
+    """Once refused, ``priority`` and ``key`` are admission options now:
+    with free capacity a priority admission preempts nobody, and a key
+    given twice admits once."""
     tcfg = ttf.TransformerConfig(**CFG)
     tp = ttf.init_params(tcfg, device="cpu")
     srv = tsv.ContinuousBatcher(tp, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        srv.admit([1, 2, 3], 2, **kwargs)
-    assert srv.active_count == 0
+    rid = srv.admit([1, 2, 3], 2, **kwargs)
+    again = srv.admit([1, 2, 3], 2, **kwargs)
+    assert rid is not None and not srv.preempted
+    assert srv.active_count == (1 if "key" in kwargs else 2)
+    assert (again == rid) == ("key" in kwargs)
 
 
 def test_cache_prefix_disabled_by_zero_slots():
