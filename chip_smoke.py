@@ -112,6 +112,29 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    launches; ``speculative_generate`` and ``beam_search`` (beam 4, batch
    2) at the serving model's width with exact launches; every
    speculative dispatch, lane patch and free under the sync detector;
+   then (``durable_phase``, PR 14) the durable serving stack: the
+   journal A/B of ``serving_bench.py`` (SERVE_CFG's model at max_len
+   2048, 8 jobs of 96-191 + 64 tokens, 4 lanes, paged, depth 2; a
+   warm-up, then the journal off and on in turns, journals in TMPDIR):
+   streams and dispatch counts bitwise equal, every replay 8 finished,
+   B3 n_layers times a dispatch and nothing else, every dispatch under
+   the sync detector; a child process (``--durable-child DIR MODE``)
+   killed at a journal commit point (exit code 9), greedy with spec_k
+   2 and sampled, recovered here: nothing skipped, the streams the
+   uninterrupted run's up to a teacher-forced near tie (sampled: the
+   smallest logit shift that flips the sampler), the pool quiescent;
+   an injected out-of-memory dispatch of the dispatch mix (chunk 16,
+   depth 2) that parks blocks with no lane rebuild and one failure; the
+   router's overload leg without brownout (2 replicas x 3 lanes, paged
+   and then dense, r1 failing dispatches 1-4): no deadlock, nothing
+   above priority 0 dropped, r1 back with its breaker closed, the
+   streams teacher-forced; a rolling rollout to a checkpointed second
+   seed (lineage verified, both fingerprints the manifest's, each
+   canary printed beside ``generate()``'s), one whose canary lies
+   (rolled back), and a checkpoint with a flipped byte (refused); and
+   the training flagship cut to 2 layers: an async save with the next
+   step taken at once, ``resume_from_latest``, the restored state and
+   the resumed run bitwise (else within the gradient gate);
 6. takes one training step of the LM of ``benchmark/train_lm_bench.py``
    at full width (vocab 32000, d_model 1024, 8 heads of 128, 12 layers,
    d_ff 4096, 1024 positions, batch 8, rope, random weights from a seed)
@@ -221,6 +244,12 @@ Run from the root of a checkout on a machine with one CUDA GPU and
 
 Any failed check raises, so the script exits nonzero and prints no
 result line. It imports nothing of JAX or of the JAX package.
+
+    python3 chip_smoke.py --durable-child DIR MODE
+
+is the durable phase's child: it serves the journal A/B's mix with a
+journal in DIR (MODE ``greedy`` or ``sampled``) until the chaos crash
+kills it.
 
     python3 chip_smoke.py --decode-host OTHER
 
@@ -2209,6 +2238,798 @@ def spec_phase(torch, F, tf, sv, kernels, params, cfg, device):
             "verify": verify, "solo": solo}
 
 
+# ------------------------------------------------------ durable serving ---
+# serving_bench.py's journal_ab at full width: 8 jobs from RandomState(31)
+# of 96-191 prompt and 64 new tokens, 4 lanes, paged, depth 2
+DURABLE = dict(max_len=2048, jobs=8, prompt=192, n_new=64, lanes=4,
+               block_size=16, seed=31)
+DURABLE_SAMPLE = dict(temperature=0.8, top_k=50, top_p=0.95)
+JOURNAL_ROUNDS = 3                # off / on pairs of the journal A/B
+# journal.append matches twice a record (the pre-write fire and the at-rest
+# corrupt_file hook): 600 dies at the 301st record's write, in the second
+# wave of requests, with the first wave finished
+DURABLE_CRASH_AT = 600
+DURABLE_OOM_AT = 5
+# serving_bench.py's overload leg without brownout: 2 replicas x 3 lanes,
+# 96-token prompts, 4 steady requests of 128 new tokens, then a storm of
+# 4 p2 + 4 p1 + 6 p0 + 2 p0 with deadline_ms=0, 64 new each
+OVERLOAD = dict(max_len=4096, prompt=96, block_size=16, lanes=3,
+                steady_new=128, storm_new=64, storm=(4, 4, 6), expired=2,
+                shed_queue=8, seed=12, rounds=600)
+# the rollout's traffic: 6 requests on 2 x 4 lanes, some short enough to finish on the
+# replica still serving the old weights, the rest restarted from their
+# prompt when no replica is left on those weights (the JAX router's
+# version affinity); the rollout starts after ``warm`` fleet steps
+ROLLOUT = dict(requests=6, prompt_lo=32, prompt_hi=128, new_lo=6, new_hi=40,
+               lanes=4, seed=5, warm=2, rounds=2000)
+# train_lm_bench.py's flagship cut to 2 layers: steps before the async
+# save, then after it, in the uninterrupted run
+RESUME_CFG = dict(TRAIN_CFG, n_layers=2)
+RESUME = dict(batch=8, before=2, after=3, lr=1e-2)
+
+
+def durable_root():
+    """A fresh git-ignored directory of the checkout for journals and
+    checkpoints (removed when the phase ends)."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "durable")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def durable_jobs(cfg, sampled=False):
+    """journal_ab's jobs: (prompt, n_new, seed); sampled runs seed each
+    request on its own."""
+    rng = np.random.RandomState(DURABLE["seed"])
+    t_prompt, jobs = DURABLE["prompt"], []
+    for i in range(DURABLE["jobs"]):
+        t_p = int(rng.randint(max(2, t_prompt // 2), t_prompt))
+        jobs.append((list(rng.randint(1, cfg.vocab_size, t_p)),
+                     DURABLE["n_new"], 100 + i if sampled else 0))
+    return jobs
+
+
+def durable_cfg(torch, tf):
+    return tf.TransformerConfig(dtype=torch.bfloat16,
+                                **dict(SERVE_CFG, max_len=DURABLE["max_len"]))
+
+
+def durable_batcher(torch, sv, params, cfg, device, journal=None, **kw):
+    """A journal_ab batcher (its pool: the lanes' lifetimes plus 2 blocks);
+    every dispatch, lane patch and free under the sync detector."""
+    bs = DURABLE["block_size"]
+    life = (DURABLE["prompt"] + DURABLE["n_new"] - 2) // bs + 1
+    srv = sv.ContinuousBatcher(
+        params, cfg, max_batch=DURABLE["lanes"], paged=True, block_size=bs,
+        num_blocks=DURABLE["lanes"] * life + 2, pipeline_depth=2,
+        journal=journal, device=device, **kw)
+    return no_sync(torch, srv, ("_dispatch_spec" if kw.get("spec_k")
+                                else "_dispatch_chunk", "_patch_lane",
+                                "_free"))
+
+
+CRASH_MODES = {"greedy": dict(spec_k=2, spec_ngram=2),
+               "sampled": DURABLE_SAMPLE}
+
+
+def durable_child(path, mode):
+    """``--durable-child DIR MODE``: serve the journal_ab mix on the card
+    with a journal in DIR until the chaos crash at a journal commit point
+    kills the process with exit code 9."""
+    import torch
+    from mxnet_tpu_torch.models import serving as sv
+    from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.observability import chaos
+    device = torch.device("cuda", 0)
+    cfg = durable_cfg(torch, tf)
+    params = tf.init_params(cfg, seed=0, device=device)
+    srv = durable_batcher(torch, sv, params, cfg, device, journal=path,
+                          **CRASH_MODES[mode])
+    chaos.install("journal.append:crash:at=%d:code=9" % DURABLE_CRASH_AT)
+    srv.run(durable_jobs(cfg, mode == "sampled"))
+    raise SystemExit("durable child: served to the end, the crash never "
+                     "fired")
+
+
+def sampler_flip(torch, tf, row, noise, a, b, limit=4.0):
+    """The smallest shift s of logits ``row`` [1, V] that makes the
+    sampler (DURABLE_SAMPLE, with ``noise``) choose token ``a`` over its
+    choice ``b``: ``a`` raised by s, ``b`` lowered by s, or each by s / 2
+    (a top-k or top-p boundary flips as well as an argmax); inf when none
+    within ``limit``."""
+    c = DURABLE_SAMPLE
+
+    def chooses(da, db):
+        r = row.clone()
+        r[0, a] += da
+        r[0, b] -= db
+        return int(tf._sample_logits(r, noise, c["temperature"], c["top_k"],
+                                     c["top_p"])[0]) == a
+    best = float("inf")
+    for wa, wb in ((1.0, 0.0), (0.0, 1.0), (0.5, 0.5)):
+        if not chooses(limit * wa, limit * wb):
+            continue
+        lo, hi = 0.0, limit
+        for _ in range(24):
+            mid = (lo + hi) / 2
+            if chooses(mid * wa, mid * wb):
+                hi = mid
+            else:
+                lo = mid
+        best = min(best, hi)
+    return best
+
+
+def durable_gate(torch, tf, params, cfg, got, want, prompts, what,
+                 sampled=False, seeds=None):
+    """Streams ``got`` equal ``want``, or first leave them at a token whose
+    teacher-forced gap is within TOL_TEACHER: greedy, the top-1/top-2 gap
+    of want's teacher-forced logits (PR 13's rule); sampled, the smallest
+    shift of those logits that makes the sampler, with the request's
+    noise at that token, choose got's token (``sampler_flip``). Returns
+    the count of such streams."""
+    gaps = []
+    for a, b, p, seed in zip(got, want, prompts,
+                             seeds or [0] * len(got)):
+        if len(a) != len(b) or a[:len(p)] != p:
+            raise AssertionError("%s: a malformed stream" % what)
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if n is None:
+            continue
+        rows, _ = teacher_rows(torch, tf, params, cfg, b[:n + 1], len(p))
+        row = rows[-1:]
+        if sampled:
+            dev = row.device
+            noise = tf._gumbel(
+                torch.tensor([tf._seed_word(seed)], device=dev),
+                torch.tensor([n - len(p)], device=dev),
+                torch.zeros((1,), dtype=torch.int64, device=dev),
+                cfg.vocab_size, dev)
+            gaps.append(sampler_flip(torch, tf, row, noise, a[n], b[n]))
+        else:
+            top = torch.topk(row[0], 2).values
+            gaps.append(float(top[0] - top[1]))
+    log("%s: %d of %d streams equal; first splits at teacher gaps %s (tol "
+        "%g)" % (what, len(got) - len(gaps), len(got),
+                 [round(g, 4) for g in gaps], TOL_TEACHER))
+    if any(g > TOL_TEACHER for g in gaps):
+        raise AssertionError("%s: a stream leaves the reference at a token "
+                             "the model is sure of" % what)
+    return len(gaps)
+
+
+def append_us(journal_cls, path, records=2000):
+    """Host microseconds per ``append_emit`` of one token into a fresh
+    journal in ``path`` (the record journal_ab writes a lane a sync)."""
+    j = journal_cls(path)
+    j.append_submit(0, list(range(150)), 64, emitted=1)
+    t0 = time.perf_counter()
+    for k in range(records):
+        j.append_emit(0, [k % 32000], k + 2)
+    us = 1e6 * (time.perf_counter() - t0) / records
+    j.close()
+    return us
+
+
+def journal_ab(torch, sv, kernels, params, cfg, device, root):
+    """journal_ab: a warm-up, then JOURNAL_ROUNDS rounds of the journal off
+    and on in turns (off on on off ...), each journal in a fresh directory
+    under TMPDIR. Streams and dispatch counts bitwise equal, every replay
+    all finished, each dispatch n_layers B3 launches and nothing else,
+    every dispatch under the sync detector. Also times one record's
+    append in TMPDIR and in the checkout."""
+    import tempfile
+    from mxnet_tpu_torch.models.journal import RequestJournal
+    jobs = durable_jobs(cfg)
+    launches = collections.Counter()
+    tmp = tempfile.mkdtemp(prefix="journal-ab-")
+
+    in_loop = []                      # host s inside the journal's appends
+
+    def leg(journal, what):
+        srv = durable_batcher(torch, sv, params, cfg, device, journal)
+        if srv._journal is not None:
+            real, spent = srv._journal._append, [0.0]
+
+            def timed(obj):
+                t = time.perf_counter()
+                real(obj)
+                spent[0] += time.perf_counter() - t
+            srv._journal._append = timed
+            in_loop.append(spent)
+        kernels.launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, order = srv.run(list(jobs))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_only(kernels,
+                   {"paged_decode": cfg.n_layers * srv.dispatch_count}, what)
+        launches.update(kernels.launches)
+        check_clean(srv, what)
+        srv.check_invariants(quiesce=True)
+        return ([results[r] for r in order], srv.dispatch_count,
+                len(jobs) * DURABLE["n_new"] / seconds)
+
+    try:
+        base = leg(None, "journal warm-up")
+        rates = {"off": [], "on": []}
+        depth = records = 0
+        for k in range(2 * JOURNAL_ROUNDS):
+            on = (k % 4) in (1, 2)
+            jdir = os.path.join(tmp, "leg%d" % k) if on else None
+            out = leg(jdir, "journal %s" % ("on" if on else "off"))
+            if out[:2] != base[:2]:
+                raise AssertionError("journal A/B: the journal changed the "
+                                     "streams or the dispatch count")
+            rates["on" if on else "off"].append(out[2])
+            if on:
+                j = RequestJournal(jdir)
+                live, fin, skipped = j.replay()
+                depth, records = j.depth_bytes, j.lag_records
+                j.close()
+                if live or skipped or len(fin) != len(jobs):
+                    raise AssertionError(
+                        "journal A/B: replay gave %d live, %d finished, %d "
+                        "skipped" % (len(live), len(fin), len(skipped)))
+        cost = {"TMPDIR": append_us(RequestJournal,
+                                    os.path.join(tmp, "append")),
+                "checkout": append_us(RequestJournal,
+                                      os.path.join(root, "append"))}
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    off, on = float(np.median(rates["off"])), float(np.median(rates["on"]))
+    log("journal A/B (%d jobs, %d lanes, max_len %d, depth 2, journals in "
+        "TMPDIR): %d dispatches each; tokens/s off %s, on %s (in turns); "
+        "medians off %.1f, on %.1f: overhead %.2f%%; journal %d bytes in %d "
+        "records, replay 8 finished, 0 live, 0 skipped; the appends took "
+        "%s s of each on run's host time; one record's append alone %.1f "
+        "us in TMPDIR, %.1f us in the checkout"
+        % (len(jobs), DURABLE["lanes"], cfg.max_len, base[1],
+           [round(r, 1) for r in rates["off"]],
+           [round(r, 1) for r in rates["on"]], off, on,
+           100.0 * (off - on) / off, depth, records,
+           [round(t[0], 4) for t in in_loop], cost["TMPDIR"],
+           cost["checkout"]))
+    return {"launches": launches, "overhead_pct": 100.0 * (off - on) / off,
+            "bytes": depth}
+
+
+def crash_recover(torch, tf, sv, kernels, params, cfg, device, root, mode):
+    """A child process on the card dies at a journal commit point (exit
+    code 9); a fresh batcher here recovers its journal and serves to the
+    end: nothing skipped, every stream the uninterrupted run's up to the
+    teacher-gap rule, the pool quiescent."""
+    sampled = mode == "sampled"
+    jobs = durable_jobs(cfg, sampled)
+    kw = CRASH_MODES[mode]
+    ref = durable_batcher(torch, sv, params, cfg, device, **kw)
+    want, order = ref.run(list(jobs))
+    check_clean(ref, "crash reference " + mode)
+    want = [want[r] for r in order]
+    jdir = os.path.join(root, "crash-" + mode)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--durable-child", jdir, mode],
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 9:
+        raise AssertionError("durable child (%s) exited %d, not 9: %s"
+                             % (mode, proc.returncode, proc.stderr[-3000:]))
+    srv = durable_batcher(torch, sv, params, cfg, device, journal=jdir, **kw)
+    kernels.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed, got, skipped = srv.recover()
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    if skipped:
+        raise AssertionError("recover (%s) skipped records: %s"
+                             % (mode, skipped))
+    finished_before = len(got)
+    new2old = {v: k for k, v in resumed.items() if v is not None}
+    # jobs the child never admitted have no record: the client submits
+    # them again (rids were given in job order)
+    missing = [i for i in range(len(jobs)) if i not in got
+               and i not in resumed]
+    res, again = srv.run([jobs[i] for i in missing])
+    new2old.update(zip(again, missing))
+    # run() resumes a parked record under its journaled rid
+    for rid, toks in res.items():
+        got[new2old.get(rid, rid)] = toks
+    what = "crash and recover (%s%s)" % (
+        mode, ", spec_k 2" if kw.get("spec_k") else "")
+    check_only(kernels, {"paged_decode": cfg.n_layers * srv.dispatch_count},
+               what)
+    check_clean(srv, what)
+    srv.check_invariants(quiesce=True)
+    if sorted(got) != list(range(len(jobs))):
+        raise AssertionError("%s: recovered rids %s" % (what, sorted(got)))
+    split = durable_gate(torch, tf, params, cfg, [got[i] for i in order],
+                         want, [p for p, _, _ in jobs], what, sampled,
+                         [s for _, _, s in jobs])
+    log("%s: child died with code 9 after %.1f s; the journal held %d "
+        "finished and %d live requests, %d never admitted were submitted "
+        "again; recover() %.3f s, %d dispatches to the end, %d B3 "
+        "launches, %d diverging streams"
+        % (what, child_s, finished_before, len(resumed), len(missing),
+           recover_s, srv.dispatch_count, kernels.launches["paged_decode"],
+           split))
+    return {"launches": collections.Counter(kernels.launches),
+            "recover_s": recover_s}
+
+
+def oom_shrink(torch, tf, sv, kernels, params, cfg, device):
+    """serving.dispatch:oom at the 5th dispatch of a paged batcher of the
+    dispatch mix (8 lanes, chunk 16, depth 2): blocks parked, exactly one
+    failure, no lane rebuild, the streams the run without the fault's."""
+    from mxnet_tpu_torch.observability import chaos
+    jobs = dispatch_jobs(cfg)
+    ref = dispatch_batcher(sv, params, cfg, device, True, 16, 2)
+    want, order = ref.run(jobs)
+    check_clean(ref, "oom reference")
+    want = [want[r] for r in order]
+    srv = dispatch_batcher(sv, params, cfg, device, True, 16, 2)
+    rebuilds, real = [], srv._rebuild_state
+
+    def rebuild():
+        rebuilds.append(1)
+        real()
+    srv._rebuild_state = rebuild
+    parked, victims = [], []
+    real_shrink = srv.shrink_pool
+
+    def shrink(n):
+        before = len(srv.preempted)
+        parked.append(real_shrink(n))
+        victims.append(len(srv.preempted) - before)
+        return parked[-1]
+    srv.shrink_pool = shrink
+    chaos.install("serving.dispatch:oom:at=%d" % DURABLE_OOM_AT)
+    try:
+        kernels.launches.clear()
+        got, order = srv.run(jobs)
+    finally:
+        chaos.reset()
+    what = "oom shrink"
+    check_only(kernels, {"paged_decode": cfg.n_layers * 16
+                         * srv.dispatch_count}, what)
+    check_clean(srv, what, 1, ("RESOURCE_EXHAUSTED",))
+    srv.check_invariants(quiesce=True)
+    if rebuilds or not parked or not parked[0] > 0:
+        raise AssertionError("%s: parked %s blocks, %d lane rebuilds"
+                             % (what, parked, len(rebuilds)))
+    split = durable_gate(torch, tf, params, cfg, [got[r] for r in order],
+                         want, [p for p, _, _ in jobs], what)
+    log("%s: the fault at dispatch %d parked %d of %d blocks, %d lanes "
+        "preempted and resumed, 1 failure, no rebuild, %d dispatches, %d "
+        "diverging streams" % (what, DURABLE_OOM_AT, parked[0],
+                               srv.num_blocks - 1, victims[0],
+                               srv.dispatch_count, split))
+    return {"launches": collections.Counter(kernels.launches)}
+
+
+def overload_jobs(cfg):
+    """(prompt, n_new, priority, deadline_ms): steady, then the storm."""
+    o = OVERLOAD
+    rng = np.random.RandomState(o["seed"])
+
+    def prompt():
+        return list(rng.randint(1, cfg.vocab_size, o["prompt"]))
+    steady = [(prompt(), o["steady_new"], 0, None) for _ in range(4)]
+    n2, n1, n0 = o["storm"]
+    storm = ([(prompt(), o["storm_new"], 2, None) for _ in range(n2)]
+             + [(prompt(), o["storm_new"], 1, None) for _ in range(n1)]
+             + [(prompt(), o["storm_new"], 0, None) for _ in range(n0)]
+             + [(prompt(), o["storm_new"], 0, 0)
+                for _ in range(o["expired"])])
+    return steady, storm
+
+
+def overload(torch, tf, rt, kernels, params, cfg, device, paged):
+    """The overload leg: r1 fails its dispatches 1-4, drains, its breaker
+    opens, probes and closes. No deadlock, nothing above priority 0
+    dropped, p1/p2 attainment 1.0, r1 alive and closed, the completed
+    streams teacher-forced, the replicas quiescent."""
+    from mxnet_tpu_torch.observability import chaos
+    o = OVERLOAD
+    kw = dict(paged=True, block_size=o["block_size"],
+              num_blocks=2 * ((o["prompt"] + o["steady_new"] - 2)
+                              // o["block_size"] + 1) + 1) if paged else {}
+    r = rt.ReplicaRouter.build(params, cfg, n_replicas=2,
+                               max_batch=o["lanes"],
+                               shed_queue=o["shed_queue"], breaker=True,
+                               device=device, **kw)
+    steady, storm = overload_jobs(cfg)
+    prio, prompt_of = {}, {}
+
+    def submit(batch):
+        for p, n, pr, ddl in batch:
+            rid = r.submit(p, n, priority=pr, deadline_ms=ddl)
+            prio[rid], prompt_of[rid] = pr, p
+    kernels.launches.clear()
+    t0 = time.perf_counter()
+    results, rounds = {}, 0
+    submit(steady)
+    try:
+        for _ in range(2):
+            results.update(r.step())
+            rounds += 1
+        chaos.install(";".join("serving.dispatch.r1:error:at=%d" % k
+                               for k in range(1, 5)))
+        submit(storm)
+        while (r._queue or r._live) and rounds < o["rounds"]:
+            results.update(r.step())
+            rounds += 1
+    finally:
+        chaos.reset()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    what = "overload (%s replicas)" % ("paged" if paged else "dense")
+    kernel = "paged_decode" if paged else "flash_decode"
+    dispatches = sum(rep.dispatch_count for rep in r.replicas)
+    check_only(kernels, {kernel: cfg.n_layers * dispatches}, what)
+    if r._queue or r._live:
+        raise AssertionError("%s: deadlocked after %d rounds" % (what, rounds))
+    for rep in r.replicas:
+        rep.check_invariants(quiesce=True)
+    if [rep.dispatch_failures for rep in r.replicas] != [0, 4]:
+        raise AssertionError("%s: dispatch failures %s, not the 4 injected "
+                             "into r1" % (what, [rep.dispatch_failures
+                                                 for rep in r.replicas]))
+    dropped = set(r.shed_rids) | set(r.expired_rids)
+    if any(prio[rid] > 0 for rid in dropped):
+        raise AssertionError("%s: dropped a request above priority 0" % what)
+    done = [rid for rid in prio if rid not in dropped]
+    if any(results.get(rid) is None for rid in done):
+        raise AssertionError("%s: a request neither completed nor dropped"
+                             % what)
+    attain = {p: sum(1 for rid in prio if prio[rid] == p
+                     and rid not in dropped)
+              / float(sum(1 for rid in prio if prio[rid] == p))
+              for p in (0, 1, 2)}
+    if attain[1] < 1.0 or attain[2] < 1.0:
+        raise AssertionError("%s: attainment %s" % (what, attain))
+    if r._alive != [True, True] or r._brk_state != ["closed", "closed"]:
+        raise AssertionError("%s: r1 did not come back: alive %s, breakers "
+                             "%s" % (what, r._alive, r._brk_state))
+    gap = teacher_gap(torch, tf, params, cfg, [results[rid] for rid in done],
+                      [len(prompt_of[rid]) for rid in done])
+    if not gap <= TOL_TEACHER:
+        raise AssertionError("%s: teacher-forced gap %.4f" % (what, gap))
+    log("%s: %d rounds, %.2f s, %d completed, %d shed, %d expired, "
+        "attainment p0 %.3f p1 %.3f p2 %.3f, breaker %s, %s launches %d, "
+        "teacher-forced max gap %.4f (tol %g)"
+        % (what, rounds, seconds, len(done), len(r.shed_rids),
+           len(r.expired_rids), attain[0], attain[1], attain[2],
+           r.breaker_events, kernel, kernels.launches[kernel], gap,
+           TOL_TEACHER))
+    return {"launches": collections.Counter(kernels.launches)}
+
+
+def rollout_jobs(cfg):
+    rng = np.random.RandomState(ROLLOUT["seed"])
+    return [(list(rng.randint(1, cfg.vocab_size,
+                              rng.randint(ROLLOUT["prompt_lo"],
+                                          ROLLOUT["prompt_hi"] + 1))),
+             int(rng.randint(ROLLOUT["new_lo"], ROLLOUT["new_hi"] + 1)))
+            for _ in range(ROLLOUT["requests"])]
+
+
+def canary_check(torch, tf, ro, params, cfg, what):
+    """Print each canary beside generate()'s; a divergence passes only at a
+    token whose teacher-forced gap (under the swapped-in weights) is
+    within TOL_TEACHER, and the line says so. Returns the diverged
+    canaries' gaps."""
+    gaps = []
+    for name, toks, expected in ro.get("canaries", []):
+        line = "%s: canary on %s %s, generate() %s" % (what, name, toks[3:],
+                                                      expected[3:])
+        if toks != expected:
+            n, gap = first_split(torch, tf, params, cfg, toks, expected, 3)
+            gaps.append(gap)
+            line += ("; DIVERGES at token %d with teacher-forced gap %.4f "
+                     "(tol %g): a near tie between prefill_chunk + the "
+                     "decode kernels and generate()'s flash path"
+                     % (n - 3, gap, TOL_TEACHER))
+            if not gap <= TOL_TEACHER:
+                raise AssertionError(line)
+        log(line)
+    return gaps
+
+
+def rollout_fleet(rt, params, cfg, device):
+    return rt.ReplicaRouter.build(params, cfg, n_replicas=2,
+                                  max_batch=ROLLOUT["lanes"], paged=True,
+                                  block_size=16, device=device)
+
+
+def rollout_drive(torch, r, jobs, start):
+    """Submit the jobs, take ROLLOUT["warm"] fleet steps, ``start()`` the
+    rollout, record each live stream's synced prefix, and drive to the
+    end."""
+    order = [r.submit(p, n) for p, n in jobs]
+    results = {}
+    for _ in range(ROLLOUT["warm"]):
+        results.update(r.step())
+    synced = {}
+    for (i, rep_rid), (rid, _) in r._live.items():
+        req = next(q for q in r.replicas[i]._slots
+                   if q is not None and q.rid == rep_rid)
+        synced[rid] = list(req.tokens)
+    start()
+    rounds = 0
+    while (r._queue or r._live or r.rollout_phase in ("draining", "canary")) \
+            and rounds < ROLLOUT["rounds"]:
+        results.update(r.step())
+        rounds += 1
+    if r._queue or r._live:
+        raise AssertionError("rollout: stalled after %d rounds" % rounds)
+    return order, results, synced, rounds
+
+
+def rollout_phase(torch, tf, rt, ck, kernels, params, cfg, device, root):
+    """Checkpoint a second seed's weights, verify its lineage, roll a
+    2-replica paged fleet to it mid-traffic (done, both fingerprints the
+    manifest's, nothing dropped, synced prefixes kept), roll again with a
+    canary that lies (rolled back, prior fingerprints, nothing dropped),
+    and refuse a checkpoint with one flipped byte."""
+    import warnings
+    from mxnet_tpu_torch.observability import chaos
+    new = tf.init_params(cfg, seed=1, device=device)
+    ckdir = os.path.join(root, "rollout-ckpt")
+    t0 = time.perf_counter()
+    ck.save_checkpoint(ckdir, cfg, new, step=1)
+    save_s = time.perf_counter() - t0
+    chain = ck.verify_lineage(ckdir, deep=True)
+    if [e["status"] for e in chain] != ["verified"]:
+        raise AssertionError("rollout checkpoint lineage: %s" % chain)
+    with open(os.path.join(ckdir, "manifest.json")) as f:
+        want_fp = json.load(f)["param_fingerprint"]
+    jobs = rollout_jobs(cfg)
+    kernels.launches.clear()
+    r = rollout_fleet(rt, params, cfg, device)
+    old_fp = r.replicas[0].weight_fingerprint
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        order, results, synced, rounds = rollout_drive(
+            torch, r, jobs, lambda: r.start_rollout(new, manifest=ckdir))
+    what = "rollout"
+    ro = r._rollout
+    gaps = canary_check(torch, tf, ro, new, cfg, what)
+    fps = [rep.weight_fingerprint for rep in r.replicas]
+    if r.rollout_phase != "done":
+        if not (gaps and ro.get("reason", "").startswith("canary diverged")):
+            raise AssertionError("rollout ended %s: %s" % (r.rollout_phase,
+                                                          ro.get("reason")))
+        log("rollout: rolled back on a near-tie canary under verified "
+            "weights (recorded in ROADMAP section C)")
+    elif fps != [want_fp] * 2 or any("router:" in str(w.message)
+                                     for w in warned):
+        raise AssertionError("rollout: fingerprints %s, manifest %s, "
+                             "warnings %s" % (fps, want_fp,
+                                              [str(w.message)
+                                               for w in warned]))
+    restarted = check_rollout_streams(torch, tf, params, new, cfg, jobs,
+                                      order, results, synced, what)
+    for rep in r.replicas:
+        rep.check_invariants(quiesce=True)
+        check_clean(rep, what)
+    log("rollout: save %.3f s, lineage %s, %d rounds, phases %s, "
+        "fingerprints %s -> %s (manifest %s), %d streams kept their synced "
+        "prefix, %d restarted from their prompt under the new weights"
+        % (save_s, chain[0]["status"], rounds,
+           [e[0] for e in r.rollout_events], old_fp, fps, want_fp,
+           len(synced) - restarted, restarted))
+    launches = collections.Counter(kernels.launches)
+    # a canary that lies: rolled back, prior fingerprints, nothing dropped
+    r = rollout_fleet(rt, params, cfg, device)
+    kernels.launches.clear()
+    chaos.install("router.rollout:error:at=1")
+    try:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            order, results, synced, rounds = rollout_drive(
+                torch, r, jobs, lambda: r.start_rollout(new, manifest=ckdir))
+    finally:
+        chaos.reset()
+    launches.update(kernels.launches)
+    what = "rollout with a lying canary"
+    canary_check(torch, tf, r._rollout, new, cfg, what)
+    fps = [rep.weight_fingerprint for rep in r.replicas]
+    if r.rollout_phase != "rolled_back" or fps != [old_fp] * 2 \
+            or not any("rolled back" in str(w.message) for w in warned):
+        raise AssertionError("%s: %s, fingerprints %s" % (
+            what, r.rollout_phase, fps))
+    check_rollout_streams(torch, tf, params, new, cfg, jobs, order, results,
+                          synced, what)
+    for rep in r.replicas:
+        rep.check_invariants(quiesce=True)
+        check_clean(rep, what)
+    log("%s: %d rounds, events %s, fingerprints back at %s"
+        % (what, rounds, [e[0] for e in r.rollout_events], fps))
+    # one flipped bit in the retained manifest's fingerprint
+    r = rollout_fleet(rt, params, cfg, device)
+    name = chain[0]["name"]
+    path = os.path.join(ckdir, name)
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    off = data.index(b'"param_fingerprint": "') + len('"param_fingerprint": "')
+    data[off] ^= 0x01
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+    try:
+        r.start_rollout(new, manifest=ckdir)
+    except ck.CheckpointCorrupt as exc:
+        log("rollout of a checkpoint with one flipped byte refused: %s" % exc)
+    else:
+        raise AssertionError("a corrupt checkpoint rolled out")
+    if r._rollout is not None or any(rep.weight_fingerprint != old_fp
+                                     for rep in r.replicas):
+        raise AssertionError("the refused rollout touched the fleet")
+    return {"launches": launches, "save_s": save_s}
+
+
+def check_rollout_streams(torch, tf, params, new, cfg, jobs, order, results,
+                          synced, what):
+    """Nothing dropped; a stream live at the rollout's start keeps its
+    synced prefix, unless the router restarted it from its prompt (no
+    replica was left on its weights), when its whole generated part must
+    pass the teacher-forced check under the new weights. Every other
+    stream passes it under whichever weights served it. Returns the
+    restarted count."""
+    restarted = 0
+    for rid, (prompt, n_new) in zip(order, jobs):
+        toks = results.get(rid)
+        if toks is None or len(toks) != len(prompt) + n_new \
+                or toks[:len(prompt)] != prompt:
+            raise AssertionError("%s: request %d dropped or malformed"
+                                 % (what, rid))
+        pre = synced.get(rid)
+        if pre is not None and toks[:len(pre)] == pre:
+            continue
+        gaps = [teacher_gap(torch, tf, w, cfg, [toks], [len(prompt)])
+                for w in (params, new)]
+        if pre is not None:
+            restarted += 1
+            if not gaps[1] <= TOL_TEACHER:
+                raise AssertionError(
+                    "%s: request %d lost its synced prefix and is not the "
+                    "new weights' stream (gap %.4f)" % (what, rid, gaps[1]))
+        elif not min(gaps) <= TOL_TEACHER:
+            raise AssertionError("%s: request %d matches neither weights "
+                                 "(gaps %s)" % (what, rid, gaps))
+    return restarted
+
+
+def train_resume(torch, tf, ck, kernels, device, root):
+    """train_lm_bench.py's flagship cut to 2 layers, bf16: 2 steps, an
+    async save, the next step at once, then more; resume_from_latest into
+    a fresh model and momentum takes the same steps. The restored state
+    must equal the snapshot bitwise, and the resumed run the
+    uninterrupted one (bitwise, else within the train phase's gradient
+    gate)."""
+    cfg = tf.TransformerConfig(dtype=torch.bfloat16, **RESUME_CFG)
+    step = tf.make_train_step(cfg, lr=RESUME["lr"])
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    batches = [torch.randint(0, cfg.vocab_size,
+                             (RESUME["batch"], cfg.max_len), generator=gen)
+               .to(device) for _ in range(RESUME["before"]
+                                          + RESUME["after"])]
+    params = tf.init_params(cfg, seed=0, device=device)
+    mom = tf.init_momentum(params)
+    ckdir = os.path.join(root, "train-ckpt")
+    kernels.launches.clear()
+    for b in batches[:RESUME["before"]]:
+        step(params, mom, b)
+    snap_p = {n: p.clone() for n, p in params.named_parameters()}
+    snap_m = {n: m.clone() for n, m in mom.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save_checkpoint(ckdir, cfg, params, momentum=mom,
+                       step=RESUME["before"], async_save=True)
+    call_s = time.perf_counter() - t0
+    for b in batches[RESUME["before"]:]:
+        step(params, mom, b)              # the first one at once
+    t0 = time.perf_counter()
+    ck.wait_for_pending_save()
+    wait_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(ckdir, f))
+                 for f in os.listdir(ckdir))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg2, rp, rm, s = ck.resume_from_latest(ckdir, expect_cfg=cfg,
+                                            device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if s != RESUME["before"]:
+        raise AssertionError("resumed at step %d" % s)
+    for name, p in rp.named_parameters():
+        if not torch.equal(p, snap_p[name]) \
+                or not torch.equal(rm[name], snap_m[name]):
+            raise AssertionError("the restored %s is not the snapshot's "
+                                 "(the step after the async save reached "
+                                 "it?)" % name)
+    for b in batches[RESUME["before"]:]:
+        step(rp, rm, b)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(p, dict(params.named_parameters())[n])
+                  and torch.equal(rm[n], mom[n])
+                  for n, p in rp.named_parameters())
+    worst = 0.0
+    if not bitwise:
+        for n, p in rp.named_parameters():
+            ref = dict(params.named_parameters())[n].float()
+            upd = (ref - snap_p[n].float()).norm()
+            worst = max(worst, float((p.float() - ref).norm()
+                                     / max(float(upd), 1e-30)))
+        if not worst <= 1e-3:
+            raise AssertionError("the resumed run's updates differ from "
+                                 "the uninterrupted run's by a relative L2 "
+                                 "of %.2e" % worst)
+    n_steps = RESUME["before"] + 2 * RESUME["after"]
+    check_only(kernels, {k: cfg.n_layers * n_steps for k in TRAIN_KERNELS},
+               "train resume")
+    log("train resume (%d layers, bf16, batch %d x %d): save call %.3f s on "
+        "the host, the write behind it %.3f s more, %d bytes; "
+        "resume_from_latest %.3f s; restored state bitwise the snapshot's; "
+        "resumed run %s" % (cfg.n_layers, RESUME["batch"], cfg.max_len,
+                            call_s, wait_s, nbytes, load_s,
+                            "bitwise the uninterrupted run's" if bitwise
+                            else "within %.2e relative L2 of the "
+                            "uninterrupted run's updates" % worst))
+    return {"launches": collections.Counter(kernels.launches),
+            "save_s": call_s + wait_s, "load_s": load_s, "bytes": nbytes,
+            "bitwise": bitwise}
+
+
+def durable_phase(torch, tf, sv, kernels, params, cfg, device):
+    """Durable serving and training checkpoints on the card (see DURABLE,
+    OVERLOAD, ROLLOUT, RESUME): the journal A/B, kill -9 and recover
+    (greedy with spec_k 2, and sampled), the OOM shrink, the router's
+    replica death (paged and dense replicas), the checkpointed rolling
+    rollout, and the training resume. Returns every kernel's launches
+    over the phase."""
+    import shutil
+    from mxnet_tpu_torch.models import checkpoint as ck
+    from mxnet_tpu_torch.models import router as rt
+    t_phase = time.perf_counter()
+    root = durable_root()
+    launches = collections.Counter()
+    try:
+        dcfg = durable_cfg(torch, tf)
+        dparams = tf.init_params(dcfg, seed=0, device=device)
+        launches.update(journal_ab(torch, sv, kernels, dparams, dcfg, device,
+                                   root)["launches"])
+        for mode in ("greedy", "sampled"):
+            launches.update(crash_recover(torch, tf, sv, kernels, dparams,
+                                          dcfg, device, root, mode)
+                            ["launches"])
+        del dparams
+        launches.update(oom_shrink(torch, tf, sv, kernels, params, cfg,
+                                   device)["launches"])
+        for paged in (True, False):
+            launches.update(overload(torch, tf, rt, kernels, params, cfg,
+                                     device, paged)["launches"])
+        launches.update(rollout_phase(torch, tf, rt, ck, kernels, params, cfg,
+                                      device, root)["launches"])
+        torch.cuda.empty_cache()
+        launches.update(train_resume(torch, tf, ck, kernels, device, root)
+                        ["launches"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("paged_decode", "flash_decode", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if not launches[name]:
+            raise AssertionError("durable phase: %s never launched" % name)
+    log("durable phase: %.1f s; launches %s"
+        % (time.perf_counter() - t_phase, dict(launches)))
+    return launches
+
+
 # ------------------------------------------------------------ training ---
 
 def train_tokens(torch, cfg, device):
@@ -3985,6 +4806,8 @@ def main():
     torch.cuda.empty_cache()
     specd = spec_phase(torch, F, tf, sv, kernels, params, cfg, device)
     torch.cuda.empty_cache()
+    durable = durable_phase(torch, tf, sv, kernels, params, cfg, device)
+    torch.cuda.empty_cache()
 
     train_equivalence(torch, tf, kernels, device)
     torch.cuda.empty_cache()
@@ -4118,6 +4941,9 @@ def main():
     torch.cuda.empty_cache()
     sweep(torch, F, kernels, device)
     train_sweep(torch, F, kernels, device)
+    for row in rows:
+        # launches in the durable phase's runs (B1-B4 only)
+        row["durable_launches"] = durable.get(row["name"], 0)
     log(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -4259,7 +5085,11 @@ def decode_host(other, rounds=10):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-host"] and len(sys.argv) == 3:
         decode_host(sys.argv[2])
+    elif sys.argv[1:2] == ["--durable-child"] and len(sys.argv) == 4 \
+            and sys.argv[3] in CRASH_MODES:
+        durable_child(sys.argv[2], sys.argv[3])
     elif len(sys.argv) > 1:
-        raise SystemExit("usage: chip_smoke.py [--decode-host OTHER]")
+        raise SystemExit("usage: chip_smoke.py [--decode-host OTHER | "
+                         "--durable-child DIR greedy|sampled]")
     else:
         main()

@@ -31,7 +31,8 @@ from .base import MXNetError
 from .context import (Context, cpu, current_context, gpu, gpu_memory_info,
                       num_gpus, resolve_device)
 from . import (attribute, autograd, engine, kernels, models, name, ndarray,
-               ops, parallel, random, registry, rtc, storage)
+               observability, ops, parallel, random, registry, rtc,
+               storage)
 from . import initializer, symbol
 from . import executor, cached_op, gluon, utils
 from . import lr_scheduler, optimizer
@@ -46,7 +47,8 @@ init = initializer
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "gpu_memory_info", "resolve_device", "nd", "ndarray",
            "autograd", "random", "rtc", "ops", "engine", "storage",
-           "kernels", "models", "parallel", "name", "attribute", "AttrScope",
+           "kernels", "models", "observability", "parallel", "name",
+           "attribute", "AttrScope",
            "NameManager", "Prefix", "registry", "initializer", "init",
            "symbol", "sym", "Symbol", "executor", "cached_op", "gluon",
            "utils", "lr_scheduler", "optimizer"]
@@ -87,7 +89,6 @@ _QUEUED = {
     "util": ("util.py", "A9"),
     "torch": ("torch.py", "A9"),
     "test_utils": ("test_utils.py", "A9"),
-    "observability": ("observability/", "A10"),
 }
 
 

@@ -58,28 +58,51 @@ order:
   from their synced tokens (up to three in a row; a CUDA error that
   loses the context re-raises at once; ``dispatch_failures`` counts the
   requeues over the batcher's life), ``admit(key=...)`` deduplicates,
-  and ``weight_fingerprint`` / ``health_snapshot`` report the replica.
+  and ``weight_fingerprint`` / ``health_snapshot`` report the replica. A
+  paged dispatch that runs out of memory (``membudget.
+  is_resource_exhausted``: a ``torch.cuda.OutOfMemoryError`` or the
+  allocator's RESOURCE_EXHAUSTED text) parks a quarter of the pool
+  through ``shrink_pool`` instead, and the next ``step()`` retries with
+  the lanes intact.
+* Durability: ``journal=`` (a directory or a
+  :class:`~.journal.RequestJournal`; None and False are off, as the JAX
+  batcher's with ``MXNET_SERVING_JOURNAL_DIR`` unset) appends a record at
+  every admission and continuation, every synced emission (where the
+  pipelined and speculative modes read their pinned buffers: no device
+  synchronisation of its own), every preemption and every finish or
+  cancel; streams and ``dispatch_count`` are the same with it on and
+  off. ``recover()`` replays it after a crash: finished streams come
+  back through the next ``step()``, live ones resume through
+  ``admit_continuation`` (a sampled one at its noise counter, so it
+  equals its uninterrupted run). ``swap_weights(params, manifest)``
+  hot-swaps the served weights behind the checkpoint lineage gate
+  without dropping a request.
+* Chaos sites under the JAX package's names: ``serving.dispatch`` (or
+  ``serving.dispatch.<name>`` for a named replica) before every
+  dispatch, ``kv.pool.grow`` and ``serving.swap``.
 
-Not ported: ``swap_weights`` and ``recover`` raise NotImplementedError
-naming ROADMAP item A4b (they need the checkpoint lineage and the request
-journal), which also brings the memory-budget shrink of a dispatch that
-ran out of memory (the requeue leaves it out); brownout and the journal
-raise naming A10. ``enqueued_ns``,
-``preempted_ns`` and ``resumes`` are accepted and ignored, as the JAX
-batcher ignores them with telemetry and the journal off. Its
-observability and chaos hooks have no counterpart.
+Not ported: brownout raises naming ROADMAP item A10, which also brings
+the memory budget (so ``swap_weights`` always reports
+``mode="resident"``) and telemetry. ``enqueued_ns`` and ``preempted_ns``
+are accepted and ignored, as the JAX batcher ignores them with
+telemetry off.
 """
 
 import collections
 import contextlib
+import json
+import os
 import time
-import zlib
 
 import numpy as np
 import torch
 
+from . import checkpoint as _ckpt
+from . import journal as _journal
 from . import transformer as tf
 from ..context import resolve_device
+from ..observability import chaos as _chaos
+from ..observability import membudget as _membudget
 
 __all__ = ["DEFAULT_KV_BLOCK_SIZE", "BlockAllocator", "Request",
            "ContinuousBatcher", "params_fingerprint"]
@@ -89,8 +112,7 @@ DEFAULT_KV_BLOCK_SIZE = 16
 # constructor options of the JAX batcher that are not ported, and the
 # ROADMAP item that brings each; None and False mean "off" for all
 _LATER_OPTIONS = {"brownout": "A10", "brownout_attain": "A10",
-                  "brownout_trip": "A10", "brownout_clear": "A10",
-                  "journal": "A10"}
+                  "brownout_trip": "A10", "brownout_clear": "A10"}
 
 
 def _bucket(n, lo=8):
@@ -130,20 +152,12 @@ def params_fingerprint(params):
     its checkpoint manifests flatten the tree to ("p.embed",
     "p.layers.0.wq", ...), so the same weights give the same id in both
     packages, and the manifest's ``param_fingerprint``."""
-    flat = {"p." + name: t for name, t in params.named_parameters()}
-    acc = 0
-    for k in sorted(flat):
-        t = flat[k].detach().to("cpu").contiguous()
-        # bf16 as numpy renders JAX's ml_dtypes arrays: "bfloat16" over
-        # its 2-byte words
-        dtype, raw = (("bfloat16", t.view(torch.int16).numpy().tobytes())
-                      if t.dtype == torch.bfloat16
-                      else (str(t.numpy().dtype), t.numpy().tobytes()))
-        c = zlib.crc32(raw) & 0xFFFFFFFF
-        acc = zlib.crc32(
-            ("%s:%s:%s:%08x" % (k, dtype, tuple(t.shape), c)).encode(),
-            acc) & 0xFFFFFFFF
-    return "%08x" % acc
+    entries = []
+    for name, t in params.named_parameters():
+        t = t.detach().to("cpu").contiguous()
+        entries.append(("p." + name, _ckpt._dtype_name(t), t.shape,
+                        _ckpt._to_numpy(t).tobytes()))
+    return _ckpt.fingerprint_entries(entries)
 
 
 # ---- speculative rounds -------------------------------------------------
@@ -463,15 +477,16 @@ class ContinuousBatcher(object):
     the n-gram drafts' suffix length (2), ``draft_params`` with
     ``draft_cfg`` draft with a model instead, and ``spec_accept_floor``
     (0.0, off) narrows a lane's drafts while its acceptance is under it.
-    See the module docstring for what each mode does and what is not
-    ported."""
+    ``journal`` (a directory or a RequestJournal) records every request
+    for :meth:`recover`. See the module docstring for what each mode does
+    and what is not ported."""
 
     def __init__(self, params, cfg, max_batch=8, greedy=None,
                  temperature=1.0, top_k=None, top_p=None, chunk_size=1,
                  prefix_cache_slots=4, pipeline_depth=1, paged=None,
                  block_size=None, num_blocks=None, name=None, spec_k=None,
                  spec_ngram=None, spec_accept_floor=None, draft_params=None,
-                 draft_cfg=None, device=None, **later):
+                 draft_cfg=None, device=None, journal=None, **later):
         for option, value in later.items():
             if option not in _LATER_OPTIONS:
                 raise TypeError("unexpected keyword argument %r" % option)
@@ -496,6 +511,13 @@ class ContinuousBatcher(object):
         self.chunk_size = int(chunk_size)
         self.pipeline_depth = int(pipeline_depth)
         self.name = name
+        self._chaos_site = ("serving.dispatch" if name is None
+                            else "serving.dispatch.%s" % name)
+        # the request write-ahead journal: a directory or a RequestJournal;
+        # None and False are off
+        if isinstance(journal, (str, os.PathLike)):
+            journal = _journal.RequestJournal(journal)
+        self._journal = journal or None
         # speculative dispatches (spec_k drafts verified per round)
         self.spec_k = int(spec_k) if spec_k else None
         self._spec_on = self.spec_k is not None
@@ -698,6 +720,9 @@ class ContinuousBatcher(object):
                 (usable - self._alloc.free_blocks) / float(usable)
             if self._alloc.parked_blocks:
                 snap["serving.kv_parked_blocks"] = self._alloc.parked_blocks
+        if self._journal is not None:
+            snap["serving.journal_depth_bytes"] = self._journal.depth_bytes
+            snap["serving.journal_lag_records"] = self._journal.lag_records
         if self._spec_on:
             snap["serving.spec_draft_ratio"] = (
                 self._spec_accepted / self._spec_drafted
@@ -1090,6 +1115,13 @@ class ContinuousBatcher(object):
         self._slots[slot] = req
         if key is not None:
             self._idem[key] = req.rid
+        if self._journal is not None:
+            # the submit carries the first token (emitted=1): replay
+            # resumes as a continuation from exactly here
+            self._journal.append_submit(
+                req.rid, req.tokens, n_new, seed=seed,
+                stop_token=stop_token, priority=priority, key=key,
+                emitted=1)
         return req.rid
 
     def _free_slot(self):
@@ -1108,9 +1140,11 @@ class ContinuousBatcher(object):
         that far), so a preempted and resumed stream equals its
         uninterrupted run, sampled ones included. Returns the new request
         id, or None when no lane or blocks are free. ``key`` carries the
-        original idempotency key forward; ``preempted_ns`` and ``resumes``
-        feed telemetry and the journal in the JAX batcher and are
-        ignored here."""
+        original idempotency key forward. ``resumes`` names the journaled
+        rid this continuation supersedes: with a journal attached it is
+        tombstoned (reason ``resume``), so a later replay resumes the new
+        record only. ``preempted_ns`` feeds telemetry in the JAX batcher
+        and is ignored here."""
         if n_more < 1:
             raise ValueError("n_more must be >= 1")
         if emitted < 1:
@@ -1144,6 +1178,13 @@ class ContinuousBatcher(object):
         self._resume_lane(slot, req)
         if key is not None:
             self._idem[key] = req.rid
+        if self._journal is not None:
+            if resumes is not None:
+                self._journal.append_finish(resumes, "resume")
+            self._journal.append_submit(
+                req.rid, req.tokens, req.n_new, seed=seed,
+                stop_token=stop_token, priority=priority, key=key,
+                emitted=emitted)
         return req.rid
 
     def _resume_lane(self, slot, req):
@@ -1177,6 +1218,8 @@ class ContinuousBatcher(object):
         return to the pool; emissions in flight are dropped at their sync
         by the rid snapshot, as cancel() drops them."""
         req = self._slots[i]
+        if self._journal is not None:
+            self._journal.append_park(req.rid, req.tokens, req.emitted)
         self._free(i)
         self.preempted.append((req, time.perf_counter_ns()))
 
@@ -1238,6 +1281,8 @@ class ContinuousBatcher(object):
         if not self.paged or int(n) <= 0:
             return 0
         n = int(n)
+        if _chaos.enabled():
+            _chaos.fire("kv.pool.grow", blocks=n)
         got = self._alloc.grow(n)
         rest = n - got
         if rest > 0:
@@ -1274,12 +1319,22 @@ class ContinuousBatcher(object):
     def _credit(self, i, req, toks):
         """Lane i's emissions of one chunk ([k] of ``toks``) onto
         ``req``, up to its stop token or budget; True when it is done."""
+        grew = req.emitted
         for t in toks[:, i]:
             req.tokens.append(int(t))
             req.emitted += 1
             if req.done:
                 break
+        self._journal_emit(req, req.emitted - grew)
         return req.done
+
+    def _journal_emit(self, req, grew):
+        """The emit record of ``grew`` tokens that just became host-visible
+        (read where the sync already read them: it adds no device
+        round trip)."""
+        if self._journal is not None and grew:
+            self._journal.append_emit(
+                req.rid, req.tokens[len(req.tokens) - grew:], req.emitted)
 
     def _finish(self, i, finished):
         """Lane i's request is done: into ``finished``, its key into the
@@ -1301,6 +1356,12 @@ class ContinuousBatcher(object):
         dispatch is chunk_size speculative rounds, up to spec_k + 1 tokens
         a lane a round. A dispatch that raises requeues the live requests
         (see :meth:`_recover_dispatch_failure`)."""
+        finished = self._step()
+        if self._journal is not None:
+            self._journal.maybe_gc()
+        return finished
+
+    def _step(self):
         # re-deliveries of finished requests whose key was admitted again
         finished = dict(self._pending_finished)
         self._pending_finished.clear()
@@ -1321,6 +1382,8 @@ class ContinuousBatcher(object):
         try:
             if self.paged:
                 self._ensure_coverage(k)
+            if _chaos.enabled():
+                _chaos.fire(self._chaos_site, mode="sync")
             seeds = counters = None
             if not self.greedy:
                 seeds = _upload(self._seed, self.device)
@@ -1370,6 +1433,9 @@ class ContinuousBatcher(object):
         emissions belong to."""
         if self.paged:
             self._ensure_coverage(self.chunk_size)
+        if _chaos.enabled():
+            _chaos.fire(self._chaos_site, mode="pipelined",
+                        depth=len(self._inflight) + 1)
         seeds, counters = ((None, None) if self.greedy
                            else (self._dev_seed, self._dev_ctr))
         toks, self._dev_tok, self._dev_pos, counters = self._run_chunk(
@@ -1471,6 +1537,9 @@ class ContinuousBatcher(object):
         worst = self.chunk_size * (self.spec_k + 1)
         if self.paged:
             self._ensure_coverage(worst)
+        if _chaos.enabled():
+            _chaos.fire(self._chaos_site, mode="spec",
+                        depth=len(self._inflight) + 1)
         keff_np = np.array(self._keff)
         out, self._dev_tok, self._dev_pos = self._run_spec_rounds(
             self._dev_tok, self._dev_pos, _upload(keff_np, self.device))
@@ -1500,6 +1569,7 @@ class ContinuousBatcher(object):
                 continue
             # keff at dispatch: the width these rounds drafted at
             keff_i = max(int(keffs[i]), 1)
+            grew0 = req.emitted
             for r in range(emits.shape[0]):
                 e = int(emits[r, i])
                 self._spec_drafted += keff_i
@@ -1513,6 +1583,7 @@ class ContinuousBatcher(object):
                         break
                 if req.done:
                     break
+            self._journal_emit(req, req.emitted - grew0)
             if self.spec_accept_floor > 0.0:
                 # acceptance under the floor narrows the lane's drafts
                 # (never below 1), at or above it widens them to spec_k
@@ -1600,18 +1671,40 @@ class ContinuousBatcher(object):
         requeue instead; the port's counter-based noise makes the exact
         resume free). Re-raises after ``_max_dispatch_failures``
         consecutive failures, and at once when CUDA reports an error that
-        loses the context: nothing can run on it again. The JAX batcher's
-        shrink of a pool that ran out of memory needs its memory budget
-        and comes with ROADMAP item A4b."""
+        loses the context: nothing can run on it again. A paged dispatch
+        that ran out of memory is not a lost context: the pool shrinks
+        instead (:meth:`_oom_shrink`) and the lanes stay as they are."""
         self._dispatch_failures += 1
         self.dispatch_failures += 1
-        if _context_lost(self.device) \
+        oom = _membudget.is_resource_exhausted(exc)
+        if (not oom and _context_lost(self.device)) \
                 or self._dispatch_failures > self._max_dispatch_failures:
             raise exc
+        if self.paged and oom and self._oom_shrink():
+            # memory pressure, not corruption: the next step() retries
+            return
         pending = [r for r in self._slots if r is not None]
         self._rebuild_state()
         for req in pending:
             self._resume_lane(self._free_slot(), req)
+
+    def _oom_shrink(self):
+        """A dispatch ran out of memory: park part of the pool
+        (:meth:`_kv_shrink_blocks`, through ``shrink_pool``, which
+        preempts the lowest-priority lanes only when free capacity cannot
+        cover it) and let the next step() dispatch again against the
+        smaller footprint, instead of rebuilding every lane for what is a
+        capacity problem. The injected fault fires before the dispatch
+        touches the carry; a real one that persists falls through to the
+        rebuild at the next consecutive failure. True when blocks were
+        parked."""
+        return self.shrink_pool(self._kv_shrink_blocks()) > 0
+
+    def _kv_shrink_blocks(self):
+        """Blocks an out-of-memory dispatch parks: a quarter of the usable
+        pool (the JAX batcher's default, with
+        ``MXNET_MEM_KV_SHRINK_BLOCKS`` unset)."""
+        return max((self.num_blocks - 1) // 4, 1)
 
     def _rebuild_state(self):
         """Every piece of lane state from scratch: slots emptied, the cache
@@ -1646,13 +1739,17 @@ class ContinuousBatcher(object):
 
     def _note_done(self, req, reason="finish"):
         """A request left: it gives up its idempotency claim and, when it
-        finished, its key enters the dedup window with its tokens."""
-        if req.key is None:
-            return
-        if self._idem.get(req.key) == req.rid:
-            self._idem.pop(req.key, None)
-        if reason == "finish":
-            self._idem_done[req.key] = (req.rid, list(req.tokens))
+        finished, its key enters the dedup window with its tokens; the
+        journal gets its tombstone (with the stream when it finished)."""
+        if req.key is not None:
+            if self._idem.get(req.key) == req.rid:
+                self._idem.pop(req.key, None)
+            if reason == "finish":
+                self._idem_done[req.key] = (req.rid, list(req.tokens))
+        if self._journal is not None:
+            self._journal.append_finish(
+                req.rid, reason,
+                tokens=req.tokens if reason == "finish" else None)
 
     def _free(self, i):
         """Free lane i and park it at position 0 (on an all-null table
@@ -1678,20 +1775,135 @@ class ContinuousBatcher(object):
             self._keff[i] = self.spec_k
             self._accept_ewma[i] = 1.0
 
-    # ---- not ported ----
+    # ---- durability: crash recovery and weight hot-swap ----
 
-    def swap_weights(self, params, manifest=None):
-        """Hot weight swap behind the checkpoint lineage check: not ported
-        (it needs ``checkpoint.verify_lineage``)."""
-        raise NotImplementedError(
-            "swap_weights (the checkpoint lineage gate, drain-then-swap) "
-            "waits for ROADMAP item A4b")
-
+    @torch.no_grad()
     def recover(self):
-        """Crash recovery from the request journal: not ported."""
-        raise NotImplementedError(
-            "recover (replay of the request journal) waits for ROADMAP "
-            "item A4b")
+        """Replay the attached journal after a process crash and re-enter
+        every request it recorded.
+
+        Finished requests (a ``finish`` tombstone, or a live record whose
+        stream was already complete when the process died) are served
+        from their recorded tokens through the next step() and fill the
+        idempotency window, so a re-submitted key re-delivers. Live
+        requests re-enter as continuations from their journaled synced
+        prefix (a sampled one at its noise counter, so it equals its
+        uninterrupted run); one the pool cannot hold is parked on
+        ``self.preempted``, as a preemption victim, for run() or the
+        router to resume. The rid counter moves past every journaled rid.
+
+        Returns ``(resumed, finished, skipped)``: old rid -> new rid (None
+        when parked), rid -> final tokens, and the journal's evidence for
+        the records it skipped (torn tail, CRC mismatch), each
+        ``{"segment", "record", "reason"}``."""
+        if self._journal is None:
+            raise RuntimeError("recover() needs a journal attached "
+                               "(journal=)")
+        live, fin, skipped = self._journal.replay()
+        # a replayed tombstone for rid N must never end a NEW request
+        self._next_rid = max(self._next_rid, self._journal.max_rid + 1)
+        done = {}
+        for rid, rec in fin.items():
+            done[rid] = list(rec["tokens"])
+            if rec.get("key") is not None:
+                self._idem_done[rec["key"]] = (rid, list(rec["tokens"]))
+        resumed = {}
+        for rid in sorted(live):
+            rec = live[rid]
+            toks = list(rec["tokens"])
+            emitted = int(rec["emitted"])
+            n_more = int(rec["n_new"]) - emitted
+            stop = rec["stop"]
+            if emitted >= 1 and (n_more <= 0 or (
+                    stop is not None and toks and toks[-1] == stop)):
+                # the final emission landed before the tombstone did:
+                # serve it and write the tombstone now
+                done[rid] = list(toks)
+                if rec.get("key") is not None:
+                    self._idem_done[rec["key"]] = (rid, list(toks))
+                self._journal.append_finish(rid, "finish", tokens=toks)
+                continue
+            if emitted == 0:
+                # a router queue record: a fresh admission of the prompt
+                new = self.admit(toks, rec["n_new"], seed=rec["seed"],
+                                 stop_token=stop, priority=rec["prio"],
+                                 key=rec.get("key"))
+                if new is not None:
+                    self._journal.append_finish(rid, "resume")
+                resumed[rid] = new
+                continue
+            new = self.admit_continuation(
+                toks, n_more, seed=rec["seed"], emitted=emitted,
+                stop_token=stop, priority=rec["prio"], resumes=rid,
+                key=rec.get("key"))
+            if new is None:
+                # capacity-blocked: parked as a preemption victim (its
+                # record stays live, so a second crash still recovers it)
+                req = Request(rid, toks, rec["n_new"], stop, rec["seed"],
+                              rec["prio"], rec.get("key"))
+                req.emitted = emitted
+                self.preempted.append((req, time.perf_counter_ns()))
+            resumed[rid] = new
+        self._pending_finished.update(done)
+        return resumed, done, skipped
+
+    @torch.no_grad()
+    def swap_weights(self, params, manifest=None):
+        """Hot-swap the served weights without dropping a request.
+
+        ``manifest`` gates the swap on the checkpoint lineage: a
+        checkpoint directory runs ``checkpoint.verify_lineage`` (the
+        newest retained manifest must verify) and reads its
+        ``param_fingerprint``; a manifest dict supplies the fingerprint;
+        None skips the check (a rollback to weights already served). The
+        incoming weights' fingerprint must match, or ``CheckpointCorrupt``
+        is raised and the old weights keep serving.
+
+        The swap quiesces at a dispatch boundary: every dispatch in flight
+        is synced (its emissions, and the streams it finished, come out
+        through the next step()), the lanes and the pool are rebuilt, and
+        every live request re-enters from its synced tokens under the new
+        weights, as the dispatch-failure requeue does. The prefix cache
+        empties (its K/V came from the old weights). Returns
+        ``{"fingerprint", "previous", "mode"}``; ``mode`` is always
+        ``"resident"`` (the memory budget's drain mode comes with ROADMAP
+        item A10)."""
+        want = None
+        if isinstance(manifest, (str, os.PathLike)):
+            chain = _ckpt.verify_lineage(manifest)
+            if not chain or chain[0]["status"] != "verified":
+                raise _ckpt.CheckpointCorrupt(
+                    "swap_weights: lineage of %s does not verify (%s)"
+                    % (manifest, chain[0]["status"] if chain
+                       else "no manifests"))
+            with open(os.path.join(manifest, chain[0]["name"])) as f:
+                want = json.load(f).get("param_fingerprint")
+        elif isinstance(manifest, dict):
+            want = manifest.get("param_fingerprint")
+        tf._check_params_device(params, self.device)
+        new_fp = params_fingerprint(params)
+        if want is not None and new_fp != want:
+            raise _ckpt.CheckpointCorrupt(
+                "swap_weights: incoming parameter fingerprint %s does not "
+                "match manifest %s — refusing unverified weights"
+                % (new_fp, want))
+        if _chaos.enabled():
+            _chaos.fire("serving.swap", fingerprint=new_fp)
+        prev_fp = self.weight_fingerprint
+        if self._device_carry:
+            sync = (self._sync_oldest_spec if self._spec_on
+                    else self._sync_oldest)
+            while self._inflight:
+                self._pending_finished.update(sync())
+        pending = [r for r in self._slots if r is not None]
+        self.params = params
+        self._weight_fp = new_fp
+        self._prefix_cache.clear()
+        self._rebuild_state()
+        for req in pending:
+            self._resume_lane(self._free_slot(), req)
+        return {"fingerprint": new_fp, "previous": prev_fp,
+                "mode": "resident"}
 
     # ---- drivers ----
 

@@ -46,10 +46,13 @@ def test_ported_names_exist_and_unported_ones_refuse():
     assert mt.NameManager is mt.name.NameManager
     assert mt.Prefix is mt.name.Prefix
     assert mt.optimizer.SGD and mt.lr_scheduler.FactorScheduler
-    for name, item in (("metric", "A9"), ("kvstore", "A7"), ("io", "A8"),
-                       ("observability", "A10")):
+    for name, item in (("metric", "A9"), ("kvstore", "A7"), ("io", "A8")):
         with pytest.raises(mt.MXNetError, match=item):
             getattr(mt, name)
+    # observability resolves: chaos is ported, the rest names A10
+    assert mt.observability.chaos.install
+    with pytest.raises(mt.MXNetError, match="A10"):
+        mt.observability.hlo
     for name in ("sparse", "csr_matrix", "row_sparse_array"):
         with pytest.raises(mt.MXNetError, match="A9"):
             getattr(mt.nd, name)

@@ -149,14 +149,14 @@ def test_allocator_invariants_catch_leaks():
 @pytest.mark.parametrize("kwargs, error, match", [
     (dict(spec_k=2, greedy=False), ValueError, "greedy-only"),
     (dict(draft_cfg=object()), ValueError, "without spec_k"),
-    (dict(journal="/nowhere"), NotImplementedError, "A10"),
+    (dict(brownout=True), NotImplementedError, "A10"),
     (dict(chunk_size=0), ValueError, "chunk_size"),
     (dict(pipeline_depth=0), ValueError, "pipeline_depth"),
     (dict(greedy=True, top_k=3), ValueError, "greedy=True"),
     (dict(paged=True, block_size=7), ValueError, "block_size"),
 ])
 def test_unported_batcher_options_raise(kwargs, error, match):
-    """What is still refused or invalid: the journal names its ROADMAP
+    """What is still refused or invalid: brownout names its ROADMAP
     item; speculative dispatch with sampling, a draft model without
     spec_k, a zero chunk or depth, greedy with a sampling control and a
     block size that does not divide max_len are invalid, with the JAX

@@ -373,15 +373,6 @@ def test_weight_fingerprint_matches_jax(dtype):
     assert tsv.params_fingerprint(tp) != want
 
 
-def test_unported_durability_names_a4b(models):
-    _, _, tcfg, tp = models
-    srv = tsv.ContinuousBatcher(tp, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4b"):
-        srv.swap_weights(tp)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        srv.recover()
-
-
 def test_reset_lanes_drops_everything(models):
     _, _, tcfg, tp = models
     srv = tsv.ContinuousBatcher(tp, tcfg, max_batch=3, device="cpu", **POOL)
