@@ -154,6 +154,28 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ms and tokens/s are printed; and ``sp_flash_decode`` at sp = 1 on the
    serving cache (8 lanes x 8 KV heads x 4096 x 64, bf16), through the
    flash-decode kernel, against its dense route at ``TOL``, both timed;
+   then (``mesh_train_phase``) the LM stack under a mesh, on a world of
+   one (NCCL takes no two ranks on one card), and int8 weight trees: the
+   flagship (bf16, batch 8 x 1024, the sequence gathered rather than
+   ringed) trains 10 steps through ``make_train_step(cfg, mesh)`` under
+   ``make_mesh({"dp": 1, "tp": 1, "sp": 1, "ep": 1})`` beside
+   ``make_train_step(cfg)`` from the same init and batch, in turns:
+   every loss, parameter and momentum must be bitwise equal and each
+   step must launch B1, B2a and B2b once a layer and nothing else; it
+   prints both steps' ms, tokens/s, MFU and peak memory and the bucket
+   plan; the flagship cut to 2 layers, fp32, takes one mesh step through
+   the plain ring at sp = 1, which must launch no kernel (B5 is forward
+   only) and whose loss and gradients must match the flash route's at
+   ``train_equivalence``'s limits; ``generate()`` and ``beam_search()``
+   (beam 4) at ``GENERATE``'s width under ``make_mesh({"dp": 1, "tp":
+   1})`` must give the no-mesh calls' tokens and B1 and B4 launches;
+   and the serving model's bf16 weights quantised
+   (``quantize_weights_int8``, its bytes printed beside bf16's) serve
+   ``SERVE``'s mix through the paged batcher (B3) in turns with their
+   dequantised twin (q8, bf16, bf16, q8; tokens/s printed), the streams
+   equal token for token, as are ``generate()``'s tokens (B1 + B4) and
+   the int8 KV pool's streams (B3 int8) against the twin, and a q8
+   checkpoint must save and load back bitwise;
 8. drives the imperative slice on gpu(0) through ``mxnet_tpu_torch.nd``,
    ``autograd`` and ``rtc`` (B6) alone: the output head of step 6's
    model at full width (8192 tokens x d_model 1024, bf16, against a
@@ -239,8 +261,9 @@ Run from the root of a checkout on a machine with one CUDA GPU and
 14. prints the card's name and power limit again, the kernels' JSON
     line (the paged kernel's rows with their speculative launches and
     their time at the verify window, the flash-decode row with the
-    draft, solo-speculative and beam launches), then as its last line
-    ``{"ok": true, "device": {...}}``.
+    draft, solo-speculative and beam launches, every row with its
+    launches in the durable and the mesh-training phases), then as its
+    last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
 result line. It imports nothing of JAX or of the JAX package.
@@ -259,12 +282,15 @@ one process on the same card.
 """
 
 import collections
+import copy
 import dataclasses
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3608,6 +3634,319 @@ def train_sweep(torch, F, kernels, device, tokens=8192, h=8, d=128):
         del q, k, v, do, o, lse, q4, k4, v4, do4
 
 
+# ------------------------------------------------------ mesh training ---
+# The LM stack under a mesh on a world of one (one card: NCCL takes no
+# two ranks on one GPU) and weight-only int8 trees. MESH_TRAIN: the
+# training flagship under make_mesh({"dp": 1, "tp": 1, "sp": 1, "ep": 1})
+# with the sequence gathered (use_ring_attention=False), so attention
+# runs B1, B2a and B2b, beside the no-mesh step; RING_CFG: the flagship
+# cut to 2 layers, fp32, through the plain ring; MESH_SERVE_AXES:
+# generate() and beam_search() at GENERATE's width on SERVE_CFG's model;
+# the q8 tree: SERVE_CFG's bf16 weights quantised, served at SERVE's mix.
+MESH_TRAIN_AXES = {"dp": 1, "tp": 1, "sp": 1, "ep": 1}
+MESH_SERVE_AXES = {"dp": 1, "tp": 1}
+RING_CFG = dict(TRAIN_CFG, n_layers=2)
+MESH_BEAM = 4
+
+
+def tree_bytes(tf, params):
+    """Bytes of every array of a parameter tree (an int8 tree's codes,
+    scales and dtype carriers as its checkpoint holds them)."""
+    return sum(t.numel() * t.element_size()
+               for t in tf.flat_tensors(params).values())
+
+
+def mesh_train(torch, tf, parallel, kernels, device):
+    """TRAIN["steps"] bf16 steps of the flagship through
+    make_train_step(cfg, mesh) on a world of one, paired step by step
+    (alternating which goes first) with make_train_step(cfg) from the
+    same init and batch: every loss, parameter and momentum bitwise
+    equal, each step launching B1, B2a and B2b n_layers times and nothing
+    else. Prints each route's step ms, tokens/s, MFU and peak memory and
+    the bucket plan that the mesh step's gradients take on a world above
+    one (on this world of one every axis has size 1, and
+    bucketed_all_reduce returns the gradients as they are)."""
+    from mxnet_tpu_torch.parallel import fusion
+    cfg = tf.TransformerConfig(dtype=torch.bfloat16, use_ring_attention=False,
+                               **TRAIN_CFG)
+    mesh = parallel.make_mesh(MESH_TRAIN_AXES)
+    plain = tf.init_params(cfg, seed=0, device=device)
+    meshed = tf.shard_params(copy.deepcopy(plain), cfg, mesh)
+    n_params = sum(p.numel() for p in plain.parameters())
+    tokens = train_tokens(torch, cfg, device)
+    runs = {"no mesh": (tf.make_train_step(cfg, lr=TRAIN["lr"]), plain,
+                        tf.init_momentum(plain)),
+            "mesh": (tf.make_train_step(cfg, mesh, lr=TRAIN["lr"]), meshed,
+                     tf.init_momentum(meshed))}
+    stats = {name: {"losses": [], "s": [], "peak": 0, "own": 0}
+             for name in runs}
+    launches = collections.Counter()
+    for i in range(TRAIN["steps"]):
+        for name in (("no mesh", "mesh") if i % 2 == 0
+                     else ("mesh", "no mesh")):
+            step, params, mom = runs[name]
+            kernels.launches.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            loss = step(params, mom, tokens)[2]
+            torch.cuda.synchronize()
+            st = stats[name]
+            st["s"].append(time.perf_counter() - t0)
+            st["losses"].append(loss)
+            st["peak"] = max(st["peak"], torch.cuda.max_memory_allocated())
+            st["own"] = max(st["own"], torch.cuda.max_memory_allocated()
+                            - base)
+            check_only(kernels, {k: cfg.n_layers for k in TRAIN_KERNELS},
+                       "%s train step %d" % (name, i))
+            if name == "mesh":
+                launches.update(kernels.launches)
+    a, b = stats["no mesh"], stats["mesh"]
+    same = all(torch.equal(x, y) for x, y in zip(a["losses"], b["losses"]))
+    for (n, p), q in zip(plain.named_parameters(), meshed.parameters()):
+        same = same and torch.equal(p, q) and torch.equal(
+            runs["no mesh"][2][n], runs["mesh"][2][n])
+    losses = [float(x) for x in b["losses"]]
+    n_tok = tokens.numel()
+    for name, st in stats.items():
+        ms = 1e3 * float(np.mean(st["s"][1:]))
+        log("mesh train, %s: step %.3f ms (mean of steps 2-%d; first %.3f "
+            "ms), %.0f tokens/s, MFU %.4f; peak memory %.3f GB (%.3f GB "
+            "over the step's start)"
+            % (name, ms, len(st["s"]), 1e3 * st["s"][0], n_tok / (ms / 1e3),
+               6.0 * n_params * n_tok / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
+               st["peak"] / 1e9, st["own"] / 1e9))
+        st["ms"] = ms
+    entries = [(n, tuple(p.shape), p.dtype)
+               for n, p in reversed(list(meshed.named_parameters()))]
+    plan = fusion.plan_buckets(entries)
+    log("mesh train: %d params, losses %s; bucket plan (a world above one "
+        "reduces by it; a world of one skips the reduction) %d buckets, %d "
+        "lanes, %d bytes (largest bucket %d bytes, %d above the 25 MB "
+        "budget travel alone)"
+        % (n_params, " ".join("%.4f" % x for x in losses), len(plan),
+           sum(len(bk.lanes) for bk in plan), sum(bk.nbytes for bk in plan),
+           max(bk.nbytes for bk in plan),
+           sum(bk.nbytes > fusion.DEFAULT_BUCKET_BYTES for bk in plan)))
+    log("mesh train: the mesh step bitwise the no-mesh step over %d steps "
+        "(losses, parameters, momentum): %s" % (TRAIN["steps"], same))
+    if not same:
+        raise AssertionError("the world-of-one mesh step is not the no-mesh "
+                             "step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("mesh training loss is not finite and falling")
+    return {"launches": dict(launches), "ms": (a["ms"], b["ms"]),
+            "peak": (a["peak"], b["peak"]), "buckets": len(plan)}
+
+
+def ring_grads(torch, tf, parallel, kernels, device):
+    """RING_CFG in fp32 (TF32 off): one make_train_step(cfg, mesh) step
+    through the plain ring at sp = 1 (no kernel at all: B5 is forward
+    only, so gradients go through the plain block) against loss_fn's
+    gradients through the flash route with no mesh (B1, B2a and B2b
+    once a layer): loss within 1e-4, worst gradient relative L2 1e-3
+    (train_equivalence's limits). The first step's momentum is its
+    gradient."""
+    flash = tf.TransformerConfig(dtype=torch.float32, **RING_CFG)
+    ring = dataclasses.replace(flash, use_flash_kernel=False,
+                               use_ring_attention=True)
+    mesh = parallel.make_mesh({"dp": 1, "sp": 1})
+    params = tf.init_params(flash, seed=0, device=device)
+    tokens = train_tokens(torch, flash, device)
+    kernels.launches.clear()
+    loss_k, grads_k = loss_and_grads(torch, tf, params, tokens, flash)
+    check_only(kernels, {k: flash.n_layers for k in TRAIN_KERNELS},
+               "the flash route's gradients")
+    mom = tf.init_momentum(params)
+    kernels.launches.clear()
+    loss_r = float(tf.make_train_step(ring, mesh, lr=TRAIN["lr"])(
+        params, mom, tokens)[2])
+    torch.cuda.synchronize()
+    check_only(kernels, {}, "the ring step (no B5, no kernel)")
+    worst, worst_name = 0.0, None
+    for (name, _), gk in zip(params.named_parameters(), grads_k):
+        rel = float((mom[name] - gk).norm() / gk.norm())
+        if not rel <= worst:
+            worst, worst_name = rel, name
+    log("ring step, fp32, %d layers, sp = 1: loss %.6f vs the flash route's "
+        "%.6f (|diff| %.3g, tol 1e-4), worst gradient relative L2 %.3g at "
+        "%s (tol 1e-3); no B5 launched"
+        % (ring.n_layers, loss_r, loss_k, abs(loss_r - loss_k), worst,
+           worst_name))
+    if not abs(loss_r - loss_k) <= 1e-4 or not worst <= 1e-3:
+        raise AssertionError("gradients through the plain ring disagree with "
+                             "the flash route")
+
+
+def mesh_serve(torch, tf, parallel, kernels, params, cfg, device):
+    """generate() and beam_search() (beam MESH_BEAM) at GENERATE's width
+    under a world-of-one {"dp": 1, "tp": 1} mesh against the same calls
+    with no mesh: tokens (and beam scores) equal, and the B1 and B4
+    launches equal the no-mesh calls' (flash_generate's counts)."""
+    mesh = parallel.make_mesh(MESH_SERVE_AXES)
+    sharded = tf.shard_params(params, cfg, mesh)
+    rng = np.random.RandomState(2)
+    b, t_p, n_new = GENERATE["batch"], GENERATE["prompt"], GENERATE["n_new"]
+    prompt = rng.randint(0, cfg.vocab_size, (b, t_p)).astype(np.int32)
+    calls = {
+        "generate": lambda p, m: tf.generate(p, prompt, n_new, cfg, mesh=m,
+                                             device=device),
+        "beam_search": lambda p, m: tf.beam_search(p, prompt, n_new, cfg,
+                                                   beam=MESH_BEAM, mesh=m,
+                                                   device=device)}
+    launches = collections.Counter()
+    for label, call in calls.items():
+        out = {}
+        for route, p, m in (("no mesh", params, None),
+                            ("mesh", sharded, mesh)):
+            kernels.launches.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call(p, m)
+            torch.cuda.synchronize()
+            out[route] = (res, dict(kernels.launches),
+                          time.perf_counter() - t0)
+        want = flash_generate(cfg.n_layers, n_new - 1)
+        check_only(kernels, want, "%s under the mesh" % label)
+        (ra, la, sa), (rb, lb, sb) = out["no mesh"], out["mesh"]
+        launches.update(lb)
+        pairs = zip(ra, rb) if isinstance(ra, tuple) else [(ra, rb)]
+        same = all(torch.equal(x, y) for x, y in pairs)
+        log("%s, batch %d, prompt %d, %d new%s: mesh tokens equal the no-mesh "
+            "tokens: %s; launches %s (no mesh %s); %.3f s (no mesh %.3f s)"
+            % (label, b, t_p, n_new,
+               ", beam %d" % MESH_BEAM if label == "beam_search" else "",
+               same, lb, la, sb, sa))
+        if not same or la != lb:
+            raise AssertionError("%s under a world-of-one mesh differs from "
+                                 "the call with no mesh" % label)
+    return dict(launches)
+
+
+def serve_streams(torch, sv, kernels, params, cfg, device, kernel, label):
+    """SERVE's job mix through the paged batcher: (results, order,
+    tokens/s, launches); every dispatch launches ``kernel`` once a layer
+    and nothing else, no dispatch is requeued."""
+    jobs = serve_jobs(cfg, SERVE["n_new"], SERVE)
+    srv = batcher(sv, params, cfg, device, SERVE)
+    kernels.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, order = srv.run(jobs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_only(kernels, {kernel: cfg.n_layers * srv.dispatch_count}, label)
+    check_clean(srv, label)
+    srv.check_invariants(quiesce=True)
+    return ([results[r] for r in order], sum(n for _, n in jobs) / dt,
+            dict(kernels.launches))
+
+
+def q8_serve(torch, tf, sv, ck, kernels, params, cfg, device):
+    """SERVE_CFG's bf16 weights quantised (quantize_weights_int8): the
+    tree's bytes against bf16's; SERVE's mix through the paged batcher
+    (B3) on the q8 tree and on its dequantised twin materialised in bf16,
+    in turns q8, twin, twin, q8 (tokens/s paired, streams equal token for
+    token: the weights are bitwise the same); generate() (B1 + B4) and
+    the int8 KV pool (B3 int8) each against the twin; a q8 checkpoint's
+    save and load bitwise."""
+    q8 = tf.quantize_weights_int8(params)
+    twin = tf._dequantize_weights(q8)
+    qb, fb = tree_bytes(tf, q8), tree_bytes(tf, params)
+    log("q8 tree: %d bytes, bf16 tree %d bytes (%.4f of it)"
+        % (qb, fb, qb / fb))
+    launches = collections.Counter()
+    streams, rates = {}, {"q8": [], "bf16": []}
+    for name, p in (("q8", q8), ("bf16", twin), ("bf16", twin), ("q8", q8)):
+        got, rate, used = serve_streams(torch, sv, kernels, p, cfg, device,
+                                        "paged_decode", "serve " + name)
+        streams.setdefault(name, got)
+        if got != streams[name] or got != streams.get("q8", got):
+            raise AssertionError("the q8 tree's streams differ from its "
+                                 "dequantised twin's")
+        rates[name].append(rate)
+        if name == "q8":
+            launches.update(used)
+    log("serve q8 vs its bf16 twin (%d requests, %d lanes): streams equal; "
+        "tokens/s q8 %s, bf16 %s (in turns q8, bf16, bf16, q8)"
+        % (SERVE["requests"], SERVE["max_batch"],
+           " ".join("%.1f" % r for r in rates["q8"]),
+           " ".join("%.1f" % r for r in rates["bf16"])))
+    rng = np.random.RandomState(2)
+    b, t_p, n_new = GENERATE["batch"], GENERATE["prompt"], GENERATE["n_new"]
+    prompt = rng.randint(0, cfg.vocab_size, (b, t_p)).astype(np.int32)
+    out = {}
+    for name, p in (("q8", q8), ("bf16", twin)):
+        kernels.launches.clear()
+        out[name] = (tf.generate(p, prompt, n_new, cfg, device=device),
+                     dict(kernels.launches))
+        check_only(kernels, flash_generate(cfg.n_layers, n_new - 1),
+                   "generate " + name)
+    launches.update(out["q8"][1])
+    same = torch.equal(out["q8"][0], out["bf16"][0])
+    log("generate q8 vs its twin: tokens equal %s, launches %s" % (
+        same, out["q8"][1]))
+    if not same:
+        raise AssertionError("generate() on the q8 tree differs from its "
+                             "twin")
+    cfg8 = dataclasses.replace(cfg, kv_cache_int8=True)
+    got = {}
+    for name, p in (("q8", q8), ("bf16", twin)):
+        got[name], rate, used = serve_streams(
+            torch, sv, kernels, p, cfg8, device, "paged_decode_int8",
+            "serve int8 KV " + name)
+        if name == "q8":
+            launches.update(used)
+    log("serve int8 KV, q8 weights vs the twin: streams equal %s"
+        % (got["q8"] == got["bf16"]))
+    if got["q8"] != got["bf16"]:
+        raise AssertionError("the int8 KV pool on the q8 tree differs from "
+                             "its twin")
+    root = tempfile.mkdtemp(prefix="q8-ckpt-")
+    try:
+        t0 = time.perf_counter()
+        ck.save_checkpoint(root, cfg, q8, step=0)
+        t1 = time.perf_counter()
+        _, back, _, _, _ = ck.load_checkpoint(root, device=device)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = tf.flat_tensors(q8)
+    same = all(t.dtype == want[n].dtype and torch.equal(t, want[n])
+               for n, t in tf.flat_tensors(back).items()) \
+        and set(want) == set(tf.flat_tensors(back))
+    log("q8 checkpoint: save %.3f s, load %.3f s, bitwise %s"
+        % (t1 - t0, t2 - t1, same))
+    if not same:
+        raise AssertionError("the q8 checkpoint did not come back bitwise")
+    return {"launches": dict(launches), "bytes": (qb, fb),
+            "tokens_s": rates}
+
+
+def mesh_train_phase(torch, tf, sv, ck, parallel, kernels, params, cfg,
+                     device):
+    """The LM stack under a mesh and int8 weight trees (see MESH_TRAIN_AXES
+    and the functions it runs); every gate raises. Returns the phase's
+    launches by kernel."""
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    trained = mesh_train(torch, tf, parallel, kernels, device)
+    launches.update(trained["launches"])
+    torch.cuda.empty_cache()
+    ring_grads(torch, tf, parallel, kernels, device)
+    torch.cuda.empty_cache()
+    launches.update(mesh_serve(torch, tf, parallel, kernels, params, cfg,
+                               device))
+    torch.cuda.empty_cache()
+    launches.update(q8_serve(torch, tf, sv, ck, kernels, params, cfg,
+                             device)["launches"])
+    torch.cuda.empty_cache()
+    log("mesh_train_phase: %.1f s; launches %s; %s"
+        % (time.perf_counter() - t0, dict(launches), card_line()))
+    return dict(launches)
+
+
 # ------------------------------------------------------------- B6, rtc ---
 # The user program of the rtc phase: the flagship's output head (8 x 1024
 # tokens, d_model 1024, vocab 32000) through nd and autograd, its weight
@@ -4763,6 +5102,7 @@ def main():
     import torch.nn.functional as F
     from mxnet_tpu_torch import kernels, parallel
     from mxnet_tpu_torch.kernels import _build
+    from mxnet_tpu_torch.models import checkpoint as ck
     from mxnet_tpu_torch.models import serving as sv
     from mxnet_tpu_torch.models import transformer as tf
     from mxnet_tpu_torch.parallel import ring
@@ -4814,6 +5154,8 @@ def main():
     trained = train(torch, tf, kernels, device)
     meshed = mesh_forward(torch, tf, parallel, kernels, device)
     sp_decode = check_sp_decode(torch, ring, kernels, meshed["mesh"], device)
+    mesh_trained = mesh_train_phase(torch, tf, sv, ck, parallel, kernels,
+                                    params, cfg, device)
     rtc_run = rtc_phase(torch, kernels, mxnet_tpu_torch)
 
     rows = []
@@ -4942,8 +5284,11 @@ def main():
     sweep(torch, F, kernels, device)
     train_sweep(torch, F, kernels, device)
     for row in rows:
-        # launches in the durable phase's runs (B1-B4 only)
+        # launches in the durable phase's runs (B1-B4 only) and in the
+        # mesh-training phase's (B1-B4: the mesh step, sharded generate and
+        # beam search, the q8 serving runs)
         row["durable_launches"] = durable.get(row["name"], 0)
+        row["mesh_launches"] = mesh_trained.get(row["name"], 0)
     log(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

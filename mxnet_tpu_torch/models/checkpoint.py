@@ -35,13 +35,17 @@ package loads in the other:
   and once at interpreter exit; :func:`resume_from_latest` is the other
   half of the restart loop.
 
-Restoring onto a mesh goes through ``transformer.shard_params`` (``dp ×
-sp``; tp or ep above 1 raise, as there). Not ported: the shard
+Int8 weight trees (``transformer.quantize_weights_int8``) save and load
+in the JAX package's form: each :class:`~.transformer.Q8Weight` as three
+arrays under the ``#`` suffix (``p.layers.0.wq#q8``, ``#scale`` and
+``#dt``, a zero-size array of the weight's dtype), in both directions;
+they are serving artifacts, so :func:`restore_train_state` refuses them,
+as JAX does. Restoring onto a mesh goes through
+``transformer.shard_params`` (each rank's block). Not ported: the shard
 checkpoints and elastic resume (``save_shard_checkpoint`` through
 ``resume_elastic``), which need a multi-process world (ROADMAP item A7),
-int8-quantised ``q8`` weight trees, which the port refuses (A3b), the
-memory budget's snapshot admission and the collective-hang watchdog's
-escalation hook (A10).
+the memory budget's snapshot admission and the collective-hang
+watchdog's escalation hook (A10).
 """
 
 import atexit
@@ -75,11 +79,8 @@ __all__ = ["save_checkpoint", "load_checkpoint", "restore_train_state",
 _SEP = "."          # path component separator inside npz keys
 _PARAMS = "p"       # key prefix: model parameters
 _MOMENTUM = "m"     # key prefix: optimizer momentum
-_QSUF = "#"         # q8 sub-leaf suffix marker of the JAX package
+_QSUF = "#"         # q8 sub-leaf suffix marker: "...wq#q8", "...wq#scale"
 _FORMAT = "mxnet_tpu.transformer.checkpoint/1"
-# the JAX package's config fields the port does not carry, with the
-# value that means "off"
-_JAX_ONLY_FIELDS = {"num_microbatches": 0}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
            "int8": torch.int8, "int32": torch.int32, "int64": torch.int64}
@@ -95,12 +96,6 @@ class CheckpointIncompatible(CheckpointCorrupt):
     """A checkpoint that cannot serve THIS resume: a config mismatch (or
     the elastic world / generation a shard save records). The message
     names the mismatching field and both values."""
-
-
-def _q8_refusal(what):
-    return NotImplementedError(
-        "%s: int8-quantised (q8) weight trees are not ported yet "
-        "(ROADMAP item A3b)" % what)
 
 
 def _a7_refusal(name):
@@ -124,27 +119,16 @@ resume_elastic = _a7_refusal("resume_elastic")
 # ---------------------------------------------------------- host trees --
 
 def _flatten(params, momentum):
-    """{npz key: tensor} of the parameters (a TransformerLM) and the
-    momentum (a dict by parameter name)."""
-    if isinstance(params, dict):
-        raise _q8_refusal("save_checkpoint") if any(
-            isinstance(v, dict) and "q8" in v for v in _leaves(params)) \
-            else TypeError("params must be a TransformerLM")
-    flat = {_PARAMS + _SEP + n: p for n, p in params.named_parameters()}
+    """{npz key: tensor} of the parameters (a TransformerLM; an int8
+    weight as its ``#q8``, ``#scale`` and ``#dt`` arrays) and the momentum
+    (a dict by parameter name)."""
+    from .transformer import TransformerLM, flat_tensors
+    if not isinstance(params, TransformerLM):
+        raise TypeError("params must be a TransformerLM")
+    flat = {_PARAMS + _SEP + n: t for n, t in flat_tensors(params).items()}
     if momentum is not None:
         flat.update((_MOMENTUM + _SEP + n, m) for n, m in momentum.items())
     return flat
-
-
-def _leaves(tree):
-    if isinstance(tree, dict) and "q8" not in tree:
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def _dtype_name(t):
@@ -245,22 +229,15 @@ def _param_fingerprint(host, dtypes):
 
 def _cfg_to_json(cfg):
     """TransformerConfig -> the JAX package's config JSON: the dtype by
-    its numpy name, and the fields the port does not carry at their
-    off values."""
+    its numpy name."""
     d = dataclasses.asdict(cfg)
     d["dtype"] = next(n for n, t in _DTYPES.items() if t == cfg.dtype)
-    d.update(_JAX_ONLY_FIELDS)
     return d
 
 
 def _cfg_from_json(d):
     from .transformer import TransformerConfig
     d = dict(d)
-    for name, off in _JAX_ONLY_FIELDS.items():
-        if d.pop(name, off) != off:
-            raise CheckpointIncompatible(
-                "checkpoint config sets %s=%r, which the port does not "
-                "carry" % (name, off))
     d["dtype"] = _DTYPES[d["dtype"]]
     return TransformerConfig(**d)
 
@@ -598,32 +575,45 @@ def _load_manifest(path, manifest_name, mesh, device):
                 "checkpoint %s (%s): parameter fingerprint %s does not "
                 "match manifest %s — refusing unverified weights"
                 % (path, manifest_name, got_fp, want_fp))
-    if any(_QSUF in k for k in flat):
-        raise _q8_refusal("load_checkpoint of %s" % path)
-    from .transformer import TransformerLM, _check_mesh
-    if mesh is not None:
-        _check_mesh(cfg, mesh)
-        device = mesh.device
-    params = TransformerLM(cfg, device)
+    from .transformer import (Q8Weight, TransformerLM, _set_leaf,
+                              shard_params)
+    params = TransformerLM(cfg, device if mesh is None else mesh.device)
     named = dict(params.named_parameters())
     pref, mref = _PARAMS + _SEP, _MOMENTUM + _SEP
-    keys = {k[len(pref):] for k in flat if k.startswith(pref)}
+    keys = {k[len(pref):].split(_QSUF)[0] for k in flat if k.startswith(pref)}
     if keys != set(named):
         raise CheckpointIncompatible(
             "checkpoint %s: its parameters do not match the config's: %s"
             % (path, sorted(keys ^ set(named))))
     with torch.no_grad():
         for name, p in named.items():
-            arr, dt = flat[pref + name]
+            q8 = pref + name + _QSUF
+            arr, dt = flat.get(pref + name) or flat[q8 + "q8"]
             if tuple(arr.shape) != tuple(p.shape):
                 raise CheckpointIncompatible(
                     "checkpoint %s: %s has shape %s, the config %s"
                     % (path, name, arr.shape, tuple(p.shape)))
-            p.copy_(_to_tensor(arr, dt, p.device))
+            if pref + name in flat:
+                p.copy_(_to_tensor(arr, dt, p.device))
+                continue
+            scale, scale_dt = flat[q8 + "scale"]
+            _set_leaf(params, name, Q8Weight(
+                _to_tensor(arr, dt, p.device),
+                _to_tensor(scale, scale_dt, p.device),
+                _DTYPES[flat[q8 + "dt"][1]]))
     momentum = None
     if manifest["has_momentum"]:
         momentum = {k[len(mref):]: _to_tensor(arr, dt, params.device)
                     for k, (arr, dt) in flat.items() if k.startswith(mref)}
+    if mesh is not None:
+        params = shard_params(params, cfg, mesh)
+        if momentum is not None:
+            # the momentum takes its parameter's block: shard it as a tree
+            # of the same names
+            shell = TransformerLM(cfg, "meta")
+            for name, m in momentum.items():
+                _set_leaf(shell, name, m)
+            momentum = dict(shard_params(shell, cfg, mesh).named_parameters())
     return cfg, params, momentum, int(manifest["step"]), \
         manifest.get("metadata", {})
 
@@ -633,7 +623,8 @@ def load_checkpoint(path, mesh=None, fallback=True, device=None):
     metadata)``, params a TransformerLM and momentum a dict by parameter
     name (None when the checkpoint carried none), on ``device`` (the
     current CUDA device by default), or placed for ``mesh`` through
-    ``shard_params``'s rule (dp × sp; tp or ep above 1 raise).
+    ``shard_params``'s rule, each rank its block of the parameters and
+    of the momentum.
 
     Every array is digest-verified against the manifest, and the
     parameters against its fingerprint; a torn, truncated or missing
@@ -813,6 +804,15 @@ def _validate_manifest_compat(path, cfg, meta, expect_world,
 
 
 def _finish_train_state(cfg, params, momentum, step):
+    """Shared tail of the resume paths: refuse serving-only int8 trees
+    (as JAX does), zero-init momentum when none was saved."""
+    from .transformer import _is_q8
+    if _is_q8(params):
+        raise ValueError(
+            "checkpoint holds int8-quantized weights — a serving "
+            "artifact, not a resumable training state; quantization "
+            "discards the fp weights SGD needs. Load it with "
+            "load_checkpoint() and serve it.")
     if momentum is None:
         from .transformer import init_momentum
         momentum = init_momentum(params)

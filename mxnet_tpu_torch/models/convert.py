@@ -7,11 +7,13 @@ The JAX package keeps the transformer's parameters as a tree of arrays
 keeps the parameters in a :class:`~.transformer.TransformerLM` with the
 same names and shapes, and the momentum as a dict by parameter name
 (``init_momentum``). The config crosses by field name
-(``config_from_jax``), the mesh axes and ``use_ring_attention`` with the
-rest; sharding does not change the parameter tree, so ``params_from_jax``
-serves meshes too. Serving state crosses as well: per-layer KV caches and
-block pools, [{"k", "v"}, ...] or, under int8 KV, [{"k", "ks", "v",
-"vs"}, ...] in both packages. So do the parameters of a traced Gluon
+(``config_from_jax``), the mesh axes, ``num_microbatches`` and
+``use_ring_attention`` with the rest; the JAX tree is global, so a mesh
+takes ``transformer.shard_params`` of ``params_from_jax``'s model. A
+weight-only int8 tree crosses too: a q8 leaf {"q8", "scale", "dt"} is a
+``transformer.Q8Weight`` in the port. Serving state crosses as well:
+per-layer KV caches and block pools, [{"k", "v"}, ...] or, under int8
+KV, [{"k", "ks", "v", "vs"}, ...] in both packages. So do the parameters of a traced Gluon
 graph (``graph_params_from_numpy``): the JAX package's
 ``functionalize_block`` dicts by graph name. Everything crosses as numpy
 arrays, so this module imports nothing of JAX.
@@ -23,8 +25,9 @@ import numpy as np
 import torch
 
 from ..context import resolve_device
-from .transformer import (TransformerConfig, TransformerLM, flatten_tree,
-                          load_numpy_tree, numpy_to_tensor, unflatten_tree)
+from .transformer import (Q8Weight, TransformerConfig, TransformerLM,
+                          flatten_tree, load_numpy_tree, named_leaves,
+                          numpy_to_tensor, unflatten_tree)
 
 __all__ = ["config_from_jax", "params_from_jax", "params_to_numpy",
            "momentum_from_jax", "momentum_to_numpy", "cache_from_jax",
@@ -34,6 +37,7 @@ __all__ = ["config_from_jax", "params_from_jax", "params_to_numpy",
 _CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "int8": torch.int8}
 _CACHE_KEYS = ({"k", "v"}, {"k", "ks", "v", "vs"})
+_DTYPE_NAMES = {t: n for n, t in _CACHE_DTYPES.items()}
 
 
 def _numpy(t):
@@ -45,9 +49,7 @@ def _numpy(t):
 
 def config_from_jax(cfg):
     """The port's :class:`TransformerConfig` holding the JAX package's
-    config ``cfg``: every field the port carries, by name, the dtype by
-    its numpy name (fields the port does not carry, such as
-    ``num_microbatches``, stay behind)."""
+    config ``cfg``: every field, by name, the dtype by its numpy name."""
     kw = {f.name: getattr(cfg, f.name)
           for f in dataclasses.fields(TransformerConfig)
           if hasattr(cfg, f.name)}
@@ -58,14 +60,21 @@ def config_from_jax(cfg):
 def params_from_jax(tree, cfg, device=None):
     """A :class:`TransformerLM` on ``device`` holding the JAX package's
     parameter tree ``tree`` (numpy arrays, e.g. ``jax.tree.map(np.asarray,
-    params)``). ``device`` defaults to the current CUDA device."""
+    params)``; q8 leaves of an int8 tree become ``Q8Weight``s). ``device``
+    defaults to the current CUDA device."""
     return load_numpy_tree(TransformerLM(cfg, device), tree)
 
 
 def params_to_numpy(model):
     """The inverse: ``model``'s parameters as a JAX-shaped tree of numpy
-    arrays."""
-    return unflatten_tree({n: _numpy(p) for n, p in model.named_parameters()})
+    arrays; an int8 weight as {"q8": int8, "scale": float32, "dt": the
+    weight dtype's numpy name}."""
+    def leaf(p):
+        if isinstance(p, Q8Weight):
+            return {"q8": _numpy(p.q8), "scale": _numpy(p.scale),
+                    "dt": _DTYPE_NAMES[p.dt]}
+        return _numpy(p)
+    return unflatten_tree({n: leaf(p) for n, p in named_leaves(model).items()})
 
 
 def momentum_from_jax(tree, params):

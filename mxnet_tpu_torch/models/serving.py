@@ -151,9 +151,11 @@ def params_fingerprint(params):
     sorted entries' names, dtypes, shapes and exact bytes, under the names
     its checkpoint manifests flatten the tree to ("p.embed",
     "p.layers.0.wq", ...), so the same weights give the same id in both
-    packages, and the manifest's ``param_fingerprint``."""
+    packages, and the manifest's ``param_fingerprint``. An int8 tree
+    folds each weight's codes, scales and dtype carrier as JAX flattens
+    them ("p.layers.0.wq#q8", ...)."""
     entries = []
-    for name, t in params.named_parameters():
+    for name, t in tf.flat_tensors(params).items():
         t = t.detach().to("cpu").contiguous()
         entries.append(("p." + name, _ckpt._dtype_name(t), t.shape,
                         _ckpt._to_numpy(t).tobytes()))
@@ -494,7 +496,6 @@ class ContinuousBatcher(object):
                 raise NotImplementedError(
                     "%s=%r waits for ROADMAP item %s"
                     % (option, value, _LATER_OPTIONS[option]))
-        tf._check_supported(cfg)
         if cfg.max_len < 8:
             raise ValueError("max_len too small for the bucket floor")
         if chunk_size < 1:
@@ -536,7 +537,6 @@ class ContinuousBatcher(object):
             if (draft_params is None) != (draft_cfg is None):
                 raise ValueError("draft_params and draft_cfg come as a pair")
             if draft_cfg is not None:
-                tf._check_supported(draft_cfg)
                 if draft_cfg.vocab_size != cfg.vocab_size:
                     raise ValueError("draft vocab %d != target vocab %d"
                                      % (draft_cfg.vocab_size,

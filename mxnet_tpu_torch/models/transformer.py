@@ -1,10 +1,12 @@
 """The transformer language model in PyTorch (port of
 ``mxnet_tpu/models/transformer.py``): config, seeded parameters, the
 training path (``forward``, ``loss_fn``, ``make_train_step``,
-``init_momentum``), the forward path under a mesh (``shard_params``, and
-``forward`` / ``loss_fn`` with ``mesh``), and the serving path (prompt
-prefill, dense-cache and paged decode steps, the ragged verify windows
-of speculative decoding, ``generate()`` greedy or sampled,
+``init_momentum``), the model under a mesh (``param_specs``,
+``shard_params``, ``shard_cache``; data, tensor, sequence, expert and
+pipeline parallel training, sharded ``generate`` and ``beam_search``),
+weight-only int8 trees (``quantize_weights_int8``), and the serving path
+(prompt prefill, dense-cache and paged decode steps, the ragged verify
+windows of speculative decoding, ``generate()`` greedy or sampled,
 ``speculative_generate`` and ``beam_search``).
 
 Function names, argument order and numerics follow the JAX module, so a
@@ -28,18 +30,33 @@ same flag (so also ``beam_search``'s steps and
 tensors; its int8 mode for an int8 KV pool; the verify window at span
 k + 1, sliced where the kernel's 16 query rows a KV head do not hold
 it). ``verify_chunk`` and ``speculative_generate``'s verify are plain
-torch contractions, as the JAX functions are. Under a mesh, attention
-runs as ring attention over ``cfg.sp_axis`` (``parallel.ring``), each
-fold through the ring-carry kernel with ``cfg.use_flash_kernel``.
+torch contractions, as the JAX functions are.
 
-Under a mesh (``parallel.make_mesh``, one rank per process) ``forward``
-and ``loss_fn`` take the GLOBAL tokens on every rank, as the JAX
-functions take a global array: each rank runs its block of the batch
+Under a mesh (``parallel.make_mesh``, one rank per process) the model
+functions take the GLOBAL tokens on every rank, as the JAX functions take
+a global array, and each rank holds its block of the parameters
+(``shard_params``: Megatron tp over heads and the FFN hidden, experts
+over ep, pipeline stages over pp). A rank runs its block of the batch
 (over ``cfg.dp_axis``) and of the sequence (over ``cfg.sp_axis``), RoPE
-and the position table at global positions. ``forward`` all-gathers the
-logits, so every rank returns the global [B, T, vocab]; ``loss_fn``
-all-reduces its token losses over dp x sp, so every rank returns the
-global mean.
+and the position table at global positions. Attention over sp is ring
+attention (``parallel.ring``, each fold through the ring-carry kernel
+with ``cfg.use_flash_kernel``) or, with ``use_ring_attention=False``,
+the whole sequence gathered and attended by ``_causal_attention``. The
+layer all-reduces over tp after ``wo`` and ``w2`` and over ep x tp after
+the experts' combine; where a replicated activation meets sharded
+weights, ``parallel.pvary`` all-reduces its gradient. ``forward``
+all-gathers the logits, so every rank returns the global [B, T, vocab];
+``loss_fn`` all-reduces its token losses over dp x sp, so every rank
+returns the global mean; ``make_train_step(cfg, mesh)`` reduces the
+gradients over dp x sp with ``parallel.bucketed_all_reduce``. Under pp,
+``forward`` runs the layers as ``parallel.pipeline.spmd_pipeline``'s
+GPipe ticks over the stages.
+
+A weight-only int8 tree (``quantize_weights_int8``) holds each weight of
+rank 2 or more as a :class:`Q8Weight` (int8 codes, fp32 scales over axis
+0, the weight's dtype) and keeps no full-precision copy: every serving
+path dequantises each weight where it is used, in JAX's order, so at
+most one weight exists in full precision at a time.
 
 Every serving path carries RoPE (keys are cached rotated) and int8 KV
 caches (int8 codes plus fp32 scale planes ``ks``/``vs`` per position and
@@ -53,11 +70,6 @@ a host loop over device tensors: each round's draft steps, verify
 window, acceptance and buffer write are queued without a host read, and
 the one read of a round is the loop's condition, the emitted count
 compared with the budget (``int(n) < total`` in ``_spec_core``).
-
-Not ported yet; each raises NotImplementedError where it would be asked
-for: training under a mesh, tensor / expert sharding and pipeline stages
-(the next parallel slice), int8 weight trees, and ``generate(mesh=...)``
-and ``beam_search(mesh=...)`` (ROADMAP item A7).
 """
 
 import dataclasses
@@ -76,16 +88,22 @@ from ..kernels.common import kv_dequant as _kv_dequant  # noqa: F401
 from ..kernels.common import kv_quant as _kv_quant
 from ..kernels.flash_attention import flash_attention, flash_decode
 from ..kernels.paged_decode import paged_attention
-from ..parallel import NEXT_SLICE, all_gather, all_reduce
+from ..parallel import (P, all_gather, all_reduce, bucketed_all_reduce,
+                        pvary, shard)
+from ..parallel.pipeline import spmd_pipeline, stack_stage_params
 from ..parallel.ring import ring_attention
 
-__all__ = ["TransformerConfig", "TransformerLM", "init_params", "forward",
-           "loss_fn", "make_train_step", "init_momentum", "shard_params",
-           "init_cache",
-           "prefill", "prefill_chunk", "decode_step", "init_paged_cache",
-           "paged_cache_nbytes", "grow_paged_cache", "decode_step_paged",
-           "verify_chunk", "verify_chunk_paged", "generate",
-           "speculative_generate", "beam_search"]
+__all__ = ["TransformerConfig", "TransformerLM", "Q8Weight", "init_params",
+           "forward", "loss_fn", "make_train_step", "init_momentum",
+           "param_specs", "shard_params", "shard_cache", "init_cache",
+           "prefill", "prefill_chunk", "decode_step", "make_decode_step",
+           "init_paged_cache", "paged_cache_nbytes", "grow_paged_cache",
+           "decode_step_paged", "verify_chunk", "verify_chunk_paged",
+           "generate", "speculative_generate", "beam_search",
+           "quantize_weights_int8", "save_checkpoint", "load_checkpoint",
+           "restore_train_state", "resume_from_latest", "CheckpointCorrupt",
+           "wait_for_pending_save", "install_emergency_checkpoint",
+           "uninstall_emergency_checkpoint"]
 
 
 @dataclasses.dataclass
@@ -101,70 +119,64 @@ class TransformerConfig:
     max_len: int = 128
     dtype: torch.dtype = torch.float32
     # mesh axis names (None disables an axis): batch, heads / FFN hidden,
-    # sequence (ring attention) and experts; tp and ep above 1 are not
-    # ported yet
+    # sequence and experts
     dp_axis: str = "dp"
     tp_axis: str = "tp"
     sp_axis: str = "sp"
     ep_axis: str = "ep"
-    pp_axis: str = None         # pipeline stages: not ported yet
+    pp_axis: str = None         # set to 'pp' to pipeline the layer stack
+    num_microbatches: int = 0   # 0 = one per pipeline stage
     # rotary positions on q/k instead of the learned `pos` table (which a
     # rope model does not carry), in training and every serving path;
     # caches hold the keys rotated
     rope: bool = False
     rope_base: float = 10000.0
-    # under a mesh, attention over the sp axis as ring attention
+    # under a mesh, attention over the sp axis as ring attention (else the
+    # sequence is gathered over sp and attended whole)
     use_ring_attention: bool = True
     # attention through the hand-written flash kernels: the training
     # forward/backward and prefill, each ring step under a mesh (the carry
-    # kernel), and decode_step's flash-decode kernel (not under
-    # kv_cache_int8, whose dense decode is the int8 contraction)
+    # kernel, forward only), and decode_step's flash-decode kernel (not
+    # under kv_cache_int8, whose dense decode is the int8 contraction)
     use_flash_kernel: bool = False
     # activation recompute: backward re-runs each layer from its input
-    # (torch.utils.checkpoint, non-reentrant) instead of storing it
+    # (torch.utils.checkpoint, non-reentrant; its collectives run again,
+    # in the same order on every rank) instead of storing it
     remat_layers: bool = False
     # int8 KV caches and pools: int8 codes plus fp32 scales per position
     # and KV head; the paged kernel reads them in its int8 mode
     kv_cache_int8: bool = False
 
 
-# config fields the port does not carry yet, and the slice that brings each
-_LATER = (
-    ("pp_axis", "pipeline stages arrive with " + NEXT_SLICE),
-)
+def _axes(mesh, *names):
+    """The axes among ``names`` that the config sets and the mesh has (an
+    axis the mesh lacks has size 1)."""
+    if mesh is None:
+        return ()
+    return tuple(n for n in names if n and n in mesh.shape)
 
 
-def _check_supported(cfg):
-    """Raise for a config field this port does not carry yet."""
-    for name, later in _LATER:
-        if getattr(cfg, name):
-            raise NotImplementedError("%s=%r: %s" % (name, getattr(cfg, name),
-                                                      later))
+def _size(mesh, name):
+    return mesh.axis_size(name) if _axes(mesh, name) else 1
 
 
-def _check_mesh(cfg, mesh):
-    """Raise for a mesh this slice cannot run: tp or ep above 1 (not
-    sharded yet), an sp axis above 1 without ring attention, or a mesh
-    without the dp or sp axis the config names (as the JAX package's
-    sharding specs and shard_map refuse a missing axis)."""
+def _index(mesh, name):
+    return mesh.axis_index(name) if _axes(mesh, name) else 0
+
+
+def _check_mesh(cfg, mesh, fields=("dp_axis", "sp_axis")):
+    """Raise for a mesh without the dp or sp axis the config names (as
+    the JAX package's sharding specs refuse a missing axis; serving reads
+    dp alone). The tp, ep and pp axes may be absent: each then has size
+    1."""
     if mesh is None:
         return
-    for name in (cfg.tp_axis, cfg.ep_axis):
-        if name and mesh.shape.get(name, 1) > 1:
-            raise NotImplementedError(
-                "mesh axis %r of size %d: tensor and expert sharding arrive "
-                "with %s" % (name, mesh.shape[name], NEXT_SLICE))
-    for field in ("dp_axis", "sp_axis"):
+    for field in fields:
         name = getattr(cfg, field)
         if name and name not in mesh.shape:
             raise ValueError("cfg.%s=%r is not an axis of the mesh %s (set "
                              "it to None to leave that dimension unsharded)"
                              % (field, name, mesh.shape))
-    if cfg.sp_axis and mesh.shape[cfg.sp_axis] > 1 \
-            and not cfg.use_ring_attention:
-        raise NotImplementedError(
-            "a sequence sharded over %r without ring attention arrives with "
-            "%s" % (cfg.sp_axis, NEXT_SLICE))
 
 
 def _shard_spans(cfg, mesh, shape):
@@ -173,21 +185,12 @@ def _shard_spans(cfg, mesh, shape):
     with no mesh)."""
     spans = []
     for name, size in zip((cfg.dp_axis, cfg.sp_axis), shape):
-        n = mesh.axis_size(name) if mesh is not None and name else 1
-        i = mesh.axis_index(name) if mesh is not None and name else 0
+        n, i = _size(mesh, name), _index(mesh, name)
         if size % n:
             raise ValueError("dimension of size %d does not split over the "
                              "%d ranks of axis %r" % (size, n, name))
         spans.append((i * size // n, (i + 1) * size // n))
     return spans
-
-
-def shard_params(params, cfg, mesh):
-    """Place the parameters for ``mesh``: with tp and ep at size 1 every
-    rank holds them whole, on its own device (the JAX function's specs
-    replicate every parameter then). tp or ep above 1 raises."""
-    _check_mesh(cfg, mesh)
-    return params.to(mesh.device)
 
 
 def _kvh(cfg):
@@ -197,6 +200,27 @@ def _kvh(cfg):
             "n_heads=%d must be a multiple of n_kv_heads=%d"
             % (cfg.n_heads, kvh))
     return kvh
+
+
+def param_specs(cfg):
+    """The partition spec of each parameter, in the JAX tree's shape:
+    Megatron tp (q/k/v over heads, wo over its head dim, w1 by columns and
+    w2 by rows), MoE experts over ep with their d_ff over tp; everything
+    else whole on every rank."""
+    tp, ep = cfg.tp_axis, cfg.ep_axis
+    layer = {"ln1": P(None), "ln2": P(None),
+             "wq": P(None, tp, None), "wk": P(None, tp, None),
+             "wv": P(None, tp, None), "wo": P(tp, None, None)}
+    if cfg.n_experts:
+        layer.update({"gate": P(None, None),
+                      "w1": P(ep, None, tp), "w2": P(ep, tp, None)})
+    else:
+        layer.update({"w1": P(None, tp), "w2": P(tp, None)})
+    out = {"embed": P(None, None), "ln_f": P(None),
+           "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+    if not cfg.rope:
+        out["pos"] = P(None, None)
+    return out
 
 
 class TransformerLayer(nn.Module):
@@ -230,11 +254,13 @@ class TransformerLM(nn.Module):
     shaped as the JAX package's parameter tree. The model functions of
     this module take it where the JAX functions take ``params``. No
     parameter requires a gradient outside :func:`make_train_step`'s
-    step."""
+    step. Under a mesh (:func:`shard_params`) each parameter is this
+    rank's block, and under pp ``layers`` holds this rank's stage; in an
+    int8 tree (:func:`quantize_weights_int8`) each weight of rank 2 or
+    more is a :class:`Q8Weight`."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         d = cfg.d_model
@@ -254,6 +280,146 @@ class TransformerLM(nn.Module):
     @property
     def device(self):
         return self.embed.device
+
+
+class Q8Weight(nn.Module):
+    """A weight-only int8 leaf, the JAX package's ``{"q8", "scale",
+    "dt"}``: int8 codes ``q8``, fp32 ``scale`` (the absolute maximum over
+    axis 0, over 127, kept with that axis of size 1) and the weight's
+    dtype ``dt``. :meth:`dequantize` is ``(q8.float() * scale).to(dt)``,
+    JAX's order, so both packages give the same bits."""
+
+    def __init__(self, q8, scale, dt):
+        super().__init__()
+        self.register_buffer("q8", q8)
+        self.register_buffer("scale", scale)
+        self.dt = dt
+
+    shape = property(lambda self: self.q8.shape)
+    device = property(lambda self: self.q8.device)
+
+    def dequantize(self, index=None):
+        """The weight in its dtype, or only its rows at ``index`` (an
+        index of axis 0: the same bits as indexing the whole)."""
+        q8 = self.q8 if index is None else self.q8[index]
+        return (q8.float() * self.scale).to(self.dt)
+
+
+def _w(w):
+    """A weight as a tensor of its dtype: a :class:`Q8Weight` is
+    dequantised here, where it is used, and freed after the use."""
+    return w.dequantize() if isinstance(w, Q8Weight) else w
+
+
+def _rows(table, index):
+    """``table[index]`` of an embedding or position table, gathering the
+    int8 rows before dequantising them when the table is a Q8Weight."""
+    return table.dequantize(index) if isinstance(table, Q8Weight) \
+        else table[index]
+
+
+def _quantize(x):
+    """JAX's quantiser: fp32 ``scale = max(amax over axis 0, 1e-30) /
+    127``, codes ``round(x / scale)`` (half to even) clipped to +-127."""
+    x = x.float()
+    amax = x.abs().amax(dim=0, keepdim=True)
+    scale = torch.clamp(amax, min=1e-30) / 127.0
+    q8 = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q8, scale
+
+
+def named_leaves(params):
+    """{name: parameter or Q8Weight} of a TransformerLM, by the names
+    ``named_parameters()`` gives ("embed", "layers.0.wq", ...)."""
+    out = {}
+    for prefix, mod in params.named_modules():
+        if isinstance(mod, Q8Weight):
+            out[prefix] = mod
+            continue
+        for n, p in mod.named_parameters(recurse=False):
+            out[prefix + "." + n if prefix else n] = p
+    return out
+
+
+def flat_tensors(params):
+    """{name: tensor} of every array the JAX package's checkpoint flattens
+    ``params`` to: a Q8Weight ``name`` as ``name#q8``, ``name#scale`` and
+    ``name#dt`` (a zero-size tensor of the weight's dtype)."""
+    out = {}
+    for name, leaf in named_leaves(params).items():
+        if isinstance(leaf, Q8Weight):
+            out[name + "#q8"] = leaf.q8
+            out[name + "#scale"] = leaf.scale
+            out[name + "#dt"] = torch.empty(0, dtype=leaf.dt,
+                                            device=leaf.device)
+        else:
+            out[name] = leaf
+    return out
+
+
+def _set_leaf(model, name, leaf):
+    """Put ``leaf`` (a tensor, made a parameter, or a Q8Weight) at
+    ``name`` in ``model``."""
+    *path, attr = name.split(".")
+    mod = model
+    for part in path:
+        mod = mod[int(part)] if part.isdigit() else getattr(mod, part)
+    delattr(mod, attr)
+    if not isinstance(leaf, Q8Weight):
+        leaf = nn.Parameter(leaf, requires_grad=False)
+    setattr(mod, attr, leaf)
+
+
+def _rebuild(params, fn, cfg=None, layers=None):
+    """A new TransformerLM whose leaf ``name`` is ``fn(name, leaf)``, over
+    the layers of ``params`` at indices ``layers`` (all by default),
+    renumbered from 0. No parameter is allocated beyond what ``fn``
+    returns."""
+    cfg = cfg or params.cfg
+    leaves = named_leaves(params)
+    layers = list(range(len(params.layers))) if layers is None else layers
+    out = TransformerLM(dataclasses.replace(cfg, n_layers=len(layers)),
+                        "meta")
+    out.cfg = cfg
+    for name, leaf in leaves.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            if int(parts[1]) not in layers:
+                continue
+            parts[1] = str(layers.index(int(parts[1])))
+        _set_leaf(out, ".".join(parts), fn(name, leaf))
+    return out
+
+
+def _is_q8(params):
+    return any(isinstance(m, Q8Weight) for m in params.modules())
+
+
+def quantize_weights_int8(params):
+    """Weight-only int8 for serving: a new TransformerLM in which every
+    weight of rank 2 or more is a :class:`Q8Weight`, scales shared only
+    along the leading (input) axis; norms stay as they are (copied).
+    Decode reads each weight from memory once a step, so int8 storage
+    halves the bytes of a bf16 tree. The serving paths dequantise one
+    weight at a time where it is used; no full-precision copy is kept.
+    Idempotent."""
+    def q(name, leaf):
+        if isinstance(leaf, Q8Weight):
+            return Q8Weight(leaf.q8.clone(), leaf.scale.clone(), leaf.dt)
+        if leaf.dim() < 2:
+            return leaf.detach().clone()
+        return Q8Weight(*_quantize(leaf.detach()), leaf.dtype)
+    return _rebuild(params, q)
+
+
+def _dequantize_weights(params):
+    """The inverse of quantize_weights_int8: a new TransformerLM holding
+    every weight dequantised, in its dtype (a full-precision tree)."""
+    return _rebuild(params, lambda name, leaf: _w(leaf).detach().clone())
+
+
+_NP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
 
 
 def numpy_to_tensor(arr, dtype, device):
@@ -291,9 +457,19 @@ def unflatten_tree(flat):
     return tree
 
 
+def _q8_dtype(dt):
+    """The weight dtype a q8 leaf's ``dt`` names: a (zero-size) array of
+    that dtype, or its numpy name."""
+    name = dt if isinstance(dt, str) else np.asarray(dt).dtype.name
+    return _NP_DTYPES[name]
+
+
 def load_numpy_tree(model, tree):
     """Copy a JAX-shaped parameter tree of numpy arrays into ``model``,
-    checking names and shapes."""
+    checking names and shapes. A q8 leaf ({"q8", "scale", "dt"}, as the
+    JAX package's ``quantize_weights_int8`` makes it; ``dt`` a zero-size
+    array of the weight's dtype or its name) becomes a :class:`Q8Weight`
+    in place of that parameter."""
     if len(tree["layers"]) != len(model.layers):
         raise ValueError("tree has %d layers, model %d"
                          % (len(tree["layers"]), len(model.layers)))
@@ -305,12 +481,17 @@ def load_numpy_tree(model, tree):
     with torch.no_grad():
         for name, arr in flat.items():
             param = params[name]
-            if isinstance(arr, dict):
-                raise NotImplementedError(
-                    "int8 weight trees arrive with the int8-weights slice")
-            if tuple(np.shape(arr)) != tuple(param.shape):
+            shape = np.shape(arr["q8"] if isinstance(arr, dict) else arr)
+            if tuple(shape) != tuple(param.shape):
                 raise ValueError("shape %s does not match parameter %s %s"
-                                 % (np.shape(arr), name, tuple(param.shape)))
+                                 % (shape, name, tuple(param.shape)))
+            if isinstance(arr, dict):
+                _set_leaf(model, name, Q8Weight(
+                    numpy_to_tensor(arr["q8"], torch.int8, param.device),
+                    numpy_to_tensor(arr["scale"], torch.float32,
+                                    param.device),
+                    _q8_dtype(arr["dt"])))
+                continue
             param.copy_(numpy_to_tensor(arr, param.dtype, param.device))
     return model
 
@@ -319,7 +500,6 @@ def init_params(cfg, seed=0, device=None):
     """Seeded random parameters as a :class:`TransformerLM` — the same
     numpy ``RandomState`` draws, in the same order, as the JAX package's
     ``init_params``, so one seed gives the same weights in both."""
-    _check_supported(cfg)
     rng = np.random.RandomState(seed)
     d, h, kvh = cfg.d_model, cfg.n_heads, _kvh(cfg)
     hd = d // h
@@ -350,15 +530,69 @@ def init_params(cfg, seed=0, device=None):
     return load_numpy_tree(TransformerLM(cfg, device), tree)
 
 
+def _pp_size(cfg, mesh):
+    return _size(mesh, cfg.pp_axis)
+
+
+def shard_params(params, cfg, mesh):
+    """This rank's block of every parameter under ``param_specs(cfg)``,
+    on the mesh's device: heads and FFN columns over tp, experts over ep;
+    under pp, only the layers of this rank's stage (stage-major, as
+    ``pipeline.stack_stage_params`` groups them). An int8 tree shards
+    too: the codes take the weight's spec, and the fp32 scale is sliced
+    along every dimension past the first that the spec splits (the
+    scale's first dimension is 1), so each rank's scale matches its
+    codes. Raises when tp does not divide the KV heads, as JAX does."""
+    tp = _size(mesh, cfg.tp_axis)
+    if _kvh(cfg) % tp:
+        raise ValueError(
+            "tp axis of size %d cannot shard %d KV heads "
+            "(n_kv_heads must be a multiple of the tp width; "
+            "lower tp, raise n_kv_heads, or replicate KV by "
+            "setting tp_axis=None)" % (tp, _kvh(cfg)))
+    specs = flatten_tree(param_specs(cfg))
+
+    def local(spec):
+        return P(*(e if e in _axes(mesh, e) else None for e in spec))
+
+    def place(name, leaf):
+        parts = name.split(".")
+        key = ".".join(parts[:1] + ["0"] + parts[2:]) \
+            if parts[0] == "layers" else name
+        spec = local(specs[key])
+        if isinstance(leaf, Q8Weight):
+            return Q8Weight(shard(leaf.q8, spec, mesh),
+                            shard(leaf.scale, P(None, *spec[1:]), mesh),
+                            leaf.dt)
+        return shard(leaf.detach(), spec, mesh)
+
+    stage = stack_stage_params(range(len(params.layers)),
+                               _pp_size(cfg, mesh))[_index(mesh, cfg.pp_axis)]
+    return _rebuild(params, place, cfg, stage)
+
+
+def _check_blocks(params, cfg, mesh):
+    """Raise unless ``params`` are this mesh's blocks (:func:`shard_params`):
+    its stage's layers under pp, its heads under tp. Whole parameters
+    under such a mesh would run every layer in every stage, or count
+    every head tp times."""
+    stages, tp = _pp_size(cfg, mesh), _size(mesh, cfg.tp_axis)
+    if len(params.layers) * stages != cfg.n_layers \
+            or params.layers[0].wq.shape[1] * tp != cfg.n_heads:
+        raise ValueError("the parameters are not this rank's blocks for the "
+                         "mesh %s: pass shard_params(params, cfg, mesh)"
+                         % (mesh.shape,))
+
+
 def _rms_norm(x, g):
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * g
 
 
 def _qkv(x, p):
-    q = torch.einsum("btd,dhk->bthk", x, p.wq)
-    k = torch.einsum("btd,dhk->bthk", x, p.wk)    # KVH heads under GQA
-    v = torch.einsum("btd,dhk->bthk", x, p.wv)
+    q = torch.einsum("btd,dhk->bthk", x, _w(p.wq))
+    k = torch.einsum("btd,dhk->bthk", x, _w(p.wk))    # KVH heads under GQA
+    v = torch.einsum("btd,dhk->bthk", x, _w(p.wv))
     return q, k, v
 
 
@@ -391,16 +625,37 @@ def _rope(x, positions, base):
     return rot.to(x.dtype)
 
 
-def _ffn(x, p, cfg):
+def _ffn(x, p, cfg, mesh=None):
+    """The FFN of one layer over x [B, T, D], the same on every rank of tp
+    and ep. Under a mesh each rank holds its FFN columns (tp) and its
+    experts (ep), and the partial outputs are all-reduced over them; the
+    gates are computed whole and each rank takes its experts' share."""
     # jax.nn.gelu defaults to the tanh approximation
     if cfg.n_experts:
         # dense top-all dispatch: every token weighted over every expert
-        gates = torch.softmax(torch.einsum("btd,de->bte", x, p.gate), dim=-1)
-        h = F.gelu(torch.einsum("btd,edf->betf", x, p.w1), approximate="tanh")
-        y = torch.einsum("betf,efd->betd", h, p.w2)
-        return torch.einsum("betd,bte->btd", y, gates)
-    h = F.gelu(torch.einsum("btd,df->btf", x, p.w1), approximate="tanh")
-    return torch.einsum("btf,fd->btd", h, p.w2)
+        gates = torch.softmax(torch.einsum("btd,de->bte", x, _w(p.gate)),
+                              dim=-1)
+        axes = _axes(mesh, cfg.ep_axis, cfg.tp_axis)
+        x, gates = pvary(x, axes, mesh), pvary(gates, axes, mesh)
+        e = p.w1.shape[0]
+        e0 = _index(mesh, cfg.ep_axis) * e
+        h = F.gelu(torch.einsum("btd,edf->betf", x, _w(p.w1)),
+                   approximate="tanh")
+        y = torch.einsum("betf,efd->betd", h, _w(p.w2))
+        return all_reduce(torch.einsum("betd,bte->btd", y,
+                                       gates[..., e0:e0 + e]), axes, mesh=mesh)
+    axes = _axes(mesh, cfg.tp_axis)
+    h = F.gelu(torch.einsum("btd,df->btf", pvary(x, axes, mesh), _w(p.w1)),
+               approximate="tanh")
+    return all_reduce(torch.einsum("btf,fd->btd", h, _w(p.w2)), axes,
+                      mesh=mesh)
+
+
+def _out(o, eq, p, cfg, mesh=None):
+    """The attention output projection ``einsum(eq, o, wo)``, all-reduced
+    over tp when each rank holds its heads."""
+    return all_reduce(torch.einsum(eq, o, _w(p.wo)), _axes(mesh, cfg.tp_axis),
+                      mesh=mesh)
 
 
 def _causal_attention(q, k, v, cfg, out_dtype):
@@ -424,7 +679,7 @@ def _pos_rows(table, pos):
     the table gives a NaN row, as ``jnp.take`` fills it."""
     n = table.shape[0]
     valid = (pos >= 0) & (pos < n)
-    rows = table[pos.long().clamp(0, n - 1)]
+    rows = _rows(table, pos.long().clamp(0, n - 1))
     return torch.where(valid[:, None], rows, float("nan"))
 
 
@@ -432,7 +687,13 @@ def _pos_rows(table, pos):
 
 def _attention(x, p, cfg, mesh=None, start=0):
     """Attention of a layer over x [B, T, D], whose first row sits at
-    global position ``start`` (a rank's sequence offset under a mesh)."""
+    global position ``start`` (a rank's sequence offset under a mesh).
+    Under a mesh each rank attends with its tp heads; over an sp axis the
+    attention is ring attention, or with ``use_ring_attention=False`` the
+    whole sequence gathered over sp, attended by _causal_attention (the
+    flash kernels with ``use_flash_kernel``), of which the rank keeps its
+    rows."""
+    x = pvary(x, _axes(mesh, cfg.tp_axis), mesh)
     q, k, v = _qkv(x, p)
     if cfg.rope:
         positions = start + torch.arange(x.shape[1], device=x.device)
@@ -441,17 +702,23 @@ def _attention(x, p, cfg, mesh=None, start=0):
     # training attends with the repeated view, as the JAX package does
     g = cfg.n_heads // _kvh(cfg)
     k, v = _repeat_kv(k, g), _repeat_kv(v, g)
-    if mesh is not None and cfg.use_ring_attention and cfg.sp_axis:
+    sp = _axes(mesh, cfg.sp_axis)
+    if sp and cfg.use_ring_attention:
         o = ring_attention(q, k, v, axis_name=cfg.sp_axis, causal=True,
                            use_flash_kernel=cfg.use_flash_kernel, mesh=mesh)
+    elif sp and mesh.axis_size(sp) > 1:
+        t = q.shape[1]
+        o = _causal_attention(*(all_gather(z, sp[0], axis=1, mesh=mesh)
+                                for z in (q, k, v)), cfg, x.dtype)
+        o = o[:, start:start + t]
     else:
         o = _causal_attention(q, k, v, cfg, x.dtype)
-    return torch.einsum("bthk,hkd->btd", o, p.wo)
+    return _out(o, "bthk,hkd->btd", p, cfg, mesh)
 
 
 def _layer(p, x, cfg, mesh=None, start=0):
     x = x + _attention(_rms_norm(x, p.ln1), p, cfg, mesh, start)
-    return x + _ffn(_rms_norm(x, p.ln2), p, cfg)
+    return x + _ffn(_rms_norm(x, p.ln2), p, cfg, mesh)
 
 
 def _tokens(tokens, device):
@@ -462,20 +729,31 @@ def _tokens(tokens, device):
 
 def _forward_local(params, tokens, cfg, mesh):
     """Logits of this rank's block of the global tokens [B, T] (all of
-    them without a mesh): [B_local, T_local, vocab]."""
-    _check_supported(cfg)
+    them without a mesh): [B_local, T_local, vocab]. Under pp the layers
+    run as the pipeline's ticks over this rank's stage."""
     _check_mesh(cfg, mesh)
+    if mesh is not None:
+        _check_blocks(params, cfg, mesh)
     (b0, b1), (t0, t1) = _shard_spans(cfg, mesh, tokens.shape)
-    x = params.embed[tokens[b0:b1, t0:t1]]
+    x = _rows(params.embed, tokens[b0:b1, t0:t1])
     if not cfg.rope:
-        x = x + params.pos[t0:t1]
-    for p in params.layers:
+        x = x + _rows(params.pos, slice(t0, t1))
+
+    def layer_fn(p, x):
         if cfg.remat_layers:
-            x = checkpoint(_layer, p, x, cfg, mesh, t0, use_reentrant=False)
-        else:
-            x = _layer(p, x, cfg, mesh, t0)
+            return checkpoint(_layer, p, x, cfg, mesh, t0,
+                              use_reentrant=False)
+        return _layer(p, x, cfg, mesh, t0)
+
+    if _pp_size(cfg, mesh) > 1:
+        x = spmd_pipeline(layer_fn, list(params.layers), x, mesh,
+                          axis_name=cfg.pp_axis,
+                          num_microbatches=cfg.num_microbatches or None)
+    else:
+        for p in params.layers:
+            x = layer_fn(p, x)
     x = _rms_norm(x, params.ln_f)
-    return torch.einsum("btd,vd->btv", x, params.embed)
+    return torch.einsum("btd,vd->btv", x, _w(params.embed))
 
 
 def forward(params, tokens, cfg, mesh=None):
@@ -485,10 +763,9 @@ def forward(params, tokens, cfg, mesh=None):
     every rank passes the global tokens and gets the global logits."""
     tokens = _tokens(tokens, params.device)
     logits = _forward_local(params, tokens, cfg, mesh)
-    if mesh is not None:
-        for name, dim in ((cfg.sp_axis, 1), (cfg.dp_axis, 0)):
-            if name:
-                logits = all_gather(logits, name, axis=dim, mesh=mesh)
+    for name, dim in ((cfg.sp_axis, 1), (cfg.dp_axis, 0)):
+        if _axes(mesh, name):
+            logits = all_gather(logits, name, axis=dim, mesh=mesh)
     return logits
 
 
@@ -496,7 +773,9 @@ def loss_fn(params, tokens, cfg, mesh=None):
     """Next-token cross entropy (mean over B, T-1), as a 0-dim fp32
     tensor: the sum of the losses of this rank's tokens (all of them
     without a mesh), all-reduced over dp x sp under ``mesh``, over the
-    global count, so every rank returns the global mean."""
+    global count, so every rank returns the global mean. The all-reduce
+    passes its gradient through: each rank's gradients are those of its
+    own tokens, which the train step sums over dp x sp."""
     tokens = _tokens(tokens, params.device)
     logits = _forward_local(params, tokens, cfg, mesh)
     (b0, b1), (t0, t1) = _shard_spans(cfg, mesh, tokens.shape)
@@ -504,9 +783,8 @@ def loss_fn(params, tokens, cfg, mesh=None):
     targets = tokens[b0:b1, t0 + 1:t1 + 1]
     logp = torch.log_softmax(logits[:, :targets.shape[1]].float(), dim=-1)
     total = -logp.gather(-1, targets[..., None])[..., 0].sum()
-    if mesh is not None:
-        total = all_reduce(total, [n for n in (cfg.dp_axis, cfg.sp_axis)
-                                   if n], mesh=mesh)
+    total = all_reduce(total, _axes(mesh, cfg.dp_axis, cfg.sp_axis),
+                       mesh=mesh)
     b, t = tokens.shape
     return total / (b * (t - 1))
 
@@ -528,33 +806,44 @@ def make_train_step(cfg, mesh=None, lr=1e-2, guard=False):
     The learning rate is taken in the parameters' dtype, as JAX rounds
     its weakly typed Python ``lr`` to bf16 before the bf16 product.
 
+    Under ``mesh`` every rank calls the step with the global tokens and
+    its block of the parameters (:func:`shard_params`); the gradients of
+    each rank's tokens are summed over dp x sp by
+    ``parallel.bucketed_all_reduce`` (last layers first, in 25 MB
+    buckets; nothing to sum where dp and sp have size 1), so every rank
+    updates its block with the gradient of the global loss.
+
     With ``guard=True`` the step returns a fourth output ``skipped`` (a
     0-dim bool tensor on the device) and, when the loss or any gradient
     is not finite, leaves params and momentum untouched; the select runs
-    on the device, with no host sync."""
-    _check_supported(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "training under a mesh (gradients through the ring, a "
-            "differentiable ring_permute, the bucketed all-reduce) arrives "
-            "with " + NEXT_SLICE)
-
+    on the device, with no host sync. Under a mesh the flag is
+    all-reduced over every axis, so all ranks skip together."""
     def step(params, momentum, tokens):
+        if _is_q8(params):
+            raise ValueError("an int8 weight tree is a serving artifact: "
+                             "quantisation discards the weights SGD needs")
         names, ps = zip(*params.named_parameters())
         for p in ps:
             p.requires_grad_(True)
         try:
-            loss = loss_fn(params, tokens, cfg)
+            loss = loss_fn(params, tokens, cfg, mesh)
             grads = torch.autograd.grad(loss, ps)
         finally:
             for p in ps:
                 p.requires_grad_(False)
         with torch.no_grad():
             loss = loss.detach()
+            axes = _axes(mesh, cfg.dp_axis, cfg.sp_axis)
+            if axes:
+                grads = bucketed_all_reduce(grads[::-1], axes,
+                                            mesh=mesh)[::-1]
             if guard:
                 ok = torch.isfinite(loss)
                 for g in grads:
                     ok = ok & torch.isfinite(g).all()
+                if mesh is not None:
+                    ok = all_reduce((~ok).float(), mesh.axis_names, op="max",
+                                    mesh=mesh) == 0
             lrs = {}
             for name, p, g in zip(names, ps, grads):
                 m = momentum[name]
@@ -595,7 +884,6 @@ def init_cache(cfg, batch, device=None):
     """Zeroed per-layer K/V caches [batch, max_len, KVH, D] of cfg.dtype;
     under kv_cache_int8, int8 codes plus fp32 scales [batch, max_len,
     KVH] ("ks", "vs")."""
-    _check_supported(cfg)
     device = resolve_device(device)
     shape = (batch, cfg.max_len, _kvh(cfg), cfg.d_model // cfg.n_heads)
     return [_cache_leaves(cfg, shape, device) for _ in range(cfg.n_layers)]
@@ -680,21 +968,21 @@ def _decode_attention_int8(q, layer_cache, pos, cfg):
     return o.reshape(b, h, d)
 
 
-def prefill(params, cache, tokens, cfg):
+def prefill(params, cache, tokens, cfg, mesh=None):
     """Process the whole prompt tokens [B, Tp] in one forward pass,
     filling cache positions [0, Tp). Returns (last_logits [B, vocab],
     cache). Under kv_cache_int8 it is ``prefill_chunk`` at start 0: the
     prompt's own attention then reads its rows through the quantiser, as
     decode and the batcher's admission do."""
-    _check_supported(cfg)
     b, t_p = tokens.shape
     if cfg.kv_cache_int8:
         return prefill_chunk(params, cache, tokens, 0, cfg,
-                             logits_row=t_p - 1, attend_limit=t_p)
+                             logits_row=t_p - 1, attend_limit=t_p,
+                             mesh=mesh)
     tokens = tokens.long()
-    x = params.embed[tokens]
+    x = _rows(params.embed, tokens)
     if not cfg.rope:
-        x = x + params.pos[:t_p]
+        x = x + _rows(params.pos, slice(None, t_p))
     positions = torch.arange(t_p, device=x.device)
     g = cfg.n_heads // _kvh(cfg)
     for p, layer_cache in zip(params.layers, cache):
@@ -707,10 +995,10 @@ def prefill(params, cache, tokens, cfg):
         _cache_write_rows(layer_cache, k, v, 0, cfg)
         o = _causal_attention(q, _repeat_kv(k, g), _repeat_kv(v, g), cfg,
                               x.dtype)
-        x = x + torch.einsum("bthk,hkd->btd", o, p.wo)
-        x = x + _ffn(_rms_norm(x, p.ln2), p, cfg)
+        x = x + _out(o, "bthk,hkd->btd", p, cfg, mesh)
+        x = x + _ffn(_rms_norm(x, p.ln2), p, cfg, mesh)
     x = _rms_norm(x[:, -1], params.ln_f)
-    return torch.einsum("bd,vd->bv", x, params.embed), cache
+    return torch.einsum("bd,vd->bv", x, _w(params.embed)), cache
 
 
 def _chunk_attention(qg, att, mask, cfg, out_dtype):
@@ -732,25 +1020,22 @@ def _chunk_attention(qg, att, mask, cfg, out_dtype):
 
 
 def prefill_chunk(params, cache, tokens, start, cfg, logits_row=None,
-                  attend_limit=None):
+                  attend_limit=None, mesh=None):
     """Process a chunk tokens [B, C] beginning at position ``start``,
     writing its K/V into the cache. Returns the logits after every chunk
     position ([B, C, vocab]) — or, with ``logits_row``, only that row's
     [B, vocab] — and the cache. Row i attends cache positions
     <= start+i; ``attend_limit`` restricts the contraction to the first
     ``attend_limit`` positions (exact when start+C <= attend_limit)."""
-    _check_supported(cfg)
     b, c = tokens.shape
     start = int(start)
     if start < 0 or start + c > cfg.max_len:
         raise ValueError("chunk [%d, %d) overruns max_len %d"
                          % (start, start + c, cfg.max_len))
-    x = params.embed[tokens.long()]
+    x = _rows(params.embed, tokens.long())
     chunk_pos = start + torch.arange(c, device=x.device)
     if not cfg.rope:
-        x = x + params.pos[start:start + c]
-    g = cfg.n_heads // _kvh(cfg)
-    kvh = _kvh(cfg)
+        x = x + _rows(params.pos, slice(start, start + c))
     for p, layer_cache in zip(params.layers, cache):
         h = _rms_norm(x, p.ln1)
         q, k, v = _qkv(h, p)
@@ -758,43 +1043,43 @@ def prefill_chunk(params, cache, tokens, start, cfg, logits_row=None,
             q = _rope(q, chunk_pos, cfg.rope_base)
             k = _rope(k, chunk_pos, cfg.rope_base)
         _cache_write_rows(layer_cache, k, v, start, cfg)
-        dh = q.shape[-1]
-        qg = q.reshape(b, c, kvh, g, dh)
+        # this rank's heads under a mesh: H / tp and KVH / tp
+        n_h, kvh, dh = q.shape[2], k.shape[2], q.shape[-1]
+        qg = q.reshape(b, c, kvh, n_h // kvh, dh)
         att = layer_cache if attend_limit is None else \
             {name: leaf[:, :attend_limit] for name, leaf in layer_cache.items()}
         t_pos = torch.arange(att["k"].shape[1], device=x.device)
         mask = (t_pos[None, :] <= chunk_pos[:, None])[None]      # [1, C, T]
         o = _chunk_attention(qg, att, mask, cfg, x.dtype)
-        o = o.reshape(b, c, cfg.n_heads, dh)
-        x = x + torch.einsum("bchk,hkd->bcd", o, p.wo)
-        x = x + _ffn(_rms_norm(x, p.ln2), p, cfg)
+        o = o.reshape(b, c, n_h, dh)
+        x = x + _out(o, "bchk,hkd->bcd", p, cfg, mesh)
+        x = x + _ffn(_rms_norm(x, p.ln2), p, cfg, mesh)
     x = _rms_norm(x, params.ln_f)
     if logits_row is not None:
         return torch.einsum("bd,vd->bv", x[:, int(logits_row)],
-                            params.embed), cache
-    return torch.einsum("bcd,vd->bcv", x, params.embed), cache
+                            _w(params.embed)), cache
+    return torch.einsum("bcd,vd->bcv", x, _w(params.embed)), cache
 
 
 def _step_qkv(x, p, pos, cfg):
     """The decode step's q, k, v [B, H|KVH, D] of one layer, q and k
     rotated at ``pos`` (an int or [B]) under cfg.rope."""
     h = _rms_norm(x, p.ln1)
-    q = torch.einsum("bd,dhk->bhk", h, p.wq)
-    k = torch.einsum("bd,dhk->bhk", h, p.wk)
-    v = torch.einsum("bd,dhk->bhk", h, p.wv)
+    q = torch.einsum("bd,dhk->bhk", h, _w(p.wq))
+    k = torch.einsum("bd,dhk->bhk", h, _w(p.wk))
+    v = torch.einsum("bd,dhk->bhk", h, _w(p.wv))
     if cfg.rope:
         q = _rope(q, pos, cfg.rope_base)
         k = _rope(k, pos, cfg.rope_base)
     return q.contiguous(), k, v
 
 
-def decode_step(params, cache, tokens, pos, cfg):
+def decode_step(params, cache, tokens, pos, cfg, mesh=None):
     """One autoregressive step: tokens [B] at position ``pos`` (an int,
     or an int [B] tensor for ragged decode, each row at its own
     position). Returns (logits [B, vocab] for the next token, cache)."""
-    _check_supported(cfg)
     device = params.device
-    x = params.embed[tokens.long()]
+    x = _rows(params.embed, tokens.long())
     ragged = torch.is_tensor(pos) and pos.dim() == 1
     if ragged:
         pos = pos.to(device)
@@ -804,7 +1089,7 @@ def decode_step(params, cache, tokens, pos, cfg):
         pos = int(pos)
         if not cfg.rope:
             # dynamic_index_in_dim clamps the position into the table
-            x = x + params.pos[min(max(pos, 0), cfg.max_len - 1)]
+            x = x + _rows(params.pos, min(max(pos, 0), cfg.max_len - 1))
     for p, layer_cache in zip(params.layers, cache):
         q, k_new, v_new = _step_qkv(x, p, pos, cfg)
         if ragged:
@@ -813,10 +1098,10 @@ def decode_step(params, cache, tokens, pos, cfg):
             _cache_write_rows(layer_cache, k_new[:, None], v_new[:, None],
                               pos, cfg)
         o = _decode_attention(q, layer_cache, pos, cfg)
-        x = x + torch.einsum("bhk,hkd->bd", o, p.wo)
-        x = x + _ffn(_rms_norm(x, p.ln2)[:, None], p, cfg)[:, 0]
+        x = x + _out(o, "bhk,hkd->bd", p, cfg, mesh)
+        x = x + _ffn(_rms_norm(x, p.ln2)[:, None], p, cfg, mesh)[:, 0]
     x = _rms_norm(x, params.ln_f)
-    return torch.einsum("bd,vd->bv", x, params.embed), cache
+    return torch.einsum("bd,vd->bv", x, _w(params.embed)), cache
 
 
 # ------------------------------------------------------- paged decode ---
@@ -832,7 +1117,6 @@ def decode_step(params, cache, tokens, pos, cfg):
 def init_paged_cache(cfg, num_blocks, block_size, device=None):
     """Zeroed per-layer block pools [num_blocks, block_size, KVH, D]
     (codes and scale planes under kv_cache_int8)."""
-    _check_supported(cfg)
     if num_blocks < 2:
         raise ValueError("need >= 2 blocks (block 0 is the null block)")
     device = resolve_device(device)
@@ -842,7 +1126,6 @@ def init_paged_cache(cfg, num_blocks, block_size, device=None):
 
 def paged_cache_nbytes(cfg, num_blocks, block_size):
     """Byte size of the pools :func:`init_paged_cache` would build."""
-    _check_supported(cfg)
     hd = cfg.d_model // cfg.n_heads
     cells = num_blocks * block_size * _kvh(cfg)
     if cfg.kv_cache_int8:
@@ -879,19 +1162,18 @@ def decode_step_paged(params, pool, tables, tokens, pos, cfg):
     reads the pool through the tables with the paged kernel (its int8
     mode for an int8 pool) on CUDA tensors, and with its plain version on
     the CPU."""
-    _check_supported(cfg)
     pos = pos.to(device=params.device, dtype=torch.int32)
-    x = params.embed[tokens.long()]
+    x = _rows(params.embed, tokens.long())
     if not cfg.rope:
         x = x + _pos_rows(params.pos, pos)
     for p, layer_pool in zip(params.layers, pool):
         q, k_new, v_new = _step_qkv(x, p, pos, cfg)
         _paged_write_ragged(layer_pool, k_new, v_new, tables, pos, cfg)
         o = paged_attention(q[:, None], layer_pool, tables, pos)[:, 0]
-        x = x + torch.einsum("bhk,hkd->bd", o, p.wo)
+        x = x + _out(o, "bhk,hkd->bd", p, cfg)
         x = x + _ffn(_rms_norm(x, p.ln2)[:, None], p, cfg)[:, 0]
     x = _rms_norm(x, params.ln_f)
-    return torch.einsum("bd,vd->bv", x, params.embed), pool
+    return torch.einsum("bd,vd->bv", x, _w(params.embed)), pool
 
 
 def grow_paged_cache(pool, extra_blocks):
@@ -926,9 +1208,9 @@ def _window(params, tokens, pos, cfg):
     c = tokens.shape[1]
     positions = pos.to(device=device, dtype=torch.long)[:, None] \
         + torch.arange(c, device=device)[None]
-    x = params.embed[tokens.to(device).long()]
+    x = _rows(params.embed, tokens.to(device).long())
     if not cfg.rope:
-        x = x + params.pos[positions.clamp(0, cfg.max_len - 1)]
+        x = x + _rows(params.pos, positions.clamp(0, cfg.max_len - 1))
     return x, positions
 
 
@@ -942,7 +1224,7 @@ def _window_layer(x, p, cfg, positions, attend):
         q = _rope(q, positions, cfg.rope_base)
         k = _rope(k, positions, cfg.rope_base)
     o = attend(q, k, v)
-    x = x + torch.einsum("bchk,hkd->bcd", o, p.wo)
+    x = x + _out(o, "bchk,hkd->bcd", p, cfg)
     return x + _ffn(_rms_norm(x, p.ln2), p, cfg)
 
 
@@ -981,7 +1263,6 @@ def verify_chunk(params, cache, tokens, pos, cfg):
     ops, as the JAX function is a plain einsum (int8 through
     ``_int8_cache_attention``); windows past max_len drop their
     writes."""
-    _check_supported(cfg)
     b, c = tokens.shape
     x, positions = _window(params, tokens, pos, cfg)
     kvh = _kvh(cfg)
@@ -996,7 +1277,7 @@ def verify_chunk(params, cache, tokens, pos, cfg):
             return o.reshape(b, c, cfg.n_heads, q.shape[-1])
         x = _window_layer(x, p, cfg, positions, attend)
     x = _rms_norm(x, params.ln_f)
-    return torch.einsum("bcd,vd->bcv", x, params.embed), cache
+    return torch.einsum("bcd,vd->bcv", x, _w(params.embed)), cache
 
 
 def _paged_write_ragged_chunk(layer_pool, k_new, v_new, tables, positions,
@@ -1027,7 +1308,6 @@ def verify_chunk_paged(params, pool, tables, tokens, pos, cfg):
     function's gather path. Tables are read-only here; allocation,
     including the speculative over-reserve and its release on reject, is
     the batcher's. Returns (logits [B, C, vocab], pool)."""
-    _check_supported(cfg)
     pos = pos.to(device=params.device, dtype=torch.int32)
     x, positions = _window(params, tokens, pos, cfg)
     for p, layer_pool in zip(params.layers, pool):
@@ -1037,7 +1317,7 @@ def verify_chunk_paged(params, pool, tables, tokens, pos, cfg):
             return paged_attention(q.contiguous(), layer_pool, tables, pos)
         x = _window_layer(x, p, cfg, positions, attend)
     x = _rms_norm(x, params.ln_f)
-    return torch.einsum("bcd,vd->bcv", x, params.embed), pool
+    return torch.einsum("bcd,vd->bcv", x, _w(params.embed)), pool
 
 
 # ----------------------------------------------------------- sampling ---
@@ -1167,9 +1447,11 @@ def _check_params_device(params, device):
                          % (params.device, device, device))
 
 
-def _generate_core(params, prompt, cache, n_new, cfg, controls, seed):
+def _generate_core(params, prompt, cache, n_new, cfg, controls, seed,
+                   mesh=None, row0=0):
     """Prefill, then decode steps as a Python loop; token t (0 from the
-    prefill logits) is chosen with counter t of row b's chain."""
+    prefill logits) is chosen with counter t of row b's chain, rows
+    numbered from ``row0`` (this rank's first under dp)."""
     b, t_prompt = prompt.shape
     total = t_prompt + n_new
     device = prompt.device
@@ -1177,18 +1459,59 @@ def _generate_core(params, prompt, cache, n_new, cfg, controls, seed):
     buf[:, :t_prompt] = prompt
     seeds = torch.full((b,), _seed_word(seed), dtype=torch.int64,
                        device=device)
-    rows = torch.arange(b, dtype=torch.int64, device=device)
+    rows = row0 + torch.arange(b, dtype=torch.int64, device=device)
 
     def choose(logits, t):
         counters = torch.full((b,), t, dtype=torch.int64, device=device)
         return _choose_tokens(logits, controls, seeds, counters, rows)
 
-    last_logits, cache = prefill(params, cache, prompt, cfg)
+    last_logits, cache = prefill(params, cache, prompt, cfg, mesh)
     buf[:, t_prompt] = choose(last_logits, 0)
     for pos in range(t_prompt, total - 1):
-        logits, cache = decode_step(params, cache, buf[:, pos], pos, cfg)
+        logits, cache = decode_step(params, cache, buf[:, pos], pos, cfg,
+                                    mesh)
         buf[:, pos + 1] = choose(logits, pos + 1 - t_prompt)
     return buf
+
+
+def _cache_pspec(cfg, x):
+    """The serving cache's layout: batch over dp, KV heads over tp, the
+    sequence whole, truncated to the leaf's rank (int8 scale planes are
+    [B, T, KVH])."""
+    return P(*P(cfg.dp_axis, None, cfg.tp_axis, None)[:x.dim()])
+
+
+def shard_cache(cache, cfg, mesh):
+    """This rank's block of each KV cache leaf (codes and int8 scale
+    planes alike): its dp rows and its tp heads, matching the wq/wk/wv
+    head shards, the whole sequence. Attention then needs no traffic;
+    only wo's output and the FFN all-reduce over tp."""
+    def local(spec):
+        return P(*(e if e in _axes(mesh, e) else None for e in spec))
+    return [{name: shard(leaf, local(_cache_pspec(cfg, leaf)), mesh)
+             for name, leaf in layer.items()} for layer in cache]
+
+
+def _serve_setup(params, prompt, cfg, mesh, device):
+    """(device, the global prompt as int32 on it, this rank's dp rows
+    (b0, b1)) of a generate() or beam_search() call."""
+    if mesh is not None:
+        _check_mesh(cfg, mesh, ("dp_axis",))
+        _check_blocks(params, cfg, mesh)
+        if device is None:
+            device = mesh.device
+    device = resolve_device(device)
+    _check_params_device(params, device)
+    if not torch.is_tensor(prompt):
+        prompt = torch.from_numpy(np.asarray(prompt))
+    prompt = prompt.to(device=device, dtype=torch.int32)
+    rows = _shard_spans(cfg, mesh, prompt.shape)[0]
+    return device, prompt, rows
+
+
+def _local_cache(cfg, b, device, mesh):
+    cache = init_cache(cfg, b, device)
+    return cache if mesh is None else shard_cache(cache, cfg, mesh)
 
 
 @torch.no_grad()
@@ -1204,28 +1527,30 @@ def generate(params, prompt, n_new, cfg, greedy=None, seed=0,
     ``top_p`` is given, or ``greedy=False`` (pure ancestral sampling);
     greedy=True with a sampling control raises. Samples come from the
     port's counter-based noise for ``seed`` (not ``jax.random``'s): row
-    b's token t uses counter t of row b. ``mesh`` is not ported yet."""
-    _check_supported(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "generate(mesh=...) (sharded parameters and cache) waits for "
-            "ROADMAP item A7")
+    b's token t uses counter t of row b.
+
+    With ``mesh`` (on the mesh's device) every rank passes the global
+    prompt and its :func:`shard_params` block of the parameters; it
+    decodes its dp rows with its tp heads of the cache
+    (:func:`shard_cache`), all-reducing wo's output and the FFN over tp,
+    and every rank returns the global tokens."""
     controls = (_resolve_greedy(greedy, temperature, top_k, top_p),
                 float(temperature), top_k, top_p)
-    device = resolve_device(device)
-    _check_params_device(params, device)
-    if not torch.is_tensor(prompt):
-        prompt = torch.from_numpy(np.asarray(prompt))
-    prompt = prompt.to(device=device, dtype=torch.int32)
-    b, t_prompt = prompt.shape
+    device, prompt, (b0, b1) = _serve_setup(params, prompt, cfg, mesh,
+                                            device)
+    t_prompt = prompt.shape[1]
     total = t_prompt + n_new
     if total > cfg.max_len:
         raise ValueError("prompt+n_new %d exceeds max_len %d"
                          % (total, cfg.max_len))
     if n_new == 0:
         return prompt
-    cache = init_cache(cfg, b, device)
-    return _generate_core(params, prompt, cache, n_new, cfg, controls, seed)
+    cache = _local_cache(cfg, prompt.shape[0], device, mesh)
+    out = _generate_core(params, prompt[b0:b1], cache, n_new, cfg, controls,
+                         seed, mesh, b0)
+    if _axes(mesh, cfg.dp_axis):
+        out = all_gather(out, cfg.dp_axis, mesh=mesh)
+    return out
 
 
 # -------------------------------------------------- speculative decode ---
@@ -1298,8 +1623,6 @@ def speculative_generate(params, draft_params, prompt, n_new, cfg, draft_cfg,
     round, "big_model_launches": 1 + rounds}. Draft steps go through
     :func:`decode_step` (the flash-decode kernel under the draft's
     ``use_flash_kernel``). Both configs must share vocab_size."""
-    _check_supported(cfg)
-    _check_supported(draft_cfg)
     device = resolve_device(device)
     _check_params_device(params, device)
     _check_params_device(draft_params, device)
@@ -1330,14 +1653,15 @@ def speculative_generate(params, draft_params, prompt, n_new, cfg, draft_cfg,
 
 # -------------------------------------------------------- beam search ---
 
-def _beam_core(params, prompt, cache, n_new, k, length_penalty, cfg):
+def _beam_core(params, prompt, cache, n_new, k, length_penalty, cfg,
+               mesh=None):
     """Prefill, the first expansion, then one decode_step a token with the
     surviving beams' parents re-gathered (see beam_search)."""
     b, t_prompt = prompt.shape
     total = t_prompt + n_new
     vocab = cfg.vocab_size
     device = prompt.device
-    last_logits, cache = prefill(params, cache, prompt, cfg)
+    last_logits, cache = prefill(params, cache, prompt, cfg, mesh)
     logp0 = torch.log_softmax(last_logits.float(), dim=-1)
     # the top-k tokens of the last prompt position seed the beams; each
     # row of the cache is repeated per beam (rows grouped b0's k beams,
@@ -1350,7 +1674,8 @@ def _beam_core(params, prompt, cache, n_new, k, length_penalty, cfg):
     buf[:, t_prompt] = tok0.reshape(-1).to(torch.int32)
     first = torch.arange(b, device=device)[:, None] * k
     for pos in range(t_prompt, total - 1):
-        logits, cache = decode_step(params, cache, buf[:, pos], pos, cfg)
+        logits, cache = decode_step(params, cache, buf[:, pos], pos, cfg,
+                                    mesh)
         logp = torch.log_softmax(logits.float(), dim=-1)
         cand = scores.reshape(b, k, 1) + logp.reshape(b, k, vocab)
         scores, flat = torch.topk(cand.reshape(b, k * vocab), k, dim=-1)
@@ -1377,19 +1702,13 @@ def beam_search(params, prompt, n_new, cfg, beam=4, length_penalty=0.0,
     width B*beam and each step re-gathers the surviving beams' parents'
     rows; each token is one :func:`decode_step` (the flash-decode kernel
     under ``cfg.use_flash_kernel``). beam=1 is greedy generate() exactly.
-    Runs on ``device`` (the current CUDA device by default); ``mesh`` is
-    not ported yet (ROADMAP item A7)."""
-    _check_supported(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "beam_search(mesh=...) (sharded parameters and cache) waits for "
-            "ROADMAP item A7")
-    device = resolve_device(device)
-    _check_params_device(params, device)
-    if not torch.is_tensor(prompt):
-        prompt = torch.from_numpy(np.asarray(prompt))
-    prompt = prompt.to(device=device, dtype=torch.int32)
-    b, t_prompt = prompt.shape
+    Runs on ``device`` (the current CUDA device by default). With
+    ``mesh`` each rank searches its dp rows with its tp heads of the
+    expanded cache, as :func:`generate` decodes, and every rank returns
+    the global sequences and scores."""
+    device, prompt, (b0, b1) = _serve_setup(params, prompt, cfg, mesh,
+                                            device)
+    t_prompt = prompt.shape[1]
     total = t_prompt + n_new
     if total > cfg.max_len:
         raise ValueError("prompt+n_new %d exceeds max_len %d"
@@ -1399,6 +1718,29 @@ def beam_search(params, prompt, n_new, cfg, beam=4, length_penalty=0.0,
     if not 1 <= beam <= cfg.vocab_size:
         raise ValueError("beam width %d must be in [1, vocab_size=%d]"
                          % (beam, cfg.vocab_size))
-    cache = init_cache(cfg, b, device)
-    return _beam_core(params, prompt, cache, n_new, int(beam),
-                      float(length_penalty), cfg)
+    cache = _local_cache(cfg, prompt.shape[0], device, mesh)
+    seqs, scores = _beam_core(params, prompt[b0:b1], cache, n_new, int(beam),
+                              float(length_penalty), cfg, mesh)
+    if _axes(mesh, cfg.dp_axis):
+        seqs = all_gather(seqs, cfg.dp_axis, mesh=mesh)
+        scores = all_gather(scores, cfg.dp_axis, mesh=mesh)
+    return seqs, scores
+
+
+def make_decode_step(cfg):
+    """``step(params, cache, tokens, pos)`` -> :func:`decode_step`'s
+    (logits, cache), the cache updated in place (the JAX function jits the
+    step and donates the cache)."""
+    def step(params, cache, tokens, pos):
+        return decode_step(params, cache, tokens, pos, cfg)
+    return step
+
+
+# checkpoints of this stack live in models/checkpoint.py; re-exported here
+# so the flagship's whole train/serve/persist surface is reachable from
+# one module, as in the JAX package
+from .checkpoint import (save_checkpoint, load_checkpoint,  # noqa: E402
+                         restore_train_state, resume_from_latest,
+                         CheckpointCorrupt, wait_for_pending_save,
+                         install_emergency_checkpoint,
+                         uninstall_emergency_checkpoint)

@@ -17,8 +17,22 @@ identity.
 Axis convention (as the JAX package): 'dp' data, 'tp' tensor, 'pp'
 pipeline, 'sp' sequence/context, 'ep' expert parallel.
 
-Not in this slice: ``fusion`` (the bucketed all-reduce), ``elastic`` and
-``pipeline``; importing them raises NotImplementedError.
+The collectives are differentiable. Each is a ``torch.autograd.Function``
+whose backward is the transpose of the program JAX differentiates under
+``shard_map``, where a value is either the same on every rank of an axis
+(invariant) or this rank's own (varying): ``all_reduce`` (psum, varying
+to invariant) passes its cotangent through; ``all_gather`` (its output
+varying, as JAX types it) sums the cotangent over the axis and keeps
+this rank's block (``psum_scatter``); ``reduce_scatter`` all-gathers the
+cotangent; ``ring_permute`` sends it back ``-shift`` places; and
+:func:`pvary` (``lax.pvary``: an invariant value entering a computation
+that differs by rank) is the identity forward and all-reduces its
+cotangent. So a loss that is the same on every rank gives every rank the
+gradient of that one loss, once.
+
+``fusion`` holds the bucketed all-reduce and ``pipeline`` the pipeline
+stages. ``elastic`` is not ported yet: importing it raises
+NotImplementedError naming ROADMAP item A7.
 """
 
 import contextlib
@@ -30,11 +44,10 @@ import torch.distributed as dist
 
 from ..context import resolve_device
 
-__all__ = ["Mesh", "make_mesh", "current_mesh", "use_mesh", "set_mesh",
-           "all_reduce", "all_gather", "reduce_scatter", "ring_permute",
-           "device_count", "init_distributed", "bucketed_all_reduce"]
-
-NEXT_SLICE = "the next parallel slice"
+__all__ = ["Mesh", "P", "make_mesh", "current_mesh", "use_mesh", "set_mesh",
+           "shard", "replicate", "all_reduce", "all_gather", "reduce_scatter",
+           "ring_permute", "pvary", "device_count", "init_distributed",
+           "fusion", "bucketed_all_reduce"]
 
 _CURRENT_MESH = None
 
@@ -150,6 +163,19 @@ class Mesh:
         return "Mesh(%s, device=%s)" % (self.shape, self.device)
 
 
+class P(tuple):
+    """A partition spec, as JAX's ``PartitionSpec``: one entry per
+    dimension, the mesh axis that splits it (or a tuple of axes) or None
+    for a dimension every rank holds whole. ``P("dp", None)`` splits rows
+    over dp."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return "P%s" % (tuple(self),)
+
+
 def make_mesh(axes=None, device=None):
     """A :class:`Mesh` over the world from an axis-name -> size dict.
 
@@ -195,69 +221,82 @@ def use_mesh(mesh):
 
 
 # ---------------------------------------------------------------------
+# Placement: the JAX package's device_put with a PartitionSpec. A rank
+# holds its own block, so placing is slicing.
+# ---------------------------------------------------------------------
+
+def _spec_axes(entry):
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard(x, spec, mesh=None):
+    """This rank's block of the global tensor ``x`` under ``spec`` (a
+    :class:`P`), on the mesh's device: each dimension is split over the
+    axes its entry names, in order, as ``NamedSharding`` splits it."""
+    mesh = mesh or current_mesh()
+    x = x._data if hasattr(x, "_data") else x
+    for dim, entry in enumerate(spec):
+        for name in _spec_axes(entry):
+            n = mesh.axis_size(name)
+            if n == 1:
+                continue
+            if x.shape[dim] % n:
+                raise ValueError("dimension %d of size %d does not split over "
+                                 "the %d ranks of axis %r"
+                                 % (dim, x.shape[dim], n, name))
+            block = x.shape[dim] // n
+            x = x.narrow(dim, mesh.axis_index(name) * block, block)
+    return x.contiguous().to(mesh.device)
+
+
+def replicate(x, mesh=None):
+    """``x`` as every rank holds it: rank 0's value, broadcast to the
+    world, on the mesh's device."""
+    mesh = mesh or current_mesh()
+    x = (x._data if hasattr(x, "_data") else x).to(mesh.device).clone()
+    if mesh.size > 1:
+        dist.broadcast(x, int(mesh.ranks.flat[0]))
+    return x
+
+
+# ---------------------------------------------------------------------
 # Collectives: each runs over the process group of a mesh axis and
 # returns a new tensor, as the JAX collectives return new arrays; over
 # axes of size 1 each returns its input. Every rank of the group must
-# call it, in the same order.
+# call it, in the same order, in the forward and in the backward.
 # ---------------------------------------------------------------------
 
-def all_reduce(x, axis_name="dp", op="sum", mesh=None):
-    """psum (or pmax with ``op="max"``) over a mesh axis, or over a tuple
-    of axes one axis after another."""
-    mesh = mesh or current_mesh()
-    axes = mesh._axes(axis_name)
-    if not axes:
-        return x
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _all_reduce(x, axes, op, mesh):
     out = x.clone()
     for axis in axes:
-        dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM,
-                                 "max": dist.ReduceOp.MAX}[op],
-                        group=mesh.group(axis)[0])
+        dist.all_reduce(out, op=_OPS[op], group=mesh.group(axis)[0])
     return out
 
 
-def all_gather(x, axis_name="dp", axis=0, tiled=True, mesh=None):
-    """The axis's shards in axis order, concatenated along ``axis``
-    (``tiled``) or stacked on a new leading ``axis``."""
-    entry = (mesh or current_mesh()).group(axis_name)
-    if entry is None:
-        return x if tiled else x.unsqueeze(axis)
+def _all_gather(x, entry, axis, tiled):
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in entry[1]]
     dist.all_gather(parts, x, group=entry[0])
     return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
 
 
-def reduce_scatter(x, axis_name="dp", scatter_dimension=0, mesh=None):
-    """psum over the axis, then this rank's block of ``scatter_dimension``
-    (``psum_scatter(..., tiled=True)``), as an all-reduce and a slice:
-    gloo has no reduce-scatter."""
-    mesh = mesh or current_mesh()
-    entry = mesh.group(axis_name)
-    if entry is None:
-        return x
+def _block(x, entry, rank, dim):
     n = len(entry[1])
-    if x.shape[scatter_dimension] % n:
+    if x.shape[dim] % n:
         raise ValueError("dimension %d of size %d does not split over %d "
-                         "ranks" % (scatter_dimension,
-                                    x.shape[scatter_dimension], n))
-    return all_reduce(x, axis_name, mesh=mesh).chunk(
-        n, scatter_dimension)[entry[1].index(mesh.rank)].contiguous()
+                         "ranks" % (dim, x.shape[dim], n))
+    return x.chunk(n, dim)[entry[1].index(rank)].contiguous()
 
 
-def ring_permute(x, axis_name, shift=1, mesh=None):
-    """Send ``x`` ``shift`` places around the axis's ring and return what
-    arrives from ``shift`` places back (``ppermute`` with the permutation
-    i -> (i + shift) mod n) — the building block of ring attention."""
-    mesh = mesh or current_mesh()
-    entry = mesh.group(axis_name)
-    if entry is None:
-        return x
+def _permute(x, entry, rank, shift):
     group, ranks = entry
     n = len(ranks)
-    i = ranks.index(mesh.rank)
-    if shift % n == 0:
-        return x
+    i = ranks.index(rank)
     x = x.contiguous()
     out = torch.empty_like(x)
     ops = [dist.P2POp(dist.isend, x, ranks[(i + shift) % n], group),
@@ -267,6 +306,139 @@ def ring_permute(x, axis_name, shift=1, mesh=None):
     return out
 
 
-def bucketed_all_reduce(*args, **kwargs):
-    raise NotImplementedError("bucketed_all_reduce (parallel/fusion.py) "
-                              "arrives with %s" % NEXT_SLICE)
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, op, mesh):
+        ctx.op = op
+        return _all_reduce(x, axes, op, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.op != "sum":
+            raise RuntimeError("all_reduce(op=%r) has no gradient (nor has "
+                               "lax.pmax)" % ctx.op)
+        return g, None, None, None
+
+
+class _PVary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axes, "sum", ctx.mesh), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, entry, axis, tiled, rank):
+        ctx.entry, ctx.axis, ctx.tiled, ctx.rank = entry, axis, tiled, rank
+        return _all_gather(x, entry, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = g.contiguous().clone()
+        dist.all_reduce(total, group=ctx.entry[0])
+        if ctx.tiled:
+            return _block(total, ctx.entry, ctx.rank, ctx.axis), None, None, \
+                None, None
+        return total.select(ctx.axis, ctx.entry[1].index(ctx.rank)), None, \
+            None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, entry, dim, rank):
+        ctx.entry, ctx.dim = entry, dim
+        total = x.clone()
+        dist.all_reduce(total, group=entry[0])
+        return _block(total, entry, rank, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.entry, ctx.dim, True), None, None, None
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, entry, rank, shift):
+        ctx.entry, ctx.rank, ctx.shift = entry, rank, shift
+        return _permute(x, entry, rank, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.entry, ctx.rank, -ctx.shift), None, None, None
+
+
+def all_reduce(x, axis_name="dp", op="sum", mesh=None):
+    """psum (or pmax with ``op="max"``, which has no gradient) over a
+    mesh axis, or over a tuple of axes one axis after another. Its
+    backward passes the cotangent through: the output is the same on
+    every rank, and so is its cotangent. An empty tuple of axes returns
+    ``x``."""
+    if isinstance(axis_name, (tuple, list)) and not axis_name:
+        return x
+    mesh = mesh or current_mesh()
+    axes = mesh._axes(axis_name)
+    if not axes:
+        return x
+    return _AllReduce.apply(x, axes, op, mesh)
+
+
+def pvary(x, axis_name, mesh=None):
+    """``x``, the same on every rank of the axes, entering a computation
+    that differs by rank (``lax.pvary``): the identity, whose backward
+    all-reduces the cotangent over the axes (Megatron's f). Place it where
+    a replicated activation meets sharded weights, or a rank's own
+    tokens. An empty tuple of axes returns ``x``."""
+    if isinstance(axis_name, (tuple, list)) and not axis_name:
+        return x
+    mesh = mesh or current_mesh()
+    axes = mesh._axes(axis_name)
+    if not axes:
+        return x
+    return _PVary.apply(x, axes, mesh)
+
+
+def all_gather(x, axis_name="dp", axis=0, tiled=True, mesh=None):
+    """The axis's shards in axis order, concatenated along ``axis``
+    (``tiled``) or stacked on a new leading ``axis``. Its backward sums
+    the cotangent over the axis and keeps this rank's block."""
+    mesh = mesh or current_mesh()
+    entry = mesh.group(axis_name)
+    if entry is None:
+        return x if tiled else x.unsqueeze(axis)
+    return _AllGather.apply(x, entry, axis, tiled, mesh.rank)
+
+
+def reduce_scatter(x, axis_name="dp", scatter_dimension=0, mesh=None):
+    """psum over the axis, then this rank's block of ``scatter_dimension``
+    (``psum_scatter(..., tiled=True)``), as an all-reduce and a slice:
+    gloo has no reduce-scatter. Its backward all-gathers the cotangent."""
+    mesh = mesh or current_mesh()
+    entry = mesh.group(axis_name)
+    if entry is None:
+        return x
+    return _ReduceScatter.apply(x, entry, scatter_dimension, mesh.rank)
+
+
+def ring_permute(x, axis_name, shift=1, mesh=None):
+    """Send ``x`` ``shift`` places around the axis's ring and return what
+    arrives from ``shift`` places back (``ppermute`` with the permutation
+    i -> (i + shift) mod n) — the building block of ring attention and
+    of the pipeline's ticks. Its backward sends the cotangent ``-shift``
+    places."""
+    mesh = mesh or current_mesh()
+    entry = mesh.group(axis_name)
+    if entry is None or shift % len(entry[1]) == 0:
+        return x
+    return _RingPermute.apply(x, entry, mesh.rank, shift)
+
+
+# the bucketed all-reduce (one all-reduce per ~25 MB bucket lane instead
+# of one per tensor) — importable as mxnet_tpu_torch.parallel.fusion; the
+# entry point re-exported here for train-step authors
+from . import fusion                                    # noqa: E402
+from .fusion import bucketed_all_reduce                 # noqa: E402,F401

@@ -1,5 +1,6 @@
 """Not ported yet: the elastic membership and resharding of
-``mxnet_tpu/parallel/elastic.py`` arrive with the next parallel slice."""
+``mxnet_tpu/parallel/elastic.py`` arrive with ROADMAP item A7 (A7d)."""
 
-raise NotImplementedError("mxnet_tpu_torch.parallel.elastic arrives with "
-                          "the next parallel slice")
+raise NotImplementedError("mxnet_tpu_torch.parallel.elastic waits for "
+                          "ROADMAP item A7 (A7d: elastic worlds and the "
+                          "shard checkpoints)")

@@ -20,7 +20,9 @@ import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from mxnet_tpu_torch import parallel
 from mxnet_tpu_torch.models import transformer as ttf
 
 jtf = importlib.import_module("mxnet_tpu.models.transformer")
@@ -83,9 +85,9 @@ def test_each_token_is_one_decode_step(monkeypatch):
     calls, lengths = [], []
     real_step, real_flash = ttf.decode_step, ttf.flash_decode
 
-    def step(params, cache, tokens, pos, cfg):
+    def step(params, cache, tokens, pos, cfg, mesh=None):
         calls.append((tokens.shape[0], pos))
-        return real_step(params, cache, tokens, pos, cfg)
+        return real_step(params, cache, tokens, pos, cfg, mesh)
 
     def flash(q, k, v, n):
         lengths.append(int(n))
@@ -110,5 +112,8 @@ def test_beam_search_validation():
         ttf.beam_search(tp, prompt, 4, tcfg, beam=0, device="cpu")
     with pytest.raises(ValueError, match="beam width"):
         ttf.beam_search(tp, prompt, 4, tcfg, beam=V + 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttf.beam_search(tp, prompt, 4, tcfg, mesh=object(), device="cpu")
+    # a mesh is taken (a world of one: the search itself)
+    mesh = parallel.make_mesh({"dp": 1, "tp": 1}, device="cpu")
+    seq, sc = ttf.beam_search(tp, prompt, 4, tcfg, mesh=mesh)
+    want = ttf.beam_search(tp, prompt, 4, tcfg, device="cpu")
+    assert torch.equal(seq, want[0]) and torch.equal(sc, want[1])

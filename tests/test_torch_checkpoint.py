@@ -10,7 +10,8 @@ against the uninterrupted run, and the format across packages: a
 JAX-written checkpoint loads in the port bitwise with the same
 ``param_fingerprint``, a port-written one loads in JAX's
 ``load_checkpoint`` and verifies under both ``verify_lineage``s. The
-shard functions and ``q8`` trees refuse naming A7 and A3b. Tolerance:
+shard functions refuse naming A7; ``q8`` trees load (their round trips
+across packages are in tests/test_torch_int8_weights.py). Tolerance:
 exact everywhere (bytes, fingerprints, steps)."""
 
 import json
@@ -370,8 +371,15 @@ def test_shard_and_q8_refusals_name_their_items(tmp_path):
     jcfg = jtf.TransformerConfig(**CFG)
     q8 = jtf.quantize_weights_int8(jtf.init_params(jcfg, seed=0))
     jck.save_checkpoint(str(tmp_path / "q8"), jcfg, q8, step=1)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        ck.load_checkpoint(str(tmp_path / "q8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A3b"):
+    _, got, _, step, _ = ck.load_checkpoint(str(tmp_path / "q8"),
+                                            device="cpu")
+    assert step == 1 and isinstance(got.layers[0].wq, ttf.Q8Weight)
+    np.testing.assert_array_equal(got.layers[0].wq.q8.numpy(),
+                                  np.asarray(q8["layers"][0]["wq"]["q8"]))
+    assert tsv.params_fingerprint(got) == integrity.params_fingerprint(q8)
+    # a training state it is not, as in JAX
+    with pytest.raises(ValueError, match="int8-quantized"):
+        ck.restore_train_state(str(tmp_path / "q8"), device="cpu")
+    with pytest.raises(TypeError, match="TransformerLM"):
         ck.save_checkpoint(str(tmp_path / "x"), _cfg(),
                            jax.tree.map(np.asarray, q8))

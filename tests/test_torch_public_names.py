@@ -7,6 +7,7 @@ exceptions. The names of ported modules are checked against JAX:
 ``Symbol``, ``NameManager``, ``Prefix``, ``optimizer`` and
 ``lr_scheduler``. Tolerance: exact (the same integer and float values)."""
 
+import importlib
 import re
 
 import numpy as np
@@ -79,3 +80,31 @@ def test_onehot_encode_and_broadcast_max_min_match_jax():
                         .asnumpy())
     for t, j in zip(got["port"], got["jax"]):
         np.testing.assert_array_equal(t, j)
+
+
+# the JAX mesh's placement type, which a process-per-rank world has no use
+# for: a rank holds its block (parallel.shard) and a spec is parallel.P
+PARALLEL_JAX_ONLY = {"NamedSharding"}
+
+
+@pytest.mark.parametrize("name", sorted(
+    set(importlib.import_module("mxnet_tpu.parallel").__all__)
+    - PARALLEL_JAX_ONLY))
+def test_parallel_name(name):
+    """Each public name of the JAX ``parallel`` exists in the port's; the
+    elastic module, not ported, raises naming ROADMAP item A7 on
+    import."""
+    if name == "elastic":
+        with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+            importlib.import_module("mxnet_tpu_torch.parallel.elastic")
+        return
+    assert getattr(importlib.import_module("mxnet_tpu_torch.parallel"), name)
+
+
+@pytest.mark.parametrize("name", importlib.import_module(
+    "mxnet_tpu.models.transformer").__all__)
+def test_transformer_name(name):
+    """The JAX transformer module's whole surface exists in the port's:
+    nothing of it is refused any more."""
+    assert callable(getattr(importlib.import_module(
+        "mxnet_tpu_torch.models.transformer"), name))

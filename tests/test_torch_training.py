@@ -195,9 +195,56 @@ def test_init_params_and_momentum_trees_match_jax(variant):
 
 
 def test_training_entry_points_raise_for_unported_options():
-    tcfg = ttf.TransformerConfig(**CFG)
+    """The options the training path refused run: a train step under a
+    mesh and a pipelined config (one stage without a pp axis) take the
+    no-mesh step's values; what the step still refuses is an int8 weight
+    tree, a serving artifact, as JAX's restore refuses it."""
+    tcfg = ttf.TransformerConfig(use_ring_attention=False, **CFG)
     mesh = parallel.make_mesh({"dp": 1, "sp": 1}, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        ttf.make_train_step(tcfg, mesh)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        ttf.make_train_step(ttf.TransformerConfig(**dict(CFG, pp_axis="pp")))
+    pp = ttf.TransformerConfig(**dict(CFG, pp_axis="pp"))
+    toks = np.random.RandomState(4).randint(0, 97, (2, 16))
+    runs = []
+    for cfg, m in ((tcfg, None), (tcfg, mesh), (pp, None)):
+        tp = ttf.init_params(cfg, seed=2, device="cpu")
+        mom = ttf.init_momentum(tp)
+        loss = ttf.make_train_step(cfg, m)(tp, mom, toks)[2]
+        runs.append((loss, list(tp.parameters()), list(mom.values())))
+    for loss, ps, ms in runs[1:]:
+        assert torch.equal(loss, runs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(ps, runs[0][1]))
+        assert all(torch.equal(a, b) for a, b in zip(ms, runs[0][2]))
+    q8 = ttf.quantize_weights_int8(ttf.init_params(tcfg, device="cpu"))
+    with pytest.raises(ValueError, match="serving artifact"):
+        ttf.make_train_step(tcfg)(q8, {}, toks)
+
+
+@pytest.mark.parametrize("guard", [False, True])
+@pytest.mark.parametrize("route", ["dense", "flash"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_world_of_one_mesh_step_equals_the_plain_step(variant, route, guard):
+    """make_train_step(cfg, mesh) on a world of one, sp without ring
+    attention, is make_train_step(cfg) bitwise over 2 steps: every
+    collective is the identity and the bucketed all-reduce a pack and an
+    unpack."""
+    kw = dict(CFG, use_flash_kernel=route == "flash",
+              use_ring_attention=False, **VARIANTS[variant])
+    cfg = ttf.TransformerConfig(**kw)
+    mesh = parallel.make_mesh({"dp": 1, "tp": 1, "sp": 1, "ep": 1},
+                              device="cpu")
+    toks = np.random.RandomState(5).randint(0, 97, (2, 16))
+    runs = []
+    for step, shard in ((ttf.make_train_step(cfg, lr=0.1, guard=guard),
+                         False),
+                        (ttf.make_train_step(cfg, mesh, lr=0.1, guard=guard),
+                         True)):
+        tp = ttf.init_params(cfg, seed=1, device="cpu")
+        if shard:
+            tp = ttf.shard_params(tp, cfg, mesh)
+        mom = ttf.init_momentum(tp)
+        losses = [step(tp, mom, toks)[2] for _ in range(2)]
+        runs.append((losses, dict(tp.named_parameters()), mom))
+    (la, pa, ma), (lb, pb, mb) = runs
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    for name in pa:
+        assert torch.equal(pa[name], pb[name]), name
+        assert torch.equal(ma[name], mb[name]), name

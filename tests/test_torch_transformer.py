@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from mxnet_tpu_torch import parallel
 from mxnet_tpu_torch.models import convert
 from mxnet_tpu_torch.models import transformer as ttf
 
@@ -234,33 +235,47 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 @pytest.mark.parametrize("field, value", [("pp_axis", "pp")])
 def test_unported_config_fields_raise(field, value):
-    """The serving paths do not carry pipeline stages yet (RoPE, int8 KV
-    and the MoE FFN are ported, see tests/test_torch_rope_serving.py and
-    tests/test_torch_kv_int8.py): their entry points raise naming the
-    slice that brings them."""
-    _, tcfg = _cfgs(**{field: value})
-    with pytest.raises(NotImplementedError, match="slice"):
-        ttf.init_cache(tcfg, 1, "cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        ttf.init_paged_cache(tcfg, 4, BS, "cpu")
+    """The serving paths carry a pipelined config (pipeline stages matter
+    only under a mesh with a pp axis, as in JAX): its caches are the
+    plain config's and its greedy stream is JAX's on the same config."""
+    jcfg, tcfg = _cfgs(**{field: value})
+    _, plain = _cfgs()
+    for got, want in ((ttf.init_cache(tcfg, 1, "cpu"),
+                       ttf.init_cache(plain, 1, "cpu")),
+                      (ttf.init_paged_cache(tcfg, 4, BS, "cpu"),
+                       ttf.init_paged_cache(plain, 4, BS, "cpu"))):
+        assert [{n: t.shape for n, t in layer.items()} for layer in got] \
+            == [{n: t.shape for n, t in layer.items()} for layer in want]
+    tp = ttf.init_params(tcfg, seed=3, device="cpu")
+    prompt = np.random.RandomState(3).randint(0, 97, (2, 6)).astype(np.int32)
+    want = jtf.generate(jtf.init_params(jcfg, seed=3), jnp.asarray(prompt),
+                        5, jcfg)
+    np.testing.assert_array_equal(
+        ttf.generate(tp, prompt, 5, tcfg, device="cpu").numpy(),
+        np.asarray(want))
 
 
 def test_unported_decoding_controls_raise():
-    """generate(mesh=...) names its ROADMAP item; greedy with a sampling
-    control is a contradiction, as in JAX; int8 weight trees are not
-    ported. (Sampling is: tests/test_torch_sampling.py.)"""
+    """generate(mesh=...) runs (a world of one: the unsharded stream);
+    greedy with a sampling control is a contradiction, as in JAX; an
+    int8 weight tree loads through convert (its streams are held against
+    JAX in tests/test_torch_int8_weights.py). (Sampling:
+    tests/test_torch_sampling.py.)"""
     _, tcfg = _cfgs()
     tp = ttf.init_params(tcfg, device="cpu")
     prompt = np.zeros((1, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttf.generate(tp, prompt, 2, tcfg, mesh=object(), device="cpu")
+    mesh = parallel.make_mesh({"dp": 1, "tp": 1}, device="cpu")
+    assert torch.equal(ttf.generate(tp, prompt, 2, tcfg, mesh=mesh),
+                       ttf.generate(tp, prompt, 2, tcfg, device="cpu"))
     with pytest.raises(ValueError, match="greedy=True"):
         ttf.generate(tp, prompt, 2, tcfg, greedy=True, top_k=3,
                      device="cpu")
-    q8 = {"q8": np.zeros((97, 32), np.int8), "scale": np.ones((1, 32))}
+    q8 = {"q8": np.zeros((97, 32), np.int8),
+          "scale": np.ones((1, 32), np.float32), "dt": "float32"}
     tree = dict(convert.params_to_numpy(tp), embed=q8)
-    with pytest.raises(NotImplementedError, match="int8 weight"):
-        convert.params_from_jax(tree, tcfg, device="cpu")
+    got = convert.params_from_jax(tree, tcfg, device="cpu")
+    assert isinstance(got.embed, ttf.Q8Weight)
+    assert torch.equal(ttf._w(got.embed), torch.zeros(97, 32))
 
 
 def test_generate_positional_order_is_the_references():
