@@ -241,7 +241,30 @@ Run from the root of a checkout on a machine with one CUDA GPU and
     launches and device ms from a trace of one call, beside
     ``build_train_step``'s step ms of the same call, then a
     torch.profiler breakdown of 3 steps;
-12. traces 16 decode steps of a serve run, of an int8 serve run and of
+12. drives data and IO (``io_phase``; no hand-written kernel: the
+    input pipeline is host numpy and the repo's C++ RecordIO scanner,
+    ``src/io/recordio_scan.cc``, built by g++ through ``_native``):
+    bench.py's ``--real-data`` leg through ``entry.real_data`` at its
+    accelerator shape (ResNet-50 bf16 fold-cast, batch 128, 224^2, 1000
+    classes, lr 0.1, momentum 0.9), fed by ``ImageRecordIter`` (shuffle,
+    random crop and mirror) from 512 .npy records of 256^2 x 3 written
+    to TMPDIR: 20 fed steps, then 20 on resident tensors; it fails unless
+    the loss is finite, the native library read the records and the
+    first fed batch, on the card, equals bitwise the first batch of the
+    same iterator built on the CPU from the same file and seed; it
+    prints fed and synthetic img/s, the feed-bound fraction and a fed
+    batch's host ms in the iterator's ``next()`` (decode, augment, stack,
+    copy) and in the step's call; then every ``_image_*`` op on the card
+    against the same op on the CPU at ``TOL_IMAGE`` (the 2x uint8 resize
+    bitwise), the random ops' bodies on a fixed draw, and each random op
+    on the card's generator within its range; then a ``DataLoader`` over
+    64 seeded uint8 224^2 images through ``ToTensor`` and ``Normalize``,
+    serial, with two threads and with two spawned worker processes and
+    pinned memory, the last two bitwise the first on the card.
+    ``image.ImageIter`` and ``ImageDetIter`` decode JPEG through cv2,
+    which the card's machine lacks: they are held against the JAX package
+    on the CPU only (``tests/test_torch_image.py``);
+13. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
@@ -251,14 +274,14 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ``generate()`` decode step the two of flash decode, the bf16 train
    step the three tensor-core kernels, and the mesh forward the forward
    template;
-13. times the decode kernels (the paged kernel in bfloat16 and int8)
+14. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, by CUDA events and by device time
     with each kernel's GB/s of live bytes, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
-14. prints the card's name and power limit again, the kernels' JSON
+15. prints the card's name and power limit again, the kernels' JSON
     line (the paged kernel's rows with their speculative launches and
     their time at the verify window, the flash-decode row with the
     draft, solo-speculative and beam launches, every row with its
@@ -5090,6 +5113,227 @@ def gluon_train_phase(torch, mt, device, bench_step_ms):
     return out
 
 
+# ------------------------------------------------------------ data and IO ---
+
+# bench.py --real-data's leg at its accelerator shape: the ResNet-50 step
+# (batch 128, 224^2, 1000 classes, bf16 fold-cast, lr 0.1, momentum 0.9)
+# fed by ImageRecordIter (shuffle, random crop, random mirror) from
+# max(batch * 4, 64) .npy records of 256^2 x 3, 20 timed steps
+IO = dict(batch=128, image_size=224, steps=20)
+# the _image_* ops on the card against the same ops on the CPU: one
+# seeded HWC float32 image (and an NHWC batch of 4) of IO_IMAGE's shape
+IO_IMAGE = (224, 224, 3)
+# |card - cpu| <= atol + rtol |cpu|: both compute in fp32 (TF32 off); the
+# resize contracts up to a few hundred products in another order, which
+# moves an output of ~255 by a few fp32 ulps (2^-24 * 255 * 100 = 1.5e-3
+# at the worst); the others are elementwise or 3-term dots
+TOL_IMAGE = (1e-4, 1e-5)
+# the DataLoader leg: uint8 HWC images through ToTensor + Normalize
+IO_LOADER = dict(n=64, hw=224, batch=16, workers=2,
+                 mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225))
+
+
+def io_real_data(torch, mt, device, spec=IO):
+    """entry.real_data on the card at ``spec``: the loss must be finite
+    and the native RecordIO library must be the one that loaded the
+    records; the first fed batch must equal, bitwise, the first batch of
+    the same iterator built on the CPU from the same file and seed."""
+    from mxnet_tpu_torch import entry
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="io_phase_")
+    try:
+        run = entry.real_data(directory=directory, ctx=mt.gpu(0), **spec)
+        if not run["native_read"]:
+            raise AssertionError("io: the native RecordIO library did not "
+                                 "read the records; they went the Python "
+                                 "path")
+        np.random.seed(entry.SEED)
+        with mt.cpu():
+            it = entry.record_iter(os.path.join(directory, "train.rec"),
+                                   os.path.join(directory, "train.idx"),
+                                   spec["batch"], spec["image_size"])
+            cpu_batch = it.next()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    first = (run.pop("first_data"), run.pop("first_label"))
+    if first[0].context != mt.gpu(0):
+        raise AssertionError("io: the fed batch is on %s, not the card"
+                             % first[0].context)
+    for what, card, cpu in zip(("data", "label"), first,
+                               (cpu_batch.data[0], cpu_batch.label[0])):
+        if not np.array_equal(card.asnumpy(), cpu.asnumpy()):
+            raise AssertionError("io: the first fed batch's %s differs "
+                                 "from the CPU iterator's" % what)
+    if not run["loss_finite"]:
+        raise AssertionError("io: real_data's loss is not finite: %s"
+                             % run["loss"])
+    b = spec["batch"]
+    log("io real data (%s; ResNet-50 bf16 fold-cast step, batch %d x "
+        "%d^2, ImageRecordIter with shuffle, rand_crop, rand_mirror over "
+        "%d .npy records, native scan + read): fed %.1f img/s, synthetic "
+        "%.1f img/s, feed-bound fraction %.3f; host ms per fed batch %.1f "
+        "(decode/augment/stack/copy in next() %.1f, the step's call %.1f), "
+        "synthetic step %.1f ms; records written in %.2f s, loaded in "
+        "%.2f s; loss %.4f; first batch bitwise the CPU iterator's"
+        % (card_line(), b, spec["image_size"], run["records"],
+           run["fed_img_s"], run["syn_img_s"], run["feed_bound_fraction"],
+           b / run["fed_img_s"] * 1e3, run["feed_ms"], run["step_ms"],
+           run["syn_step_ms"], run["write_s"], run["load_s"], run["loss"]))
+    return run
+
+
+def io_image_ops(torch, mt, device, shape=IO_IMAGE, tol=TOL_IMAGE):
+    """Each _image_* op on the card against the same op on the CPU, on
+    the same seeded input: the deterministic ops through ``nd`` (resize
+    shrinking, enlarging and 2x on uint8, which is exact, nearest), the
+    random ops' bodies on one fixed draw, and each random op through
+    ``nd`` on the card, whose draw must lie in its range. Returns the
+    largest error."""
+    from mxnet_tpu_torch.ops import image_ops as io_
+    rng = np.random.RandomState(5)
+    img = (rng.rand(*shape) * 255).astype(np.float32)
+    batch = (rng.rand(4, 32, 48, 3) * 255).astype(np.float32)
+    chw = rng.rand(3, 32, 48).astype(np.float32)
+    u8 = rng.randint(0, 256, (32, 48, 3)).astype(np.uint8)
+    nd = mt.nd
+    cases = {
+        "to_tensor": (nd.image.to_tensor, (img,), {}),
+        "to_tensor NHWC": (nd.image.to_tensor, (batch,), {}),
+        "normalize": (nd.image.normalize, (chw,),
+                      dict(mean=(0.4, 0.5, 0.6), std=(0.2, 0.3, 0.25))),
+        "flip_left_right": (nd.image.flip_left_right, (img,), {}),
+        "flip_top_bottom": (nd.image.flip_top_bottom, (batch,), {}),
+        "resize shrink": (nd.image.resize, (img,), dict(size=(100, 77))),
+        "resize enlarge": (nd.image.resize, (batch,), dict(size=(61, 50))),
+        "resize keep_ratio": (nd.image.resize, (img,),
+                              dict(size=96, keep_ratio=True)),
+        "resize nearest": (nd.image.resize, (img,),
+                           dict(size=(50, 61), interp=0)),
+        "resize uint8 2x": (nd.image.resize, (u8,), dict(size=(96, 64))),
+        "crop": (nd.image.crop, (img,),
+                 dict(x0=5, y0=7, width=100, height=80)),
+        "adjust_lighting": (nd.image.adjust_lighting, (img,),
+                            dict(alpha=(0.1, -0.2, 0.05)))}
+    tols = {"float32": tol}
+    errs = {}
+    for name, (fn, args, kw) in cases.items():
+        card = fn(*[nd.array(a, ctx=mt.gpu(0), dtype=a.dtype)
+                    for a in args], **kw)._data.cpu()
+        with mt.cpu():
+            cpu = fn(*[nd.array(a, dtype=a.dtype) for a in args], **kw)._data
+        if name == "resize uint8 2x":
+            if not torch.equal(card, cpu):
+                raise AssertionError("io: %s differs on the card" % name)
+            errs[name] = 0.0
+            continue
+        errs[name] = compare(card, cpu, "float32", "io: _image_" + name,
+                             tols)
+    x = torch.from_numpy(img)
+    bodies = {"brightness": lambda t: io_.brightness_body(t, 1.2),
+              "contrast": lambda t: io_.contrast_body(t, 0.8),
+              "saturation": lambda t: io_.saturation_body(t, 1.3),
+              "hue": lambda t: io_.hue_body(t, 0.1),
+              "color_jitter": lambda t: io_.color_jitter_body(
+                  t, [1.1, 0.9, 1.2, -0.05], 0.2, 0.2, 0.2, 0.1),
+              "flip": lambda t: io_.flip_body(
+                  t, torch.tensor(True, device=t.device), -2)}
+    for name, body in bodies.items():
+        errs[name + " body"] = compare(body(x.to(device)).cpu(), body(x),
+                                       "float32", "io: the %s body" % name,
+                                       tols)
+    xd = nd.array(img, ctx=mt.gpu(0))
+    for name, kw, lo, hi in (
+            ("random_brightness", dict(max_brightness=0.3), 0.7, 1.3),
+            ("random_contrast", dict(max_contrast=0.3), None, None),
+            ("random_saturation", dict(max_saturation=0.3), None, None),
+            ("random_hue", dict(max_hue=0.1), None, None),
+            ("random_color_jitter", dict(brightness=0.2, contrast=0.2,
+                                         saturation=0.2, hue=0.1),
+             None, None),
+            ("random_lighting", dict(alpha_std=0.05), None, None),
+            ("random_flip_left_right", {}, None, None),
+            ("random_flip_top_bottom", {}, None, None)):
+        out = getattr(nd.image, name)(xd, **kw)
+        got = out.asnumpy()
+        if got.shape != img.shape or not np.isfinite(got).all():
+            raise AssertionError("io: _image_%s on the card gave %s"
+                                 % (name, got.shape))
+        if lo is not None:
+            ratio = float(got.sum() / img.sum())
+            if not lo - 1e-4 <= ratio <= hi + 1e-4:
+                raise AssertionError("io: _image_%s drew %.4f outside "
+                                     "[%g, %g]" % (name, ratio, lo, hi))
+    log("io _image_* ops on the card against the CPU (%d deterministic "
+        "cases, %d random bodies on a fixed draw; atol %g, rtol %g): max "
+        "abs error %.3g (%s); the 8 random ops ran on the card's generator"
+        % (len(cases), len(bodies), tol[0], tol[1], max(errs.values()),
+           max(errs, key=errs.get)))
+    return max(errs.values())
+
+
+def io_loader(torch, mt, device, spec=IO_LOADER):
+    """DataLoader over an ArrayDataset of seeded uint8 HWC images through
+    Compose([ToTensor(), Normalize(...)]) onto the card: the process pool
+    (``workers`` spawned workers, pinned memory) and the thread pool must
+    give the serial loader's batches bitwise, on the card. Returns the
+    seconds of each."""
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+    rng = np.random.RandomState(9)
+    n, hw = spec["n"], spec["hw"]
+    imgs = rng.randint(0, 256, (n, hw, hw, 3)).astype(np.uint8)
+    labels = rng.randint(0, 1000, n).astype(np.float32)
+    aug = transforms.Compose([transforms.ToTensor(),
+                              transforms.Normalize(spec["mean"],
+                                                   spec["std"])])
+    ds = ArrayDataset(imgs, labels).transform_first(aug)
+    runs, secs = {}, {}
+    for name, kw in (("serial", {}),
+                     ("threads", dict(num_workers=spec["workers"],
+                                      thread_pool=True)),
+                     ("processes", dict(num_workers=spec["workers"],
+                                        pin_memory=True))):
+        loader = DataLoader(ds, batch_size=spec["batch"], **kw)
+        t = time.perf_counter()
+        runs[name] = list(loader)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        del loader
+    for name in ("threads", "processes"):
+        if len(runs[name]) != len(runs["serial"]):
+            raise AssertionError("io: the %s loader gave %d batches, the "
+                                 "serial one %d" % (name, len(runs[name]),
+                                                    len(runs["serial"])))
+        for got, want in zip(runs[name], runs["serial"]):
+            for g, w in zip(got, want):
+                if g.context != mt.gpu(0) or \
+                        not np.array_equal(g.asnumpy(), w.asnumpy()):
+                    raise AssertionError("io: the %s loader's batch differs "
+                                         "from the serial one's" % name)
+    log("io DataLoader (%s; %d uint8 %d^2 images, batch %d, ToTensor + "
+        "Normalize): serial %.2f s, %d threads %.2f s, %d spawned "
+        "processes with pinned memory %.2f s (their start included); "
+        "every batch on the card, bitwise the serial loader's"
+        % (card_line(), n, hw, spec["batch"], secs["serial"],
+           spec["workers"], secs["threads"], spec["workers"],
+           secs["processes"]))
+    return secs
+
+
+def io_phase(torch, mt, device):
+    """Data and IO on the card (``io``, ``recordio`` with ``_native``,
+    ``image``'s ops, ``gluon.data``, ``entry.real_data``): bench.py's
+    --real-data leg, the _image_* ops against the CPU and the three
+    DataLoader tiers; returns their numbers. ``image.ImageIter`` and
+    ``ImageDetIter`` decode JPEG through cv2, which the card's machine
+    lacks: they are held against the JAX package on the CPU only."""
+    out = {"real_data": io_real_data(torch, mt, device),
+           "image_ops_err": io_image_ops(torch, mt, device),
+           "loader_s": io_loader(torch, mt, device)}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5259,6 +5503,7 @@ def main():
     resnet = resnet_phase(torch, mxnet_tpu_torch, device)
     gluon_train_phase(torch, mxnet_tpu_torch, device,
                       resnet["train"]["step_ms"])
+    io_phase(torch, mxnet_tpu_torch, device)
     log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms; "
         "mesh forward %.3f ms" % (served["step_ms"], generated["step_ms"],
                                   trained["step_ms"], meshed["forward_ms"]))

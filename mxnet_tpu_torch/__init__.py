@@ -21,7 +21,11 @@ of ``ops.nn``, ``initializer``, ``symbol`` with ``executor`` and
 ``cached_op``, ``gluon`` (parameters, blocks, layers, the ResNet model
 zoo), ``utils.functionalize_block``, and ``entry`` (``entry()`` and
 ``build_train_step``, the counterparts of the JAX package's
-``__graft_entry__.entry`` and ``bench.build_train_step``). The default context is ``gpu(0)``:
+``__graft_entry__.entry`` and ``bench.build_train_step``, and
+``real_data``, that of ``bench.py --real-data``); and data and IO:
+``recordio`` (with the native scanner of ``_native``), ``io``'s
+iterators, ``image``'s decode, augmenters and iterators,
+``gluon.data`` and ``contrib.io``. The default context is ``gpu(0)``:
 without a CUDA device it raises; host callers say ``with cpu():``.
 Importing the package needs neither ``nvcc``, NVRTC, Triton nor a GPU:
 kernels build at first launch.
@@ -36,6 +40,7 @@ from . import (attribute, autograd, engine, kernels, models, name, ndarray,
 from . import initializer, symbol
 from . import executor, cached_op, gluon, utils
 from . import lr_scheduler, optimizer
+from . import recordio, io, image, contrib
 from .attribute import AttrScope
 from .name import NameManager, Prefix
 from .symbol import Symbol
@@ -51,7 +56,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "attribute", "AttrScope",
            "NameManager", "Prefix", "registry", "initializer", "init",
            "symbol", "sym", "Symbol", "executor", "cached_op", "gluon",
-           "utils", "lr_scheduler", "optimizer"]
+           "utils", "lr_scheduler", "optimizer", "recordio", "io", "image",
+           "contrib"]
 
 # names of the JAX package's top level that the port has not ported yet:
 # name -> (JAX module, ROADMAP item)
@@ -59,9 +65,6 @@ _QUEUED = {
     "kvstore": ("kvstore.py", "A7"),
     "kvstore_server": ("kvstore_server.py", "A7"),
     "gradient_compression": ("gradient_compression.py", "A7"),
-    "io": ("io.py", "A8"),
-    "recordio": ("recordio.py", "A8"),
-    "image": ("image.py", "A8"),
     "metric": ("metric.py", "A9"),
     "callback": ("callback.py", "A9"),
     "model": ("model.py", "A9"),
@@ -70,7 +73,6 @@ _QUEUED = {
     "executor_manager": ("executor_manager.py", "A9"),
     "sparse": ("sparse.py", "A9"),
     "rnn": ("rnn/", "A9"),
-    "contrib": ("contrib/", "A9"),
     "operator": ("operator.py", "A9"),
     "numpy": ("numpy/", "A9"),
     "np": ("numpy/", "A9"),

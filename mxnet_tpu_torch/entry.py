@@ -1,30 +1,43 @@
 """The port's entry points for ResNet-50 v1, the JAX package's flagship:
-``entry()``, the counterpart of ``__graft_entry__.entry()``, and
+``entry()``, the counterpart of ``__graft_entry__.entry()``,
 ``build_train_step``, that of ``bench.py``'s ``build_train_step`` in its
-default fold-cast layout.
+default fold-cast layout, and ``real_data``, that of ``bench.py
+--real-data`` (``_make_record_dataset`` and ``real_data_main``): the
+same step fed by ``io.ImageRecordIter`` from a RecordIO file it writes.
 
-Both trace the Gluon model-zoo net through ``utils.functionalize_block``
-and run its graph function with torch ops (cuDNN and cuBLAS on the card,
-in MXNet's NCHW layout). They run on the current context, ``gpu(0)``
+``entry`` and ``build_train_step`` trace the Gluon model-zoo net through
+``utils.functionalize_block`` and run its graph function with torch ops
+(cuDNN and cuBLAS on the card, in MXNet's NCHW layout). They run on the current context, ``gpu(0)``
 unless the caller says ``with cpu():`` or passes ``ctx``. Parameters are
 drawn by ``initializer.Xavier`` from the device's generator
 (``random.generator``); the JAX package's can be copied into the returned
 tensors by name (``models.convert.graph_params_from_numpy``).
 """
 
+import io as _io
+import os
+import shutil
+import tempfile
+import time
+
+import numpy as np
 import torch
 
 from . import initializer
+from . import io
 from . import ndarray as nd
+from . import recordio
 from .context import current_context
 from .gluon.model_zoo import vision
 from .utils import functionalize_block
 
-__all__ = ["entry", "build_train_step"]
+__all__ = ["entry", "build_train_step", "make_record_dataset", "record_iter",
+           "real_data"]
 
 MOMENTUM = 0.9
-SEED = 0            # the example input's generator (entry)
+SEED = 0            # entry's example input; real_data's records and draws
 CLASSES = 1000
+WARMUP = 2          # real_data's untimed steps before each timed run
 
 
 def _resnet50(classes, ctx):
@@ -105,3 +118,148 @@ def build_train_step(batch, image_size=224, classes=CLASSES, lr=0.1,
              {n: args[n].to(torch.bfloat16) for n in names})
     mom = {n: torch.zeros_like(args[n]) for n in names}
     return step, state, mom, dict(aux)
+
+
+def make_record_dataset(directory, n_records, size):
+    """Write ``n_records`` random images of (size + 32)^2 x 3 uint8 into
+    ``directory``/train.rec and .idx, as ``bench.py``'s
+    ``_make_record_dataset`` draws them (``RandomState(SEED)``: each
+    image, then its label in [0, 1000)), each packed as a .npy payload
+    whatever the host has (no PIL or cv2 needed to read it back). Returns
+    (rec_path, idx_path)."""
+    rec = os.path.join(directory, "train.rec")
+    idx = os.path.join(directory, "train.idx")
+    rng = np.random.RandomState(SEED)
+    writer = recordio.MXIndexedRecordIO(idx, rec, "w")
+    edge = size + 32
+    for i in range(n_records):
+        img = rng.randint(0, 255, (edge, edge, 3)).astype(np.uint8)
+        buf = _io.BytesIO()
+        np.save(buf, img)
+        writer.write_idx(i, recordio.pack(
+            recordio.IRHeader(0, float(rng.randint(0, CLASSES)), i, 0),
+            buf.getvalue()))
+    writer.close()
+    return rec, idx
+
+
+def record_iter(rec, idx, batch, size):
+    """bench.py's feed: ``ImageRecordIter`` with shuffle, random crop and
+    random mirror, on the current context."""
+    return io.ImageRecordIter(
+        path_imgrec=rec, path_imgidx=idx, data_shape=(3, size, size),
+        batch_size=batch, shuffle=True, rand_crop=True, rand_mirror=True)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def real_data(batch=128, image_size=224, steps=20, directory=None,
+              ctx=None):
+    """``bench.py --real-data`` on the port: ``build_train_step`` (1000
+    classes, lr 0.1) trained through ``ImageRecordIter`` batches, then
+    the same step on resident synthetic tensors, in one call.
+
+    Writes max(batch * 4, 64) records with ``make_record_dataset`` into
+    ``directory`` (a new temporary one, removed at the end, when None),
+    seeds numpy's global state with ``SEED`` and builds the iterator
+    (``record_iter``) on the context (``gpu(0)`` unless the caller says
+    ``with cpu():`` or passes ``ctx``), whose batches reach the step as
+    the iterator's tensors on that device (the labels cast to int32).
+    After ``WARMUP`` fed steps it times ``steps`` fed steps, then
+    ``WARMUP`` synthetic steps and ``steps`` timed ones on
+    ``RandomState(0)`` tensors made on the device once, each run ending
+    in a device sync.
+
+    Returns a dict: ``fed_img_s`` and ``syn_img_s``, the feed-bound
+    fraction ``1 - fed / syn``, ``loss_finite`` and ``loss`` (the last
+    fed step's), ``feed_ms`` and ``step_ms`` (host ms per fed batch in
+    the iterator's ``next()`` — decode, augment, stack and the copy to
+    the device — and in the step's call), ``syn_step_ms``, ``records``,
+    ``write_s`` and ``load_s`` (writing the file, and reading it into the
+    iterator), ``native_read`` (whether the native library read the
+    records, ``ImageRecordIter.native_read``), and
+    ``first_data``/``first_label``, the first fed batch's NDArrays."""
+    ctx = ctx if ctx is not None else current_context()
+    device = ctx.torch_device
+    n_records = max(batch * 4, 64)
+    own_dir = directory is None
+    directory = tempfile.mkdtemp(prefix="real_data_") if own_dir \
+        else directory
+    try:
+        t0 = time.perf_counter()
+        rec, idx = make_record_dataset(directory, n_records, image_size)
+        write_s = time.perf_counter() - t0
+        np.random.seed(SEED)
+        t0 = time.perf_counter()
+        with ctx:
+            it = record_iter(rec, idx, batch, image_size)
+        load_s = time.perf_counter() - t0
+        step, state, mom, aux = build_train_step(batch, image_size,
+                                                 ctx=ctx)
+        run = {"state": state, "mom": mom, "aux": aux}
+        feed_s, step_s, first = [], [], []
+
+        def fed():
+            t = time.perf_counter()
+            try:
+                b = it.next()
+            except StopIteration:
+                it.reset()
+                b = it.next()
+            t1 = time.perf_counter()
+            if not first:
+                first.extend((b.data[0], b.label[0]))
+            run["state"], run["mom"], run["aux"], loss = step(
+                run["state"], run["mom"], run["aux"], b.data[0]._data,
+                b.label[0]._data.to(torch.int32))
+            feed_s.append(t1 - t)
+            step_s.append(time.perf_counter() - t1)
+            return loss
+
+        with ctx:
+            for _ in range(WARMUP):
+                fed()
+            _sync(device)
+            del feed_s[:], step_s[:]
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                loss = fed()
+            loss = float(loss)
+            fed_s = time.perf_counter() - t0
+
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.rand(batch, 3, image_size, image_size)
+                             .astype(np.float32)).to(device)
+        y = torch.from_numpy(rng.randint(0, CLASSES, (batch,))
+                             .astype(np.int32)).to(device)
+
+        def synthetic():
+            run["state"], run["mom"], run["aux"], out = step(
+                run["state"], run["mom"], run["aux"], x, y)
+            return out
+
+        for _ in range(WARMUP):
+            synthetic()
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            l2 = synthetic()
+        float(l2)
+        syn_s = time.perf_counter() - t0
+    finally:
+        if own_dir:
+            shutil.rmtree(directory, ignore_errors=True)
+    fed_rate = batch * steps / fed_s
+    syn_rate = batch * steps / syn_s
+    return {"fed_img_s": fed_rate, "syn_img_s": syn_rate,
+            "feed_bound_fraction": 1.0 - fed_rate / syn_rate,
+            "loss": loss, "loss_finite": bool(np.isfinite(loss)),
+            "feed_ms": 1e3 * float(np.mean(feed_s)),
+            "step_ms": 1e3 * float(np.mean(step_s)),
+            "syn_step_ms": 1e3 * syn_s / steps, "records": n_records,
+            "write_s": write_s, "load_s": load_s,
+            "native_read": it.native_read,
+            "first_data": first[0], "first_label": first[1]}

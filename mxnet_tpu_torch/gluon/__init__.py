@@ -3,9 +3,9 @@
 
 ``Parameter``/``ParameterDict``, ``Block``/``HybridBlock``/``SymbolBlock``
 (hybridized through ``cached_op``), the ``nn`` layers, the ResNet family
-of the ``model_zoo``, ``Trainer``, ``loss`` and ``utils`` are here.
-``data`` waits for ROADMAP item A8, ``rnn`` and ``contrib`` for A9: each
-raises ``MXNetError`` naming its item.
+of the ``model_zoo``, ``Trainer``, ``loss``, ``utils`` and ``data`` (with
+``data.vision``) are here. ``rnn`` and ``contrib`` wait for ROADMAP item
+A9: each raises ``MXNetError`` naming it.
 """
 
 from ..base import MXNetError
@@ -25,10 +25,11 @@ from . import loss
 from . import utils
 from .utils import split_data, split_and_load, clip_global_norm
 
+from . import data
+
 # names of the JAX package's gluon that the port has not ported yet:
 # name -> (JAX module, ROADMAP item)
 _QUEUED = {
-    "data": ("gluon/data/", "A8"),
     "rnn": ("gluon/rnn/", "A9"),
     "contrib": ("gluon/contrib/", "A9"),
 }

@@ -948,20 +948,38 @@ def save(fname, data):
 
 
 def load(fname, ctx=None):
+    """mx.nd.load. Only a file that is not in the format gets "invalid
+    NDArray file"; an error of the arrays' context (no CUDA device for
+    the default gpu(0)) comes through as it is."""
     with open(fname, "rb") as f:
-        try:
-            return load_frombuffer(f.read(), ctx=ctx)
-        except MXNetError:
-            raise MXNetError("invalid NDArray file %s" % fname)
+        buf = f.read()
+    try:
+        f, header = _parse_header(buf)
+    except MXNetError:
+        raise MXNetError("invalid NDArray file %s" % fname)
+    return _load_arrays(f, header, ctx)
 
 
 def load_frombuffer(buf, ctx=None):
     """mx.nd.load_frombuffer: deserialize from bytes."""
+    f, header = _parse_header(buf)
+    return _load_arrays(f, header, ctx)
+
+
+def _parse_header(buf):
+    """(stream at the first payload, header) of a saved buffer."""
     f = io.BytesIO(buf)
     if f.read(8) != _SAVE_MAGIC:
         raise MXNetError("invalid NDArray buffer")
-    (hlen,) = struct.unpack("<Q", f.read(8))
-    header = json.loads(f.read(hlen).decode())
+    try:
+        (hlen,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(hlen).decode())
+    except (struct.error, ValueError) as exc:
+        raise MXNetError("invalid NDArray buffer: %s" % exc)
+    return f, header
+
+
+def _load_arrays(f, header, ctx):
     arrays = []
     for dt, shp in zip(header["dtypes"], header["shapes"]):
         # bfloat16 payloads are stored widened to float32 (see save)
@@ -1033,9 +1051,22 @@ class _PrefixNamespace:
         raise AttributeError(item)
 
 
+class _ImageNamespace(_PrefixNamespace):
+    """nd.image: the registered ``_image_*`` ops first, then the helpers
+    of the ``image`` module (``imdecode``, ``resize_short``, ...), as in
+    the reference."""
+
+    def __getattr__(self, item):
+        try:
+            return super().__getattr__(item)
+        except AttributeError:
+            from . import image as _image
+            return getattr(_image, item)
+
+
 contrib = _PrefixNamespace("_contrib_", ("foreach", "while_loop", "cond"))
 linalg = _PrefixNamespace("linalg_")
-image = _PrefixNamespace("_image_")
+image = _ImageNamespace("_image_")
 
 
 def onehot_encode(indices, out):

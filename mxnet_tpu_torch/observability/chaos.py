@@ -55,8 +55,11 @@ after the write), ``journal.replay`` (once per segment scanned),
 dispatch, modes sync, pipelined and spec), ``kv.pool.grow``,
 ``serving.swap``, ``router.rollout`` (a rollout's swap and canary
 phases), ``checkpoint.bytes`` (the landed data file, before the commit),
-``checkpoint.write`` (between the data file and the manifests) and
-``checkpoint.snapshot`` (the host snapshot of a save).
+``checkpoint.write`` (between the data file and the manifests),
+``checkpoint.snapshot`` (the host snapshot of a save), ``io.read`` (a
+CSV file's read, and each record and each batch of ``ImageRecordIter``
+on its Python path) and ``recordio.read`` (each record a RecordIO reader
+returns; ``corrupt_bytes`` on its payload).
 
 ``stats`` is the always-on view of what fired. The telemetry half of
 the JAX module (trace instants and counters, the flight recorder's

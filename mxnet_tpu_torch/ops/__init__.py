@@ -17,7 +17,7 @@ new values of those inputs, which the dispatcher writes back into the
 NDArrays passed (``ndarray.imperative_invoke``).
 
 The port registers the ops of ``elemwise.py``, ``reduce_ops.py``,
-``matrix.py``, ``nn.py`` and ``optimizer_ops.py``. The JAX registry's
+``matrix.py``, ``nn.py``, ``image_ops.py`` and ``optimizer_ops.py``. The JAX registry's
 other names (``_queued.py``) raise ``MXNetError`` naming the module and
 the ROADMAP item that ports them.
 """
@@ -135,4 +135,5 @@ from . import elemwise  # noqa: E402,F401
 from . import reduce_ops  # noqa: E402,F401
 from . import matrix  # noqa: E402,F401
 from . import nn  # noqa: E402,F401
+from . import image_ops  # noqa: E402,F401
 from . import optimizer_ops  # noqa: E402,F401

@@ -19,19 +19,6 @@ _contrib_interleaved_matmul_selfatt_valatt _contrib_quadratic
 all_finite multi_all_finite quadratic"""),
     "ops/control_flow_ops.py": ("A9", """
 _cond _foreach _while_loop"""),
-    "ops/image_ops.py": ("A9", """
-_image_adjust_lighting _image_crop _image_flip_left_right
-_image_flip_top_bottom _image_normalize _image_random_brightness
-_image_random_color_jitter _image_random_contrast
-_image_random_flip_left_right _image_random_flip_top_bottom
-_image_random_hue _image_random_lighting
-_image_random_saturation _image_resize _image_to_tensor
-image_adjust_lighting image_crop image_flip_left_right
-image_flip_top_bottom image_normalize image_random_brightness
-image_random_color_jitter image_random_contrast
-image_random_flip_left_right image_random_flip_top_bottom
-image_random_hue image_random_lighting image_random_saturation
-image_resize image_to_tensor"""),
     "ops/linalg.py": ("A9", """
 _linalg_det _linalg_extractdiag _linalg_extracttrian
 _linalg_gelqf _linalg_gemm _linalg_gemm2 _linalg_inverse

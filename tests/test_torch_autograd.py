@@ -12,6 +12,7 @@ from mxnet_tpu import nd as jnd
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import nd as tnd
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RS = np.random.RandomState(0)
 XV = RS.rand(3, 4).astype(np.float32) + 0.5

@@ -24,6 +24,7 @@ from mxnet_tpu.observability import membudget as jmem
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.observability import chaos
 from mxnet_tpu_torch.observability import membudget
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

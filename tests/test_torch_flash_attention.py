@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from mxnet_tpu.kernels import common as jax_common
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 fa = importlib.import_module("mxnet_tpu_torch.kernels.flash_attention")
 jax_flash = importlib.import_module("mxnet_tpu.kernels.flash_attention")

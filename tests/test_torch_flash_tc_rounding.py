@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from mxnet_tpu_torch import kernels
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")

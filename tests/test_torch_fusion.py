@@ -18,6 +18,7 @@ import torch
 
 from mxnet_tpu_torch import parallel
 from mxnet_tpu_torch.parallel import fusion
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfusion = importlib.import_module("mxnet_tpu.parallel.fusion")
 

@@ -15,6 +15,7 @@ import pytest
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as mt
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 X = np.random.RandomState(0).uniform(-1, 1, (6, 4)).astype(np.float32)
 

@@ -36,6 +36,7 @@ import torch
 from mxnet_tpu.kernels import paged_attention as jax_paged_attention
 from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.kernels import common
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KERNEL_SOURCE = (Path(common.__file__).resolve().parent.parent / "csrc"
                  / "decode_attention.cu")

@@ -104,6 +104,45 @@ def test_import_loads_no_jax(tmp_path):
     assert "BAD []" in out.stdout, out.stdout
 
 
+def test_data_and_io_load_no_jax(tmp_path):
+    """Importing the data and IO modules (``recordio`` with ``_native``,
+    ``io``, ``image``, ``ops.image_ops``, ``gluon.data`` with ``vision``,
+    ``contrib.io``) and driving them on the CPU — records written and read
+    back through the native scanner, an ``ImageRecordIter`` batch, a
+    serial ``DataLoader`` through ``ToTensor`` and ``Normalize``, an image
+    op — leaves jax and mxnet_tpu out of sys.modules."""
+    code = ("import sys, io, numpy as np, mxnet_tpu_torch as mt\n"
+            "from mxnet_tpu_torch import _native, recordio, image, contrib\n"
+            "from mxnet_tpu_torch import io as mio\n"
+            "from mxnet_tpu_torch.ops import image_ops\n"
+            "from mxnet_tpu_torch.gluon import data\n"
+            "from mxnet_tpu_torch.gluon.data.vision import transforms as T\n"
+            "w = recordio.MXIndexedRecordIO('a.idx', 'a.rec', 'w')\n"
+            "for i in range(4):\n"
+            "    b = io.BytesIO()\n"
+            "    np.save(b, np.full((10, 10, 3), i, np.uint8))\n"
+            "    w.write_idx(i, recordio.pack((0, float(i), i, 0), "
+            "b.getvalue()))\n"
+            "w.close()\n"
+            "with mt.cpu():\n"
+            "    it = mio.ImageRecordIter('a.rec', (3, 8, 8), 2, "
+            "path_imgidx='a.idx', rand_crop=True)\n"
+            "    assert it.next().data[0].shape == (2, 3, 8, 8)\n"
+            "    assert _native.recordio_lib() is not None\n"
+            "    ds = data.ArrayDataset(np.zeros((4, 6, 6, 3), np.uint8), "
+            "np.arange(4)).transform_first(T.Compose([T.ToTensor(), "
+            "T.Normalize(0.5, 0.2)]))\n"
+            "    assert len(list(data.DataLoader(ds, batch_size=2))) == 2\n"
+            "    mt.nd.image.resize(mt.nd.zeros((6, 6, 3)), size=4)\n"
+            "    assert contrib.io.DataLoaderIter\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "%r)\n"
+            "print('BAD', bad)\n" % (FORBIDDEN,))
+    out = _run(["-c", code], tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 def test_chip_smoke_refuses_without_a_gpu():
     """With no CUDA device the smoke script exits nonzero and prints no
     result line."""

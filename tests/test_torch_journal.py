@@ -15,6 +15,7 @@ from mxnet_tpu.observability import chaos as jchaos
 
 from mxnet_tpu_torch.models.journal import RequestJournal
 from mxnet_tpu_torch.observability import chaos
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

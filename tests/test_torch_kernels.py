@@ -21,6 +21,7 @@ import torch
 from mxnet_tpu.kernels import paged_attention as jax_paged_attention
 from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch.kernels import _build, common
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # the JAX package re-exports its flash_attention function under the
 # submodule's name: import the module explicitly

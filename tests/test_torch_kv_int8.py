@@ -34,6 +34,7 @@ from mxnet_tpu_torch.kernels import common
 from mxnet_tpu_torch.models import convert
 from mxnet_tpu_torch.models import serving as tsv
 from mxnet_tpu_torch.models import transformer as ttf
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jtf = importlib.import_module("mxnet_tpu.models.transformer")
 jsv = importlib.import_module("mxnet_tpu.models.serving")

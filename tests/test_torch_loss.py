@@ -16,6 +16,7 @@ import pytest
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as mt
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, C = 4, 5
 

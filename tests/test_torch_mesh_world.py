@@ -41,6 +41,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 WORLD = 4

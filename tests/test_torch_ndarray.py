@@ -16,6 +16,7 @@ from mxnet_tpu import nd as jnd
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.base import dtype_name
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RS = np.random.RandomState(0)
 X = RS.rand(3, 4).astype(np.float32)
@@ -292,6 +293,30 @@ def test_save_load_across_packages_bitwise(tmp_path, writer):
         assert len(tnd.load_frombuffer(buf)) == 2
         with pytest.raises(mt.MXNetError):
             tnd.load_frombuffer(b"not an ndarray file")
+
+
+def test_load_without_ctx_raises_the_device_error(tmp_path, monkeypatch):
+    """C11: without ``ctx`` on a host with no CUDA device, ``nd.load`` and
+    ``load_parameters`` raise the default context's own message; only a
+    file that is not in the format is "invalid NDArray file"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "w.params")
+    with mt.cpu():
+        net = mt.gluon.nn.Dense(3, in_units=2)
+        net.initialize()
+        net.save_parameters(path)
+        assert set(tnd.load(path)) == set(net._collect_params_with_prefix())
+    for load in (tnd.load,
+                 mt.gluon.nn.Dense(3, in_units=2).load_parameters):
+        with pytest.raises(mt.MXNetError, match="no CUDA device .the "
+                           "default context is gpu.0.") as err:
+            load(path)
+        assert "invalid NDArray file" not in str(err.value)
+    junk = str(tmp_path / "junk.params")
+    with open(junk, "wb") as f:
+        f.write(b"MXTPU001\xff\xff")
+    with pytest.raises(mt.MXNetError, match="invalid NDArray file"):
+        tnd.load(junk)
 
 
 def test_dlpack_and_torch_interchange(cpu):

@@ -15,6 +15,7 @@ import pytest
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as mt
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def U(shape, seed, lo=-1.0, hi=1.0):

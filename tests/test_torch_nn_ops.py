@@ -24,6 +24,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.ops.nn import batch_norm
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5
 BF16_OUT, BF16_GRAD = 2.0 ** -6, 2.0 ** -5

@@ -27,6 +27,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.ops.nn import rnn_param_size
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def U(shape, seed, lo=-1.0, hi=1.0):

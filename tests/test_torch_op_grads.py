@@ -17,6 +17,7 @@ from mxnet_tpu import ops as jops
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import nd as tnd
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def differentiable(modules):

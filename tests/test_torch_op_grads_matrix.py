@@ -5,6 +5,7 @@ ops are in ``test_torch_op_grads.py``)."""
 import pytest
 
 from test_torch_op_grads import check_gradient, differentiable
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", differentiable(("reduce_ops", "matrix")))

@@ -31,13 +31,15 @@ from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch import ops as tops
 from mxnet_tpu_torch.base import dtype_name
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODULES = ("elemwise", "reduce_ops", "matrix")
-# ops/nn.py and ops/optimizer_ops.py, both ported whole; their cases are
-# in test_torch_nn_ops.py, test_torch_nn_ops_rest.py and
-# test_torch_optimizer_ops.py
+# ops/nn.py, ops/optimizer_ops.py and ops/image_ops.py, each ported
+# whole; their cases are in test_torch_nn_ops.py, test_torch_nn_ops_rest.py,
+# test_torch_optimizer_ops.py and test_torch_image.py
 NN_PORTED = {n for n, op in jops._REGISTRY.items()
-             if op.fn.__module__.split(".")[-1] in ("nn", "optimizer_ops")}
+             if op.fn.__module__.split(".")[-1] in ("nn", "optimizer_ops",
+                                                    "image_ops")}
 TOL = (1e-6, 1e-6)                  # (rtol, atol) at fp32
 
 
@@ -289,10 +291,10 @@ def test_gate_every_op_of_the_three_modules_is_ported_and_cased():
 
 
 def test_gate_other_jax_ops_raise_naming_their_queue_item():
-    """Every JAX op outside MODULES, ``ops/nn.py`` and
-    ``ops/optimizer_ops.py`` is queued, and its ``nd`` function, its
-    registry entry and a Gluon layer over it raise naming the queue
-    item."""
+    """Every JAX op outside MODULES, ``ops/nn.py``,
+    ``ops/optimizer_ops.py`` and ``ops/image_ops.py`` is queued, and its
+    ``nd`` function, its registry entry and a Gluon layer over it raise
+    naming the queue item."""
     names = {n for n, op in jops._REGISTRY.items()
              if op.fn.__module__.split(".")[-1] not in MODULES
              and n not in NN_PORTED and n != "_index"}

@@ -21,6 +21,7 @@ import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import dtype_name
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = ((3, 4), (5,))
 COMMON = dict(wd=0.01, rescale_grad=0.5, clip_gradient=0.8)

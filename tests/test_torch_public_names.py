@@ -47,9 +47,15 @@ def test_ported_names_exist_and_unported_ones_refuse():
     assert mt.NameManager is mt.name.NameManager
     assert mt.Prefix is mt.name.Prefix
     assert mt.optimizer.SGD and mt.lr_scheduler.FactorScheduler
-    for name, item in (("metric", "A9"), ("kvstore", "A7"), ("io", "A8")):
+    for name, item in (("metric", "A9"), ("kvstore", "A7"),
+                       ("module", "A9")):
         with pytest.raises(mt.MXNetError, match=item):
             getattr(mt, name)
+    # data and IO resolve (A8 is ported); contrib's other modules name A9
+    assert mt.io.ImageRecordIter and mt.recordio.MXIndexedRecordIO
+    assert mt.image.ImageIter and mt.contrib.io.DataLoaderIter
+    with pytest.raises(mt.MXNetError, match="A9"):
+        mt.contrib.amp
     # observability resolves: chaos is ported, the rest names A10
     assert mt.observability.chaos.install
     with pytest.raises(mt.MXNetError, match="A10"):

@@ -25,6 +25,7 @@ from mxnet_tpu_torch import entry
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 from mxnet_tpu_torch.models.convert import graph_params_from_numpy
 from mxnet_tpu_torch.utils import functionalize_block
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REL_L2 = 1e-4
 

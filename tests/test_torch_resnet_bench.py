@@ -64,6 +64,7 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import entry
 from mxnet_tpu_torch.gluon.model_zoo import vision
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BATCH, SIZE, CLASSES, LR = 2, 64, 10, 0.1
 LAST_GAMMA = 0.01

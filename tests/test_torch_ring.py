@@ -28,6 +28,7 @@ from mxnet_tpu_torch import parallel
 from mxnet_tpu_torch.models import convert
 from mxnet_tpu_torch.models import transformer as ttf
 from mxnet_tpu_torch.parallel import ring
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jfa = importlib.import_module("mxnet_tpu.kernels.flash_attention")
 jring = importlib.import_module("mxnet_tpu.parallel.ring")

@@ -26,6 +26,7 @@ from mxnet_tpu_torch.models import router as trt
 from mxnet_tpu_torch.models import serving as tsv
 from mxnet_tpu_torch.models import transformer as ttf
 from mxnet_tpu_torch.observability import chaos
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = dict(vocab_size=41, d_model=16, n_heads=2, n_layers=1, d_ff=32,
            max_len=32)

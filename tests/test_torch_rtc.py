@@ -19,6 +19,7 @@ from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import kernels
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch import rtc
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from mxnet_tpu_torch.models import transformer as ttf
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jtf = importlib.import_module("mxnet_tpu.models.transformer")
 

@@ -14,6 +14,7 @@ import torch
 
 from mxnet_tpu_torch.models import serving as tsv
 from mxnet_tpu_torch.models import transformer as ttf
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = dict(vocab_size=97, d_model=32, n_heads=4, n_kv_heads=2, n_layers=2,
            d_ff=64, max_len=64)

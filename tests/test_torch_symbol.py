@@ -19,6 +19,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import sym as tsym
 from mxnet_tpu_torch.base import dtype_name
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DATA = (2, 3, 8, 8)
 

@@ -29,6 +29,7 @@ import pytest
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as mt
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REL_L2 = 1e-4
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -24,6 +24,7 @@ import torch
 
 from mxnet_tpu_torch.kernels import common, paged_decode
 from mxnet_tpu_torch.models import transformer as ttf
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 jtf = importlib.import_module("mxnet_tpu.models.transformer")
 
