@@ -264,7 +264,35 @@ Run from the root of a checkout on a machine with one CUDA GPU and
     ``image.ImageIter`` and ``ImageDetIter`` decode JPEG through cv2,
     which the card's machine lacks: they are held against the JAX package
     on the CPU only (``tests/test_torch_image.py``);
-13. traces 16 decode steps of a serve run, of an int8 serve run and of
+13. drives the kvstore stack and the Module front end (``module_phase``;
+    no hand-written kernel, and it fails if one is launched):
+    ``entry.module_fit`` at ``train_imagenet.py``'s defaults (the
+    example's ResNet-50 symbol, 1000 classes, 3 x 224^2, batch 128, fp32,
+    24 batches of ``synthetic_iter``'s data, SGD with momentum under the
+    recipe's scheduler, Xavier, ``eval_metric="acc"``, Speedometer) with
+    no store and through ``dist_sync`` (a world of one: the update on the
+    store through ``pushpull_fused``), printing each run's img/s over
+    batches 4-24 on Speedometer's clock, the host ms a batch in
+    ``forward_backward``, ``update()`` and ``update_metric``, the store's
+    ``dispatch_stats`` (checked: every key every batch, one collective a
+    bucket, no sharded update) and the train accuracy; a profile of the
+    dist_sync module's step on a resident batch; a ``do_checkpoint``
+    round trip through ``model.load_checkpoint`` and ``Module.load``,
+    bitwise; from one snapshot of weights and gradients, Module's update
+    through the dist store against its local updater, and the Gluon
+    ``Trainer(kvstore="device")`` (through ``pushpull_fused``) against
+    ``Trainer(kvstore=None)`` on ResNet-50 in bf16, three updates each,
+    weights and optimizer states bitwise equal; the store's 2-bit
+    compressed push on ResNet-50's gradients, twice, words, residuals and
+    aggregates bitwise the CPU's; Accuracy, top-5, F1 counts on scores
+    made on the host (the label's rank set per row, exact ties) equal to
+    the CPU's and to the counts the scores were made with, CrossEntropy
+    within ``TOL_METRIC`` of the CPU's and of float64; the example's
+    ResNet-18 CIFAR branch fitted two batches on the card and on the CPU
+    from the same parameters, the parameters' and the moving statistics'
+    change and the eval outputs within ``TOL_MODULE_FIT``; ``score`` and
+    ``predict`` over 8 batches against the module's own ``forward``;
+14. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
@@ -274,19 +302,19 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ``generate()`` decode step the two of flash decode, the bf16 train
    step the three tensor-core kernels, and the mesh forward the forward
    template;
-14. times the decode kernels (the paged kernel in bfloat16 and int8)
+15. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, by CUDA events and by device time
     with each kernel's GB/s of live bytes, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
-15. prints the card's name and power limit again, the kernels' JSON
+16. prints the card's name and power limit again, the kernels' JSON
     line (the paged kernel's rows with their speculative launches and
     their time at the verify window, the flash-decode row with the
     draft, solo-speculative and beam launches, every row with its
-    launches in the durable and the mesh-training phases), then as its
-    last line ``{"ok": true, "device": {...}}``.
+    launches in the durable, the mesh-training and the Module phases),
+    then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
 result line. It imports nothing of JAX or of the JAX package.
@@ -5334,6 +5362,598 @@ def io_phase(torch, mt, device):
     return out
 
 
+# --------------------------------------------------- kvstore and Module ---
+
+# train_imagenet.py --benchmark 1 at its defaults (common.fit): ResNet-50
+# v1 (the example's symbol), 1000 classes, 3 x 224^2, batch 128, float32,
+# disp_batches 20, one epoch of disp_batches + 4 = 24 batches; img/s and
+# host ms over batches 4-24 (the first three build and warm cuDNN)
+MODULE_FIT = dict(batch=128, image_size=224, num_layers=50, classes=1000,
+                  disp_batches=20, first=3)
+MODULE_STORES = ("device", "dist_sync")
+MODULE_GATE_UPDATES = 3
+# the example's CIFAR branch (resnet.py:57): ResNet-18 at 3 x 32^2, two
+# batches, fp32 on the card and on the CPU from the same arg_params: the
+# recipe's Xavier draw with each unit's bn2 gamma at 0.01 (from Xavier's
+# gammas of 1 two SGD steps at lr 0.1 are chaotic: a 1e-7 perturbation
+# of the start moves the result by ~1e-3, 1.2e-5 with the damping; the
+# gluon card-vs-CPU checks damp the same way). The parameters' change
+# over the two updates is compared (the parameters themselves are
+# dominated by their start): |card - cpu| / |cpu - start|, relative L2
+# over all parameters, with the convolutions' and reductions' order the
+# only difference (TF32 off)
+MODULE_CHECK = dict(batch=16, image_size=32, num_layers=18, classes=10,
+                    num_batches=2)
+TOL_MODULE_FIT = 1e-3
+# score/predict: an 8-batch iterator on the fitted ResNet-18 module
+MODULE_SCORE_BATCHES = 8
+# the metrics on card tensors against the same metrics on the CPU and
+# against counts known from how the inputs were made: 128 rows of 1000
+# class scores drawn on the host, the label's rank set per row (a quarter
+# first, a quarter second to fifth, the rest beyond), every eighth row an
+# exact tie at the label's score (at rank 0 or 4 in half of them, where
+# the tie decides the hit); counts exact, cross-entropy (a sum of 128
+# logs in fp32, every label's probability at least 2e-6, far above the
+# metric's 1e-12 clip) within 1e-5 relative
+METRIC_ROWS, METRIC_CLASSES = 128, 1000
+TOL_METRIC = 1e-5
+# 2-bit compression's threshold: the 90th percentile of the gradients'
+# magnitudes, so that about a fifth of the codes are not 00
+COMPRESS_QUANTILE = 0.9
+
+
+class _HostTimes(object):
+    """Host ms of Module's forward_backward, update and update_metric for
+    each call, by patching the class for the length of a ``with``."""
+
+    NAMES = ("forward_backward", "update", "update_metric")
+
+    def __init__(self, cls):
+        self.cls, self.ms = cls, {n: [] for n in self.NAMES}
+
+    def __enter__(self):
+        self.own = {n: n in vars(self.cls) for n in self.NAMES}
+        self.saved = {n: getattr(self.cls, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            def timed(mod, *a, _fn=fn, _name=name, **k):
+                t = time.perf_counter()
+                out = _fn(mod, *a, **k)
+                self.ms[_name].append(1e3 * (time.perf_counter() - t))
+                return out
+            setattr(self.cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            if self.own[name]:
+                setattr(self.cls, name, fn)
+            else:
+                delattr(self.cls, name)
+
+
+def module_fit_run(torch, mt, ctx, train, kv_store, spec=MODULE_FIT):
+    """``entry.module_fit`` once at ``spec``'s width through ``kv_store``
+    (a name, as Module's ``_create_kvstore`` sees it): img/s over batches
+    first+1..end on the host clock that Speedometer reads (time.time()
+    at each batch's end, after update_metric's fetch has synced the
+    host), the host ms of each batch's forward_backward, update() and
+    update_metric, the store's dispatch_stats and the epoch's train
+    accuracy."""
+    from mxnet_tpu_torch import entry
+    ends, acc = {}, []
+
+    def clock(param):
+        ends[param.nbatch] = time.time()
+        acc[:] = param.eval_metric.get_global_name_value()
+
+    np.random.seed(0)
+    mt.random.seed(0)
+    train.reset()
+    t0 = time.perf_counter()
+    with _HostTimes(mt.module.Module) as times:
+        mod = entry.module_fit(
+            batch=spec["batch"], image_size=spec["image_size"],
+            num_layers=spec["num_layers"], classes=spec["classes"],
+            kv_store=kv_store, disp_batches=spec["disp_batches"], ctx=ctx,
+            train=train, batch_end_callback=[clock])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    first, last = spec["first"], max(ends)
+    img_s = spec["batch"] * (last - first) / (ends[last] - ends[first])
+    host = {n: float(np.mean(v[first + 1:])) for n, v in times.ms.items()}
+    kv = mod._kvstore
+    stats = dict(kv.dispatch_stats) if kv is not None else None
+    log("module_fit resnet%d (%s): kv_store %r -> %s, update_on_kvstore %s; "
+        "batch %d x %d^2, %d classes, fp32, %d batches in %.1f s: %.1f img/s "
+        "over batches %d-%d (Speedometer's clock); host ms a batch: "
+        "forward_backward %.3f, update() %.3f, update_metric %.3f; "
+        "dispatch_stats %s; train %s" % (
+            spec["num_layers"], card_line(), kv_store,
+            type(kv).__name__ if kv is not None else "no store",
+            mod._update_on_kvstore, spec["batch"], spec["image_size"],
+            spec["classes"], last + 1, fit_s, img_s, first + 2, last + 1,
+            host["forward_backward"], host["update"], host["update_metric"],
+            stats, acc))
+    if not acc or not np.isfinite(acc[0][1]):
+        raise AssertionError("module_fit %s: no finite train accuracy %s"
+                             % (kv_store, acc))
+    if kv_store == "dist_sync":
+        n = last + 1
+        keys = len(mod._param_names)
+        if kv is None or not mod._update_on_kvstore \
+                or stats["keys"] != keys * n \
+                or stats["buckets"] != stats["collectives"] \
+                or stats["buckets"] % n or stats["shard_updates"]:
+            raise AssertionError("module_fit dist_sync: the store's route "
+                                 "was not the fused update on the store: "
+                                 "%s" % stats)
+    elif kv is not None or mod._update_on_kvstore:
+        raise AssertionError("module_fit %s: one context should make no "
+                             "store" % kv_store)
+    return mod, {"img_s": img_s, "host_ms": host, "dispatch_stats": stats,
+                 "train": acc, "fit_s": fit_s}
+
+
+def _snapshot(torch, mod):
+    """(weights, grads, aux) of a bound Module, as tensor clones."""
+    ex = mod._exec
+    return ({n: ex.arg_dict[n]._data.detach().clone()
+             for n in mod._param_names},
+            {n: ex.grad_dict[n]._data.detach().clone()
+             for n in mod._param_names if n in ex.grad_dict},
+            {n: v._data.detach().clone() for n, v in ex.aux_dict.items()})
+
+
+def module_store_gate(torch, mt, mod, snap, opt_params,
+                      updates=MODULE_GATE_UPDATES):
+    """From one snapshot of weights and one set of gradients, Module's
+    update() through the dist store (update_on_kvstore, pushpull_fused)
+    and through the local updater: bitwise equal weights and momenta
+    after ``updates`` updates."""
+    weights, grads, aux = snap
+    nd, ctx = mt.nd, mod._context[0]
+    out = {}
+    for route in ("local", "dist_sync"):
+        mod.set_params({n: nd.NDArray(t.clone(), ctx)
+                        for n, t in weights.items()},
+                       {n: nd.NDArray(t.clone(), ctx)
+                        for n, t in aux.items()})
+        kv = None if route == "local" else mt.kvstore.create("dist_sync")
+        mod.init_optimizer(kvstore=kv, optimizer="sgd",
+                           optimizer_params=opt_params, force_init=True)
+        for _ in range(updates):
+            for n, g in grads.items():
+                mod._exec.grad_dict[n]._set_data(g.clone())
+            mod.update()
+        updater = mod._updater if route == "local" \
+            else mod._kvstore._updater
+        assert mod._update_on_kvstore == (route != "local")
+        out[route] = ({n: mod._exec.arg_dict[n]._data.clone()
+                       for n in weights},
+                      {i: s._data.clone()
+                       for i, s in updater.states.items()})
+    (w0, m0), (w1, m1) = out["local"], out["dist_sync"]
+    same = all(torch.equal(w0[n], w1[n]) for n in w0) \
+        and sorted(m0) == sorted(m1) \
+        and all(torch.equal(m0[i], m1[i]) for i in m0)
+    log("module store gate (%s): %d updates of %d parameters from one "
+        "snapshot: the dist store's fused update on the store vs the local "
+        "updater, weights and momenta bitwise equal: %s"
+        % (card_line(), updates, len(w0), same))
+    if not same:
+        raise AssertionError("Module: the store's update differs from the "
+                             "local updater's")
+    return same
+
+
+def trainer_store_gate(torch, mt, device, spec=GLUON,
+                       updates=MODULE_GATE_UPDATES):
+    """gluon_train's ResNet-50 step (bf16, hybridized, sgd with fp32
+    masters): from one snapshot of parameters and one set of gradients,
+    Trainer(kvstore="device"), whose step goes through the store's
+    pushpull_fused, against Trainer(kvstore=None): bitwise equal
+    parameters and optimizer states after ``updates`` steps."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    b, s, classes = spec["batch"], spec["image_size"], spec["classes"]
+    ctx = mt.gpu(0)
+    mt.random.seed(0)
+    net = vision.resnet50_v1(classes=classes)
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    net.cast("bfloat16")
+    net.hybridize()
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = mt.nd.NDArray(torch.rand((b, 3, s, s), generator=gen, device=device)
+                      .to(torch.bfloat16), ctx)
+    y = mt.nd.NDArray(torch.randint(0, classes, (b,), generator=gen,
+                                    device=device).float(), ctx)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mt.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    params = net.collect_params()
+    train = [p for p in params.values() if p.grad_req != "null"]
+    w0 = {p.name: p.data()._data.detach().clone() for p in params.values()}
+    g0 = {p.name: p.grad()._data.detach().clone() for p in train}
+    out = {}
+    for kv in (None, "device"):
+        for p in params.values():
+            p.set_data(mt.nd.NDArray(w0[p.name].clone(), ctx))
+        trainer = mt.gluon.Trainer(params, "sgd", dict(spec["opt"]),
+                                   kvstore=kv)
+        for _ in range(updates):
+            for p in train:
+                p.grad()._set_data(g0[p.name].clone())
+                p.data()._fresh_grad = True
+            trainer.step(b)
+        states = trainer._updaters[0].states
+
+        def flat(state):
+            if state is None:
+                return []
+            if isinstance(state, (list, tuple)):
+                return [t for s_ in state for t in flat(s_)]
+            return [state._data.clone()]
+        out[kv] = ({p.name: p.data()._data.detach().clone()
+                    for p in params.values()},
+                   {i: flat(st) for i, st in states.items()},
+                   trainer._kvstore)
+    (wa, sa, _), (wb, sb, store) = out[None], out["device"]
+    same = all(torch.equal(wa[n], wb[n]) for n in wa) \
+        and sorted(sa) == sorted(sb) \
+        and all(len(sa[i]) == len(sb[i])
+                and all(torch.equal(u, v) for u, v in zip(sa[i], sb[i]))
+                for i in sa)
+    stats = dict(store.dispatch_stats)
+    log("gluon trainer store gate (%s): resnet50 bf16, %d steps from one "
+        "snapshot: Trainer(kvstore='device') through pushpull_fused "
+        "(dispatch_stats %s) vs Trainer(kvstore=None), parameters and "
+        "states bitwise equal: %s" % (card_line(), updates, stats, same))
+    if not same or stats["keys"] != updates * len(train) \
+            or not stats["buckets"]:
+        raise AssertionError("Trainer: the store's step differs from the "
+                             "local one (%s)" % stats)
+    return same
+
+
+def module_card_vs_cpu(torch, mt, spec=MODULE_CHECK, tol=TOL_MODULE_FIT):
+    """entry.module_fit on the example's ResNet-18 CIFAR branch, two
+    batches, fp32, on the card and on the CPU from the same arg_params
+    (drawn once on the CPU by the recipe's Xavier, each unit's bn2 gamma
+    then set to 0.01) and the same data order: the parameters' change,
+    the auxiliary states' change (each BatchNorm's moving mean and
+    variance) and the fitted modules' eval-mode outputs on one batch each
+    within ``tol`` relative L2 of the CPU's. Returns the fitted card
+    module and the three errors."""
+    from mxnet_tpu_torch import entry
+    from mxnet_tpu_torch.symbols import resnet
+    shape = (3, spec["image_size"], spec["image_size"])
+    with mt.cpu():
+        mt.random.seed(1)
+        probe = mt.mod.Module(resnet.get_symbol(
+            spec["classes"], spec["num_layers"], shape), context=mt.cpu())
+        probe.bind([("data", (spec["batch"],) + shape)],
+                   [("softmax_label", (spec["batch"],))])
+        probe.init_params(mt.init.Xavier(rnd_type="gaussian",
+                                         factor_type="in", magnitude=2))
+        arg, aux = probe.get_params()
+        start = {k: v.asnumpy() * (0.0 if k.endswith("_bn2_gamma") else 1.0)
+                 + (0.01 if k.endswith("_bn2_gamma") else 0.0)
+                 for k, v in arg.items()}
+        start_aux = {k: v.asnumpy() for k, v in aux.items()}
+    x = np.random.RandomState(5).uniform(
+        -1, 1, (spec["batch"],) + shape).astype(np.float32)
+    got = {}
+    for key, ctx in (("cpu", mt.cpu()), ("card", mt.gpu(0))):
+        with ctx:
+            np.random.seed(0)
+            train = entry.synthetic_iter(spec["classes"], shape,
+                                         spec["batch"],
+                                         num_batches=spec["num_batches"])
+            mod = entry.module_fit(
+                batch=spec["batch"], image_size=spec["image_size"],
+                num_layers=spec["num_layers"], classes=spec["classes"],
+                kv_store="device", ctx=ctx, train=train,
+                arg_params={k: mt.nd.array(v) for k, v in start.items()},
+                aux_params={k: mt.nd.array(v)
+                            for k, v in start_aux.items()})
+            mod.forward(mt.io.DataBatch([mt.nd.array(x, ctx=ctx)], None),
+                        is_train=False)
+            probs = mod.get_outputs()[0].asnumpy().astype(np.float64)
+        arg_f, aux_f = ({k: v.asnumpy().astype(np.float64)
+                         for k, v in p.items()} for p in mod.get_params())
+        got[key] = (arg_f, aux_f, probs, mod)
+
+    def change(a, b, start):
+        diff = np.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in b))
+        moved = np.sqrt(sum(((b[k] - start[k]) ** 2).sum() for k in b))
+        return float(diff / moved), float(moved)
+    card, cpu = got["card"], got["cpu"]
+    err, moved = change(card[0], cpu[0], start)
+    err_aux, moved_aux = change(card[1], cpu[1], start_aux)
+    err_out = float(np.linalg.norm(card[2] - cpu[2])
+                    / np.linalg.norm(cpu[2]))
+    log("module_fit resnet%d card vs cpu (%s): %d x %d^2, %d batches, fp32 "
+        "from the same arg_params: relative L2 of the parameters' change "
+        "%.3g (the CPU fit moved them by %.4g), of the %d moving means' "
+        "and variances' change %.3g (moved by %.4g), of the eval-mode "
+        "outputs on one batch %.3g (largest probability %.4f); limit %g"
+        % (spec["num_layers"], card_line(), spec["batch"],
+           spec["image_size"], spec["num_batches"], err, moved,
+           len(cpu[1]), err_aux, moved_aux, err_out, cpu[2].max(), tol))
+    if not (err <= tol and err_aux <= tol and err_out <= tol) \
+            or sorted(card[1]) != sorted(cpu[1]):
+        raise AssertionError("module_fit: the card's fit differs from the "
+                             "CPU's by %.3g, %.3g, %.3g"
+                             % (err, err_aux, err_out))
+    return card[3], {"params": err, "aux": err_aux, "outputs": err_out}
+
+
+def module_score_predict(torch, mt, mod, spec=MODULE_CHECK,
+                         batches=MODULE_SCORE_BATCHES):
+    """score() and predict() of the fitted card module over an 8-batch
+    iterator against its own forward() over the same batches: the same
+    outputs bitwise and the same accuracy."""
+    from mxnet_tpu_torch import entry
+    shape = (3, spec["image_size"], spec["image_size"])
+    ctx = mod._context[0]
+    with ctx:
+        it = entry.synthetic_iter(spec["classes"], shape, spec["batch"],
+                                  num_batches=batches, seed=1)
+        it.shuffle = False
+        it.idx = np.arange(it.num_data)
+        outs, labels = [], []
+        for batch in it:
+            mod.forward(batch, is_train=False)
+            outs.append(mod.get_outputs()[0]._data.clone())
+            labels.append(batch.label[0]._data.clone())
+        fwd = torch.cat(outs)
+        pred = mod.predict(it)._data
+        acc = dict(mod.score(it, "acc"))["accuracy"]
+    hits = int((fwd.argmax(1).to(torch.int32)
+                == torch.cat(labels).to(torch.int32)).sum())
+    want = hits / fwd.shape[0]
+    same = torch.equal(pred, fwd)
+    log("module score/predict (%s): %d batches of %d: predict() bitwise "
+        "the module's forward(): %s; score() accuracy %.6f, forward's %.6f"
+        % (card_line(), batches, spec["batch"], same, acc, want))
+    if not same or acc != want:
+        raise AssertionError("Module: score/predict differ from forward")
+    return acc
+
+
+def module_compression(torch, mt, grads):
+    """The store's 2-bit compressed push on ResNet-50's gradients, twice
+    (the second push carries the first's residuals), on the card and on
+    the CPU: the packed words of the largest key, every residual and
+    every stored aggregate bitwise the CPU's."""
+    flat = torch.cat([g.reshape(-1) for g in grads.values()])
+    t = float(torch.quantile(flat.abs()[::max(1, flat.numel() // 1000000)]
+                             .float(), COMPRESS_QUANTILE))
+    keys = list(range(len(grads)))
+    largest = max(grads.values(), key=lambda g: g.numel())
+    got = {}
+    for key, ctx in (("card", mt.gpu(0)), ("cpu", mt.cpu())):
+        dev = ctx.torch_device
+        kv = mt.kvstore.create("device")
+        kv.set_gradient_compression({"type": "2bit", "threshold": t})
+        vals = [mt.nd.NDArray(g.to(dev), ctx) for g in grads.values()]
+        for _ in range(2):
+            kv.pushpull_fused(keys, vals)
+        first = largest.to(dev).reshape(-1)
+        words, _ = kv.gradient_compression.quantize(
+            first, torch.zeros_like(first))
+        got[key] = (words.cpu(),
+                    {k: r.cpu() for k, r in kv._residuals.items()},
+                    {k: v._data.cpu() for k, v in kv._store.items()})
+    (wa, ra, sa), (wb, rb, sb) = got["card"], got["cpu"]
+    same = torch.equal(wa, wb) and sorted(ra) == sorted(rb) \
+        and all(torch.equal(ra[k], rb[k]) for k in ra) \
+        and all(torch.equal(sa[k], sb[k]) for k in sa)
+    codes = int(((wb.numpy().view(np.uint32)[:, None]
+                  >> np.arange(30, -1, -2, dtype=np.uint32)) & 3)
+                .astype(bool).sum())
+    log("2-bit compression on the card (%s): %d keys, %d values, threshold "
+        "%.4g; two pushes: words (of the largest key), residuals and "
+        "aggregates bitwise the CPU's: %s (%d of that key's %d codes not "
+        "00)" % (card_line(), len(keys), flat.numel(), t, same, codes,
+                 largest.numel()))
+    if not same:
+        raise AssertionError("2-bit compression differs between the card "
+                             "and the CPU")
+    return same
+
+
+def metric_inputs(n=METRIC_ROWS, classes=METRIC_CLASSES, seed=4):
+    """Scores, labels and a binary head made on the host (numpy), with
+    the counts that Accuracy, TopK (5) and F1 must find in them, worked
+    out in numpy: the rank order is a stable sort of the negated scores,
+    so a tie ranks the lower index first, as lax.top_k does."""
+    rng = np.random.RandomState(seed)
+    rows = np.arange(n)
+    # distinct scores in each row: a permutation of 1..classes
+    score = (np.argsort(rng.rand(n, classes), axis=1) + 1).astype(np.float64)
+    labels = rng.randint(0, classes, n)
+    rank = np.concatenate([np.zeros(n // 4, np.int64),
+                           rng.randint(1, 5, n // 4),
+                           rng.randint(5, classes - 1, n - n // 2)])
+    rng.shuffle(rank)
+    tie = rows % 8 == 0
+    rank[rows % 16 == 0], rank[rows % 16 == 8] = 0, 4
+    # swap the label's score with the one at its chosen rank
+    at = np.argsort(-score, axis=1)[rows, rank]
+    mine = score[rows, labels].copy()
+    score[rows, labels] = score[rows, at]
+    score[rows, at] = mine
+    # a tie: the next rank's column takes the label's score
+    nxt = np.argsort(-score, axis=1)[rows, rank + 1]
+    score[tie, nxt[tie]] = score[tie, labels[tie]]
+    probs = (score / score.sum(axis=1, keepdims=True)).astype(np.float32)
+    order = np.argsort(-probs, axis=1, kind="stable")
+    top1 = int((order[:, 0] == labels).sum())
+    top5 = int((order[:, :5] == labels[:, None]).any(axis=1).sum())
+    head = rng.randn(n, 2).astype(np.float32)
+    bits = labels % 2
+    hard = head.argmax(axis=1).astype(bool)
+    truth = bits.astype(bool)
+    counts = [int((hard & truth).sum()), int((hard & ~truth).sum()),
+              int((~hard & truth).sum()), int((~hard & ~truth).sum())]
+    ce = float(-np.log(probs[rows, labels].astype(np.float64)).sum())
+    return (probs, labels.astype(np.float32), head, bits.astype(np.float32),
+            {"acc": top1, "top_k": top5, "f1": counts, "ce": ce,
+             "ties": int(tie.sum())})
+
+
+def module_metrics(torch, mt, tol=TOL_METRIC):
+    """Accuracy, TopK (5), F1 and CrossEntropy on card tensors against
+    the CPU's and against the counts ``metric_inputs`` made its inputs
+    with: counts exact, the cross-entropy within ``tol`` relative."""
+    probs, labels, head, bits, want = metric_inputs()
+    got = {}
+    for key, ctx in (("card", mt.gpu(0)), ("cpu", mt.cpu())):
+        def nd(a, ctx=ctx):
+            return mt.nd.NDArray(torch.from_numpy(a).to(ctx.torch_device),
+                                 ctx)
+        row = {}
+        for name, metric, lab, pred in (
+                ("acc", mt.metric.Accuracy(), labels, probs),
+                ("top_k", mt.metric.TopKAccuracy(top_k=5), labels, probs),
+                ("f1", mt.metric.F1(average="micro"), bits, head),
+                ("ce", mt.metric.CrossEntropy(), labels, probs)):
+            metric.update([nd(lab)], [nd(pred)])
+            counts = getattr(metric, "_counts", None)
+            row[name] = (metric.sum_metric, metric.num_inst,
+                         None if counts is None else
+                         [int(c) for c in counts])
+        got[key] = row
+    card, cpu = got["card"], got["cpu"]
+    n = labels.shape[0]
+    exact = all(card[m] == cpu[m] for m in ("acc", "top_k", "f1")) \
+        and card["acc"][:2] == (want["acc"], n) \
+        and card["top_k"][:2] == (want["top_k"], n) \
+        and card["f1"][2] == want["f1"]
+    ce = abs(card["ce"][0] - cpu["ce"][0]) / abs(cpu["ce"][0])
+    ce_want = abs(card["ce"][0] - want["ce"]) / want["ce"]
+    log("metrics on the card (%s): %d rows of %d classes made on the host, "
+        "%d exact ties; accuracy, top-5 and F1 counts equal to the CPU's "
+        "and to the made ones: %s (card: acc %s, top-5 %s, F1 %s; CPU: %s, "
+        "%s, %s; made: %d, %d, %s); cross-entropy %.9g vs the CPU's %.9g, "
+        "relative %.3g, vs float64 %.9g, relative %.3g (limit %g)" % (
+            card_line(), n, probs.shape[1], want["ties"], exact,
+            card["acc"][:2], card["top_k"][:2], card["f1"][2],
+            cpu["acc"][:2], cpu["top_k"][:2], cpu["f1"][2], want["acc"],
+            want["top_k"], want["f1"], card["ce"][0], cpu["ce"][0], ce,
+            want["ce"], ce_want, tol))
+    if not exact or not ce <= tol or not ce_want <= tol \
+            or card["ce"][1] != cpu["ce"][1]:
+        raise AssertionError("metrics differ between the card, the CPU and "
+                             "the made counts")
+    return ce
+
+
+def module_checkpoint(torch, mt, mod):
+    """do_checkpoint at epoch 1, model.load_checkpoint and Module.load of
+    the saved files: the same parameters and auxiliary states, bitwise."""
+    import tempfile
+    arg, aux = mod.get_params()
+    with tempfile.TemporaryDirectory() as tmp, mod._context[0]:
+        prefix = os.path.join(tmp, "resnet")
+        mt.callback.do_checkpoint(prefix)(0, mod.symbol, arg, aux)
+        sym, arg2, aux2 = mt.model.load_checkpoint(prefix, 1)
+        back = mt.mod.Module.load(prefix, 1, context=mod._context[0])
+        back.bind(mod.data_shapes, mod.label_shapes, for_training=False)
+        arg3, aux3 = back.get_params()
+        nbytes = os.path.getsize(prefix + "-0001.params")
+    same = sym.tojson() == mod.symbol.tojson() and all(
+        np.array_equal(a[k].asnumpy(), b[k].asnumpy())
+        for a, b in ((arg, arg2), (arg, arg3), (aux, aux2), (aux, aux3))
+        for k in a)
+    log("module checkpoint (%s): do_checkpoint at epoch 1 (%d bytes), "
+        "load_checkpoint and Module.load give the same symbol and "
+        "parameters bitwise: %s" % (card_line(), nbytes, same))
+    if not same:
+        raise AssertionError("Module: the checkpoint round trip differs")
+    return same
+
+
+def module_phase(torch, mt, device, spec=MODULE_FIT):
+    """The kvstore stack and the Module front end on the card
+    (``kvstore``, ``gradient_compression``, fusion's store half, the
+    Trainer's store path, ``module``, ``model``, ``metric``,
+    ``callback``; no hand kernel): train_imagenet.py's Module.fit through
+    no store and through the dist store, paired in this call; the store's
+    update bitwise the local updater's for Module and for the Gluon
+    Trainer; the ResNet-18 fit on the card against the CPU's; score and
+    predict; the 2-bit compression and the metrics against the CPU's; a
+    checkpoint round trip. Returns the numbers."""
+    from mxnet_tpu_torch import entry
+    ctx = mt.gpu(0)
+    t0 = time.perf_counter()
+    before = collections.Counter(mt.kernels.launches)
+    shape = (3, spec["image_size"], spec["image_size"])
+    with ctx:
+        train = entry.synthetic_iter(spec["classes"], shape, spec["batch"],
+                                     num_batches=spec["disp_batches"] + 4)
+    log("module_fit data (train_imagenet.py --benchmark 1): %d x %s float32 "
+        "made on the host in %.1f s" % (train.num_data, shape,
+                                       time.perf_counter() - t0))
+    out = {}
+    for kv_store in MODULE_STORES:
+        torch.cuda.empty_cache()
+        mod, out[kv_store] = module_fit_run(torch, mt, ctx, train, kv_store,
+                                            spec)
+        if kv_store != MODULE_STORES[-1]:
+            del mod
+    del train
+    # one resident batch: the fit's step without the iterator, traced
+    batch = mt.io.DataBatch(
+        [mt.nd.NDArray(torch.rand((spec["batch"],) + shape, device=device,
+                                  generator=torch.Generator(device=device)
+                                  .manual_seed(2)) * 2 - 1, ctx)],
+        [mt.nd.NDArray(torch.arange(spec["batch"], device=device).float(),
+                       ctx)])
+    metric = mt.metric.create("acc")
+
+    def fit_step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+
+    profile_steps(torch, "module_fit resnet%d fp32 step through dist_sync, "
+                  "batch %d x %d^2 resident (%s)" % (
+                      spec["num_layers"], spec["batch"], spec["image_size"],
+                      card_line()), fit_step, steps=3, top=8,
+                  kinds=RESNET_KINDS)
+    snap = _snapshot(torch, mod)
+    out["checkpoint"] = module_checkpoint(torch, mt, mod)
+    out["store_gate"] = module_store_gate(
+        torch, mt, mod, snap, {"learning_rate": 0.1, "momentum": 0.9,
+                               "wd": 1e-4})
+    out["compression"] = module_compression(torch, mt, snap[1])
+    del mod, snap
+    torch.cuda.empty_cache()
+    out["metric_ce_rel"] = module_metrics(torch, mt)
+    out["trainer_gate"] = trainer_store_gate(torch, mt, device)
+    torch.cuda.empty_cache()
+    small, out["card_vs_cpu"] = module_card_vs_cpu(torch, mt)
+    out["score_acc"] = module_score_predict(torch, mt, small)
+    del small
+    torch.cuda.empty_cache()
+    launched = collections.Counter(mt.kernels.launches)
+    launched.subtract(before)
+    out["launches"] = {k: v for k, v in launched.items() if v}
+    log("module phase (%s): %.1f s; img/s no store %.1f, dist_sync %.1f "
+        "(dist_sync / no store %.3f); hand-kernel launches %s (the path "
+        "runs none)" % (
+            card_line(), time.perf_counter() - t0,
+            out["device"]["img_s"], out["dist_sync"]["img_s"],
+            out["dist_sync"]["img_s"] / out["device"]["img_s"],
+            out["launches"]))
+    if out["launches"]:
+        raise AssertionError("module phase: a hand kernel ran on a path "
+                             "that has none: %s" % out["launches"])
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5504,6 +6124,7 @@ def main():
     gluon_train_phase(torch, mxnet_tpu_torch, device,
                       resnet["train"]["step_ms"])
     io_phase(torch, mxnet_tpu_torch, device)
+    moduled = module_phase(torch, mxnet_tpu_torch, device)
     log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms; "
         "mesh forward %.3f ms" % (served["step_ms"], generated["step_ms"],
                                   trained["step_ms"], meshed["forward_ms"]))
@@ -5534,6 +6155,8 @@ def main():
         # beam search, the q8 serving runs)
         row["durable_launches"] = durable.get(row["name"], 0)
         row["mesh_launches"] = mesh_trained.get(row["name"], 0)
+        # the kvstore and Module phase's path launches no hand kernel
+        row["module_launches"] = moduled["launches"].get(row["name"], 0)
     log(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,12 @@ zoo), ``utils.functionalize_block``, and ``entry`` (``entry()`` and
 ``real_data``, that of ``bench.py --real-data``); and data and IO:
 ``recordio`` (with the native scanner of ``_native``), ``io``'s
 iterators, ``image``'s decode, augmenters and iterators,
-``gluon.data`` and ``contrib.io``. The default context is ``gpu(0)``:
+``gluon.data`` and ``contrib.io``; and the kvstore stack
+(``kvstore``, ``kvstore_server``, ``gradient_compression``, the Gluon
+``Trainer``'s store path) with the Module front end (``module``/``mod``,
+``model``, ``metric``, ``callback``, ``executor_manager``, and
+``entry.module_fit``, the counterpart of ``train_imagenet.py``'s
+``Module.fit``). The default context is ``gpu(0)``:
 without a CUDA device it raises; host callers say ``with cpu():``.
 Importing the package needs neither ``nvcc``, NVRTC, Triton nor a GPU:
 kernels build at first launch.
@@ -41,6 +46,8 @@ from . import initializer, symbol
 from . import executor, cached_op, gluon, utils
 from . import lr_scheduler, optimizer
 from . import recordio, io, image, contrib
+from . import gradient_compression, kvstore, kvstore_server
+from . import metric, callback, model, executor_manager, module
 from .attribute import AttrScope
 from .name import NameManager, Prefix
 from .symbol import Symbol
@@ -48,6 +55,7 @@ from .symbol import Symbol
 nd = ndarray
 sym = symbol
 init = initializer
+mod = module
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "gpu_memory_info", "resolve_device", "nd", "ndarray",
@@ -57,20 +65,13 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "NameManager", "Prefix", "registry", "initializer", "init",
            "symbol", "sym", "Symbol", "executor", "cached_op", "gluon",
            "utils", "lr_scheduler", "optimizer", "recordio", "io", "image",
-           "contrib"]
+           "contrib", "gradient_compression", "kvstore", "kvstore_server",
+           "metric", "callback", "model", "executor_manager", "module",
+           "mod"]
 
 # names of the JAX package's top level that the port has not ported yet:
 # name -> (JAX module, ROADMAP item)
 _QUEUED = {
-    "kvstore": ("kvstore.py", "A7"),
-    "kvstore_server": ("kvstore_server.py", "A7"),
-    "gradient_compression": ("gradient_compression.py", "A7"),
-    "metric": ("metric.py", "A9"),
-    "callback": ("callback.py", "A9"),
-    "model": ("model.py", "A9"),
-    "module": ("module/", "A9"),
-    "mod": ("module/", "A9"),
-    "executor_manager": ("executor_manager.py", "A9"),
     "sparse": ("sparse.py", "A9"),
     "rnn": ("rnn/", "A9"),
     "operator": ("operator.py", "A9"),

@@ -4,6 +4,10 @@
 default fold-cast layout, and ``real_data``, that of ``bench.py
 --real-data`` (``_make_record_dataset`` and ``real_data_main``): the
 same step fed by ``io.ImageRecordIter`` from a RecordIO file it writes.
+``module_fit`` is the counterpart of
+``examples/image_classification/train_imagenet.py --benchmark 1`` through
+``common.fit``: ``Module.fit`` of the example's symbolic ResNet
+(``symbols.resnet``) on ``synthetic_iter``'s data through a kvstore.
 
 ``entry`` and ``build_train_step`` trace the Gluon model-zoo net through
 ``utils.functionalize_block`` and run its graph function with torch ops
@@ -23,21 +27,30 @@ import time
 import numpy as np
 import torch
 
+from . import callback
 from . import initializer
 from . import io
+from . import lr_scheduler
+from . import module
 from . import ndarray as nd
 from . import recordio
+from .symbols import resnet as resnet_symbols
 from .context import current_context
 from .gluon.model_zoo import vision
 from .utils import functionalize_block
 
 __all__ = ["entry", "build_train_step", "make_record_dataset", "record_iter",
-           "real_data"]
+           "real_data", "synthetic_iter", "module_fit"]
 
 MOMENTUM = 0.9
 SEED = 0            # entry's example input; real_data's records and draws
 CLASSES = 1000
 WARMUP = 2          # real_data's untimed steps before each timed run
+# train_imagenet.py's defaults (its set_defaults and common.add_fit_args)
+FIT_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+FIT_LR_STEP_EPOCHS = (30, 60, 80)
+FIT_LR_FACTOR = 0.1
+FIT_EXAMPLES = 1281167
 
 
 def _resnet50(classes, ctx):
@@ -263,3 +276,68 @@ def real_data(batch=128, image_size=224, steps=20, directory=None,
             "write_s": write_s, "load_s": load_s,
             "native_read": it.native_read,
             "first_data": first[0], "first_label": first[1]}
+
+
+def synthetic_iter(num_classes, data_shape, batch_size, num_batches=40,
+                   seed=0):
+    """``examples/image_classification/common.py``'s synthetic dataset:
+    uniform -1..1 float32 data and integer labels (as float32) from
+    ``RandomState(seed)``, in a shuffling ``NDArrayIter`` whose batches
+    are made on the current context (the shuffle draws from numpy's
+    global generator)."""
+    rng = np.random.RandomState(seed)
+    n = batch_size * num_batches
+    x = rng.uniform(-1, 1, (n,) + tuple(data_shape)).astype(np.float32)
+    y = rng.randint(0, num_classes, (n,)).astype(np.float32)
+    return io.NDArrayIter(x, y, batch_size=batch_size, shuffle=True,
+                          label_name="softmax_label")
+
+
+def module_fit(batch=128, image_size=224, num_layers=50, classes=CLASSES,
+               kv_store="device", disp_batches=20, num_batches=None,
+               ctx=None, train=None, arg_params=None, aux_params=None,
+               batch_end_callback=None):
+    """``train_imagenet.py --benchmark 1`` through ``common.fit``, at its
+    defaults: the example's ResNet (``num_layers``, ``classes``, 3 x
+    ``image_size`` squared) bound in a ``Module`` on ``ctx`` (the current
+    context, ``gpu(0)`` unless the caller says otherwise; the example
+    passes ``cpu()``), ``fit`` for one epoch of ``synthetic_iter``
+    (``disp_batches + 4`` batches unless ``num_batches`` or ``train``
+    says otherwise) with ``eval_metric="acc"``, SGD (``FIT_SGD``) under
+    the MultiFactorScheduler of ``FIT_LR_STEP_EPOCHS`` x
+    (``FIT_EXAMPLES // batch``) updates, ``Xavier(rnd_type="gaussian",
+    factor_type="in", magnitude=2)`` for what ``arg_params``/
+    ``aux_params`` (NDArray dicts) do not give, and
+    ``Speedometer(batch, disp_batches)`` before ``batch_end_callback``.
+
+    ``kv_store`` is the kvstore's name, passed to ``fit`` so that
+    Module's ``_create_kvstore`` decides: on one context ``"device"`` and
+    ``"local"`` make no store (a local updater) and ``"dist_sync"`` makes
+    the dist store and updates on it. ``common.fit`` passes
+    ``kvstore.create(name)`` instead, with which every store updates on
+    the store: pass a ``KVStore`` object for that. Returns the fitted
+    module."""
+    ctx = ctx if ctx is not None else current_context()
+    shape = (3, image_size, image_size)
+    sym = resnet_symbols.get_symbol(classes, num_layers, shape)
+    with ctx:
+        if train is None:
+            train = synthetic_iter(classes, shape, batch,
+                                   num_batches=num_batches
+                                   or disp_batches + 4)
+        steps_per_epoch = max(1, FIT_EXAMPLES // batch)
+        scheduler = lr_scheduler.MultiFactorScheduler(
+            step=[max(1, e * steps_per_epoch) for e in FIT_LR_STEP_EPOCHS],
+            factor=FIT_LR_FACTOR, base_lr=FIT_SGD["learning_rate"])
+        mod = module.Module(sym, context=ctx)
+        mod.fit(train, eval_metric="acc", kvstore=kv_store,
+                optimizer="sgd",
+                optimizer_params=dict(FIT_SGD, lr_scheduler=scheduler),
+                initializer=initializer.Xavier(
+                    rnd_type="gaussian", factor_type="in", magnitude=2),
+                arg_params=arg_params, aux_params=aux_params,
+                num_epoch=1,
+                batch_end_callback=[callback.Speedometer(batch,
+                                                         disp_batches)]
+                + list(batch_end_callback or []))
+    return mod

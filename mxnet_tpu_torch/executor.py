@@ -136,7 +136,7 @@ class Executor:
         from . import ndarray as nd
         if group2ctx:
             raise MXNetError("Executor: group2ctx placement (model "
-                             "parallelism) waits for ROADMAP item A7")
+                             "parallelism) waits for ROADMAP item A7d")
         self._symbol = symbol
         self._ctx = ctx
         arg_names = symbol.list_arguments()

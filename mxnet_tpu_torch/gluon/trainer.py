@@ -2,31 +2,30 @@
 python/mxnet/gluon/trainer.py:27, step:305, _allreduce_grads:356,
 _update:399).
 
-Applies an Optimizer to a set of Parameters on one context. The
-reference creates its default ``kvstore="device"`` store even for one
-device, and the all-reduce of one gradient gives that gradient back; so
-here ``"device"``, ``"local"`` and ``None`` all take the local update
-path, and ``allreduce_grads`` leaves the gradients as they are. More
-than one context, a ``dist_*`` store or a ``KVStore`` object,
-``update_on_kvstore=True`` and ``compression_params`` are the kvstore of
-ROADMAP item A7 and raise naming it. The reference's observability,
-chaos, memory-budget, elastic, integrity and bucketed-fusion hooks and
-its AMP loss-scaler attribute are not ported.
+Applies an Optimizer to a set of Parameters; the gradients' aggregation
+goes through the kvstore. The default ``kvstore="device"`` makes a store
+even on one context, as the reference does, and ``_allreduce_grads``
+sends every gradient through its ``pushpull_fused`` in
+reverse-registration order (the last layers' gradients, ready first in
+backward, reduce first: the reference's priority push), one collective a
+bucket lane; a store made with ``fusion=False`` takes the per-key
+push/pull path. A ``KVStore`` object or any ``dist_*`` name works the
+same way, the latter over the ``torch.distributed`` world.
+``update_on_kvstore`` (set automatically when the store's sharded update
+applies: ``shard_update`` on, more than one rank, sgd/nag/adam) moves
+the optimizer into the store. ``kvstore=None`` keeps the local update
+path. Parameters on more than one context in one process raise naming
+ROADMAP item A7d. The reference's observability, chaos, memory-budget, elastic and
+integrity hooks and its AMP loss-scaler attribute are not ported.
 """
 
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
+from ..parallel import fusion
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
-
-_LOCAL_STORES = (None, "device", "local")
-
-
-def _kvstore_error(what):
-    return MXNetError(
-        "%s is mxnet_tpu/kvstore.py, which the PyTorch port has not ported "
-        "yet (ROADMAP item A7)" % what)
 
 
 class Trainer(object):
@@ -37,9 +36,9 @@ class Trainer(object):
     params : ParameterDict or list of Parameter
     optimizer : str or Optimizer
     optimizer_params : dict
-    kvstore : 'device', 'local' or None (one context)
-    compression_params : None (gradient compression is A7)
-    update_on_kvstore : None or False
+    kvstore : str or KVStore, default 'device'
+    compression_params : dict, optional (gradient compression config)
+    update_on_kvstore : bool, optional
     """
 
     def __init__(self, params, optimizer, optimizer_params=None,
@@ -57,21 +56,16 @@ class Trainer(object):
             raise ValueError(
                 "First argument must be a list or dict of Parameters, "
                 "got list of %s." % (type(outsider)))
-        if not (isinstance(kvstore, str) or kvstore is None) \
-                or kvstore not in _LOCAL_STORES:
-            raise _kvstore_error("kvstore %r" % (kvstore,))
-        if update_on_kvstore:
-            raise _kvstore_error("update_on_kvstore=True")
-        if compression_params:
-            raise _kvstore_error("gradient compression")
         self._params = list(seq)
         self._param2idx = {p.name: i
                            for i, p in enumerate(self._params)}
+        self._compression_params = compression_params
         hyper = dict(optimizer_params or {})
         self._scale = float(hyper.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, hyper)
         self._kvstore_type = kvstore
-        self._update_on_kvstore = False
+        self._kvstore = None
+        self._update_on_kvstore = update_on_kvstore
         self._kv_initialized = False
 
     def _init_optimizer(self, optimizer, hyper):
@@ -84,14 +78,43 @@ class Trainer(object):
         self._updaters = [opt.get_updater(self._optimizer)]
 
     def _ready(self):
-        """Check once that the parameters share one context."""
+        """Bring the kvstore up once, at the first call that needs it.
+
+        The parameters must share one context: a Trainer over several
+        contexts in one process is data parallelism inside the process,
+        ROADMAP item A7d (run one process a device over a dist store)."""
         if self._kv_initialized:
             return
         ctxs = {c for p in self._params if p._data is not None
                 for c in p.list_ctx()}
         if len(ctxs) > 1:
-            raise _kvstore_error("training over %d contexts (%s)" % (
-                len(ctxs), ", ".join(sorted(str(c) for c in ctxs))))
+            raise MXNetError(
+                "Trainer: training over %d contexts (%s) in one process "
+                "waits for ROADMAP item A7d; run one process a device "
+                "over a dist kvstore" % (
+                    len(ctxs), ", ".join(sorted(str(c) for c in ctxs))))
+        kv = self._kvstore_type
+        if kv is not None and not isinstance(kv, kvs.KVStore):
+            kv = kvs.create(kv)
+        self._kvstore = kv
+        if self._update_on_kvstore is None:
+            # the sharded update runs inside the store (its
+            # reduce-scatter -> sharded update -> all-gather owns the
+            # optimizer state), so it moves the update onto the store;
+            # every other configuration updates locally
+            self._update_on_kvstore = bool(
+                kv is not None and kv.shard_update
+                and kv.supports_shard_update()
+                and fusion.FlatOptimizer.supports(self._optimizer)
+                is not None)
+        if kv is not None:
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            for slot, param in enumerate(self._params):
+                if param._data is not None:
+                    kv.init(slot, param.data())
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
         self._kv_initialized = True
 
     @property
@@ -112,16 +135,36 @@ class Trainer(object):
     # ------------------------------------------------------------- step --
     def step(self, batch_size, ignore_stale_grad=False):
         """One parameter update: rescale the gradients by 1/batch_size,
-        all-reduce them (the identity on one context) and apply the
-        optimizer (gluon/trainer.py:305)."""
+        all-reduce them through the kvstore and apply the optimizer
+        (gluon/trainer.py:305)."""
         self._ready()
         self._optimizer.rescale_grad = self._scale / batch_size
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
-        """All-reduce the gradients across contexts: on one context they
-        stay as they are."""
         self._ready()
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        if self._kvstore is None:
+            return
+        if self._kvstore.fusion:
+            items = [(slot, p) for slot, p in self._trainable()
+                     if p._data is not None]
+            if not items:
+                return
+            # reverse-registration (priority) order
+            items.reverse()
+            grads = [p.grad() for _, p in items]
+            self._kvstore.pushpull_fused(
+                [slot for slot, _ in items], grads,
+                out=None if self._update_on_kvstore else grads)
+            return
+        for slot, param in self._trainable():
+            self._kvstore.push(slot, param.grad(), priority=-slot)
+            if not self._update_on_kvstore:
+                self._kvstore.pull(slot, param.grad(), priority=-slot)
 
     def _trainable(self):
         """(slot, param) for every param that receives grads."""
@@ -153,17 +196,27 @@ class Trainer(object):
                     "intentionally only using a subset, call step with "
                     "ignore_stale_grad=True to suppress this warning"
                     % (param.name, str(param.list_ctx()[0])))
-            self._updaters[0](i, param.grad(), param.data())
+            if self._update_on_kvstore and self._kvstore is not None:
+                self._kvstore.pull(i, param.data(), priority=-i)
+            else:
+                self._updaters[0](i, param.grad(), param.data())
             param._data._fresh_grad = False
 
     # ------------------------------------------------------------ states --
     def save_states(self, fname):
         assert self._optimizer is not None
         self._ready()
+        if self._update_on_kvstore and self._kvstore is not None:
+            # the store owns the states (the sharded slots included)
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open(fname, "wb") as f:
             f.write(self._updaters[0].get_states(dump_optimizer=False))
 
     def load_states(self, fname):
         self._ready()
+        if self._update_on_kvstore and self._kvstore is not None:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             self._updaters[0].set_states(f.read())

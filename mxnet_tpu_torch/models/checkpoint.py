@@ -43,7 +43,7 @@ they are serving artifacts, so :func:`restore_train_state` refuses them,
 as JAX does. Restoring onto a mesh goes through
 ``transformer.shard_params`` (each rank's block). Not ported: the shard
 checkpoints and elastic resume (``save_shard_checkpoint`` through
-``resume_elastic``), which need a multi-process world (ROADMAP item A7),
+``resume_elastic``), which need a multi-process world (ROADMAP item A7d),
 the memory budget's snapshot admission and the collective-hang
 watchdog's escalation hook (A10).
 """
@@ -102,9 +102,9 @@ def _a7_refusal(name):
     def refuse(*args, **kwargs):
         raise NotImplementedError(
             "checkpoint.%s: shard checkpoints and elastic resume need a "
-            "multi-process world and come with ROADMAP item A7" % name)
+            "multi-process world and come with ROADMAP item A7d" % name)
     refuse.__name__ = name
-    refuse.__doc__ = ("Not ported: raises naming ROADMAP item A7 (shard "
+    refuse.__doc__ = ("Not ported: raises naming ROADMAP item A7d (shard "
                       "checkpoints and elastic resume).")
     return refuse
 

@@ -424,26 +424,72 @@ def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
 
 
 # ------------------------------------------------------------ norms --
+class _WorldSum(torch.autograd.Function):
+    """Sum over the ranks of the world, forward and backward: a value
+    that each rank's loss reads after the sum owes every rank's input
+    the sum of the cotangents (the global batch's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(out)
+        return out
+
+
 @register(name="_contrib_SyncBatchNorm", num_outputs=3)
 def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                     momentum=0.9, fix_gamma=True, use_global_stats=False,
                     output_mean_var=False, ndev=1, key="", is_train=False):
-    """BatchNorm's contract on a world of one: the batch is the whole
-    batch. Across a ``torch.distributed`` world of more than one rank it
-    is the kvstore of ROADMAP item A7 and raises."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and \
-            dist.get_world_size() > 1:
-        from ..base import MXNetError
-        raise MXNetError(
-            "_contrib_SyncBatchNorm across %d ranks needs the cross-device "
-            "reduction of mxnet_tpu/kvstore.py, which the PyTorch port has "
-            "not ported yet (ROADMAP item A7)" % dist.get_world_size())
-    return batch_norm(
-        data, gamma, beta, moving_mean, moving_var, eps=eps,
-        momentum=momentum, fix_gamma=fix_gamma,
-        use_global_stats=use_global_stats,
-        output_mean_var=output_mean_var, is_train=is_train)
+    """BatchNorm whose training statistics are the global batch's: over a
+    ``torch.distributed`` world of more than one rank (each holding its
+    part of the batch, on its own device) the shifted sums that
+    ``batch_norm`` accumulates in fp32, with their counts, are
+    all-reduced over the world, and their backward all-reduces the
+    cotangents, so the gradients are the global batch's too (the JAX
+    package gets the same from GSPMD's psum over the data-parallel
+    axis). The ``(out, batch_mean, batch_var)`` contract is BatchNorm's;
+    on a world of one the op is ``batch_norm``. ``ndev`` and ``key`` are
+    accepted for signature parity."""
+    from ..parallel import device_count
+    world = device_count()
+    if not (is_train and not use_global_stats) or world == 1:
+        return batch_norm(
+            data, gamma, beta, moving_mean, moving_var, eps=eps,
+            momentum=momentum, fix_gamma=fix_gamma,
+            use_global_stats=use_global_stats,
+            output_mean_var=output_mean_var, is_train=is_train)
+    red = tuple(i for i in range(data.dim()) if i != 1)
+    shape = [1] * data.dim()
+    shape[1] = data.shape[1]
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    acc = torch.promote_types(data.dtype, torch.float32)
+    shift = moving_mean.detach().to(acc).reshape(shape)
+    if data.dtype == torch.bfloat16:
+        centered = data - shift.to(data.dtype)
+    else:
+        centered = data.to(acc) - shift
+    count = data.numel() // data.shape[1]
+    local = torch.stack([centered.sum(dim=red, dtype=acc),
+                         (centered * centered).sum(dim=red, dtype=acc)])
+    sums = _WorldSum.apply(local)
+    n = float(count * world)
+    mean_c = sums[0] / n
+    var = sums[1] / n - mean_c * mean_c
+    var = torch.maximum(var, var.new_zeros(()))
+    mean = (mean_c + shift.reshape(-1)).to(moving_mean.dtype)
+    var = var.to(moving_var.dtype)
+    inv = torch.rsqrt(var.to(acc) + eps)
+    g_acc = g.to(acc)
+    scale = (g_acc * inv).to(data.dtype)
+    bias = (beta.to(acc) - g_acc * mean.to(acc) * inv).to(data.dtype)
+    out = data * scale.reshape(shape) + bias.reshape(shape)
+    return out.to(data.dtype), mean, var
 
 
 def _normalized(x, red, eps):

@@ -32,7 +32,7 @@ gradient of that one loss, once.
 
 ``fusion`` holds the bucketed all-reduce and ``pipeline`` the pipeline
 stages. ``elastic`` is not ported yet: importing it raises
-NotImplementedError naming ROADMAP item A7.
+NotImplementedError naming ROADMAP item A7d.
 """
 
 import contextlib

@@ -10,7 +10,7 @@ against the uninterrupted run, and the format across packages: a
 JAX-written checkpoint loads in the port bitwise with the same
 ``param_fingerprint``, a port-written one loads in JAX's
 ``load_checkpoint`` and verifies under both ``verify_lineage``s. The
-shard functions refuse naming A7; ``q8`` trees load (their round trips
+shard functions refuse naming A7d; ``q8`` trees load (their round trips
 across packages are in tests/test_torch_int8_weights.py). Tolerance:
 exact everywhere (bytes, fingerprints, steps)."""
 
@@ -367,7 +367,7 @@ def test_shard_and_q8_refusals_name_their_items(tmp_path):
     for name in ("save_shard_checkpoint", "load_shard_checkpoint",
                  "list_shard_generations", "shard_layout",
                  "resume_elastic"):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="A7d"):
             getattr(ck, name)(str(tmp_path))
     jcfg = jtf.TransformerConfig(**CFG)
     q8 = jtf.quantize_weights_int8(jtf.init_params(jcfg, seed=0))

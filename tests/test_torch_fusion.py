@@ -1,5 +1,5 @@
-"""The port's bucket planner and lane packing (``parallel/fusion.py``, its
-in-step half) held against the JAX package's on the CPU: the same
+"""The port's bucket planner and lane packing (``parallel/fusion.py``)
+held against the JAX package's on the CPU: the same
 entries (mixed float32, bfloat16 and int32 keys, one larger than a
 bucket, arrays past the bigarray bound) give the same plan, the same
 signature, and packed and unpacked lanes of the same values. The port
@@ -7,7 +7,9 @@ takes the JAX package's ``MXNET_KVSTORE_BUCKET_BYTES`` and
 ``MXNET_KVSTORE_BIGARRAY_BOUND`` as the ``max_bytes`` and
 ``bigarray_bound`` arguments; JAX reads the bound from the environment,
 set here per case. The 4-rank all-reduce is held bitwise against the
-per-key one in tests/test_torch_mesh_world.py. Tolerance: exact."""
+per-key one in tests/test_torch_mesh_world.py, the sharded update
+(``ShardSlot``) against JAX's in tests/test_torch_kvstore_world.py.
+Tolerance: exact."""
 
 import importlib
 
@@ -16,6 +18,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from mxnet_tpu_torch import cpu as mt_cpu
+from mxnet_tpu_torch import ndarray as mt_nd
 from mxnet_tpu_torch import parallel
 from mxnet_tpu_torch.parallel import fusion
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -106,7 +110,12 @@ def test_pack_and_unpack_match_jax(monkeypatch, max_bytes, bound):
 def test_bucketed_all_reduce_world_of_one_and_store_refusals():
     """At a world of one each lane's all-reduce is the identity, so the
     bucketed all-reduce gives back every tensor bitwise, in input order
-    and dtype. The store's switches and sharded update name A7."""
+    and dtype. The store's switches, which named A7 until the kvstore
+    came, now answer with the JAX package's defaults or the override;
+    FlatOptimizer takes sgd, nag and adam and refuses a subclass or
+    another rule; a ShardSlot on a world of one updates the whole flat
+    lane as the optimizer updates each key, and pack_lane pads it."""
+    from mxnet_tpu_torch import optimizer as topt
     mesh = parallel.make_mesh({"dp": 1, "sp": 1}, device="cpu")
     vals = _values(1)
     xs = [torch.from_numpy(vals[k]).to(TORCH[d]) for k, _, d in ENTRIES]
@@ -115,7 +124,36 @@ def test_bucketed_all_reduce_world_of_one_and_store_refusals():
     assert all(a.dtype == b.dtype and torch.equal(a, b)
                for a, b in zip(got, xs))
     assert fusion.bucket_bytes() == fusion.DEFAULT_BUCKET_BYTES == 25 << 20
-    for name in ("fusion_enabled", "shard_update_enabled", "bigarray_bound",
-                 "FlatOptimizer", "ShardSlot"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
-            getattr(fusion, name)()
+    assert (fusion.fusion_enabled(), fusion.shard_update_enabled(),
+            fusion.bigarray_bound()) == (True, False, 1_000_000) == \
+        (jfusion.fusion_enabled(), jfusion.shard_update_enabled(),
+         jfusion.bigarray_bound())
+    assert (fusion.fusion_enabled(False), fusion.shard_update_enabled(True),
+            fusion.bigarray_bound(64)) == (False, True, 64)
+    for name in ("sgd", "nag", "adam"):
+        assert fusion.FlatOptimizer.supports(topt.create(name)).name == name
+
+    class MySGD(topt.SGD):
+        pass
+    for opt in (MySGD(), topt.create("rmsprop"), None):
+        assert fusion.FlatOptimizer.supports(opt) is None
+    opt = topt.create("sgd", learning_rate=0.1, momentum=0.9, wd=1e-3,
+                      rescale_grad=0.5)
+    flat = fusion.FlatOptimizer.supports(opt)
+    assert flat.n_states == 1
+    plan = fusion.plan_buckets([("0", (3, 2), "float32"),
+                                ("1", (5,), "float32")])
+    lane = plan[0].lanes[0]
+    w = {"0": torch.arange(6.0).reshape(3, 2), "1": torch.ones(5)}
+    slot = fusion.ShardSlot(lane, None, w, flat)
+    assert (slot.n, slot.l_pad, slot.state_bytes_per_replica) == (1, 11, 44)
+    g = {"0": torch.full((3, 2), 0.5), "1": torch.arange(5.0)}
+    padded = fusion.pack_lane(lane, g, pad_to=13)
+    assert padded.shape == (13,) and not padded[11:].any()
+    new = fusion.unpack_lane(slot.step([fusion.pack_lane(lane, g)]), lane)
+    updater = topt.get_updater(topt.create(
+        "sgd", learning_rate=0.1, momentum=0.9, wd=1e-3, rescale_grad=0.5))
+    for k in ("0", "1"):
+        ref = mt_nd.array(w[k].numpy(), ctx=mt_cpu())
+        updater(int(k), mt_nd.array(g[k].numpy(), ctx=mt_cpu()), ref)
+        assert torch.equal(new[k], ref._data)

@@ -307,12 +307,45 @@ def test_deconvolution_refuses_a_target_beyond_its_reach():
 
 
 def test_sync_batch_norm_refuses_a_larger_world(monkeypatch):
-    """Across more than one rank the batch statistics need the kvstore's
-    cross-device reduction (ROADMAP A7)."""
+    """Across ranks the statistics and their gradients are the global
+    batch's. A world of two ranks that hold the same rows is emulated in
+    one process (an all-reduce doubles its tensor): the output and the
+    batch statistics are BatchNorm's over the two copies concatenated,
+    within 1e-5, and the data's gradient is the gradient of the global
+    loss (both ranks' sums) with respect to one copy. A real 4-rank world
+    is tests/test_torch_kvstore_world.py's."""
+    import torch
     import torch.distributed as dist
+    from mxnet_tpu_torch.ops import nn as tnn
+    _, inputs, attrs = CASES["sync_batch_norm"]
+    arrs = {k: torch.from_numpy(v) for k, v in inputs}
+    dy = torch.from_numpy(U(tuple(arrs["data"].shape), 12))
+
+    def both(x, g, b, sync):
+        fn = tnn.sync_batch_norm if sync else tnn.batch_norm
+        return fn(x, g, b, arrs["moving_mean"], arrs["moving_var"],
+                  fix_gamma=False, is_train=True)
+
+    x1, g1, b1 = (arrs[k].clone().requires_grad_(True)
+                  for k in ("data", "gamma", "beta"))
+    xa, xb, g2, b2 = (t.clone().requires_grad_(True)
+                      for t in (arrs["data"], arrs["data"], arrs["gamma"],
+                                arrs["beta"]))
+    out2, mean2, var2 = both(torch.cat([xa, xb]), g2, b2, False)
+    (out2 * torch.cat([dy, dy])).sum().backward()
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    _, inputs, attrs = CASES["sync_batch_norm"]
-    with pytest.raises(mt.MXNetError, match="A7"):
-        tnd._contrib_SyncBatchNorm(**{k: tnd.array(v) for k, v in inputs},
-                                   **attrs)
+    monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
+    monkeypatch.setattr(dist, "all_reduce", lambda t, *a, **k: t.mul_(2))
+    out1, mean1, var1 = both(x1, g1, b1, True)
+    (out1 * dy).sum().backward()
+    n = arrs["data"].shape[0]
+    for got, want, what in ((out1, out2[:n], "output"),
+                            (mean1, mean2, "batch mean"),
+                            (var1, var2, "batch variance"),
+                            (x1.grad, xa.grad, "data gradient"),
+                            (g1.grad * 2, g2.grad, "gamma gradient"),
+                            (b1.grad * 2, b2.grad, "beta gradient")):
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   want.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=what)

@@ -42,14 +42,32 @@ def test_ndarray_name(name):
     _exists_or_names_its_item(mt.ndarray, name)
 
 
+# the modules of the kvstore stack and the Module front end: every public
+# name of the JAX module is present in the port's
+STORE_AND_MODULE = ("kvstore", "kvstore_server", "gradient_compression",
+                    "metric", "callback", "model", "module",
+                    "executor_manager")
+
+
+@pytest.mark.parametrize("module,name", [
+    (m, n) for m in STORE_AND_MODULE
+    for n in importlib.import_module("mxnet_tpu." + m).__all__])
+def test_kvstore_and_module_name(module, name):
+    assert hasattr(importlib.import_module("mxnet_tpu_torch." + module),
+                   name), (module, name)
+
+
 def test_ported_names_exist_and_unported_ones_refuse():
     assert mt.Symbol is mt.symbol.Symbol
     assert mt.NameManager is mt.name.NameManager
     assert mt.Prefix is mt.name.Prefix
     assert mt.optimizer.SGD and mt.lr_scheduler.FactorScheduler
-    for name, item in (("metric", "A9"), ("kvstore", "A7"),
-                       ("module", "A9")):
-        with pytest.raises(mt.MXNetError, match=item):
+    # the kvstore stack and the Module front end resolve (A7c, A9's first
+    # item); the rest of the library still names A9
+    assert mt.metric.Accuracy and mt.kvstore.create and mt.module.Module
+    assert mt.mod is mt.module and mt.model.FeedForward
+    for name in ("sparse", "rnn", "operator"):
+        with pytest.raises(mt.MXNetError, match="A9"):
             getattr(mt, name)
     # data and IO resolve (A8 is ported); contrib's other modules name A9
     assert mt.io.ImageRecordIter and mt.recordio.MXIndexedRecordIO
@@ -98,10 +116,10 @@ PARALLEL_JAX_ONLY = {"NamedSharding"}
     - PARALLEL_JAX_ONLY))
 def test_parallel_name(name):
     """Each public name of the JAX ``parallel`` exists in the port's; the
-    elastic module, not ported, raises naming ROADMAP item A7 on
+    elastic module, not ported, raises naming ROADMAP item A7d on
     import."""
     if name == "elastic":
-        with pytest.raises(NotImplementedError, match="ROADMAP item A7"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item A7d"):
             importlib.import_module("mxnet_tpu_torch.parallel.elastic")
         return
     assert getattr(importlib.import_module("mxnet_tpu_torch.parallel"), name)

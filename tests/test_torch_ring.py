@@ -281,20 +281,18 @@ def test_refusals_name_their_slice():
 
 @pytest.mark.parametrize("name", ["fusion", "elastic", "pipeline"])
 def test_unported_parallel_modules_raise(name):
-    """fusion's in-step half and pipeline are ported (their store half,
-    FlatOptimizer and ShardSlot, names A7); elastic still raises naming
-    ROADMAP item A7."""
+    """fusion (both halves: the in-step bucketed all-reduce and the
+    store's FlatOptimizer, ShardSlot and switches) and pipeline are
+    ported, every public name of the JAX modules present and the
+    switches answering; elastic still raises naming ROADMAP item A7d."""
     if name == "elastic":
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(NotImplementedError, match="A7d"):
             importlib.import_module("mxnet_tpu_torch.parallel." + name)
         return
     mod = importlib.import_module("mxnet_tpu_torch.parallel." + name)
     jmod = importlib.import_module("mxnet_tpu.parallel." + name)
     for attr in jmod.__all__:
-        if name == "fusion" and attr in ("FlatOptimizer", "ShardSlot",
-                                         "fusion_enabled",
-                                         "shard_update_enabled"):
-            with pytest.raises(NotImplementedError, match="A7"):
-                getattr(mod, attr)()
-            continue
         assert hasattr(mod, attr), attr
+    if name == "fusion":
+        assert mod.fusion_enabled() is True
+        assert mod.shard_update_enabled() is False

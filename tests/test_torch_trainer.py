@@ -5,8 +5,11 @@ the JAX package's: the ResNet-18 thumbnail, hybridized, for 3 steps of
 generator step through it, Adam with beta1 0.5, sigmoid BCE),
 imperative; then stale gradients and ``ignore_stale_grad``,
 ``save_states``/``load_states``, ``allreduce_grads`` + ``update``,
-``learning_rate``, the one-context kvstores ``"device"``, ``"local"`` and
-``None``, and the refusals that name ROADMAP item A7.
+``learning_rate``, and the kvstores: ``"device"``, ``"local"``,
+``None``, ``dist_sync``, ``nccl``, a ``KVStore`` object,
+``update_on_kvstore`` and 2-bit compression
+(``tests/test_torch_kvstore_world.py`` has the store over a world of
+ranks).
 
 Parameters cross from the port to JAX by
 ``save_parameters``/``load_parameters``; data are numpy arrays from
@@ -293,21 +296,60 @@ def test_save_and_load_states_resume_alike(tmp_path):
 
 
 def test_refusals_name_the_kvstore_item():
+    """What refused naming the kvstore item before it was ported now
+    trains: a dist_sync, nccl or KVStore-object store (through
+    pushpull_fused) and update_on_kvstore=True (the update on the store)
+    give the store-less path's weights bitwise, each against JAX's same
+    run; 2-bit compression
+    (threshold 0.5, so that these gradients leave codes of 00 and of
+    +-t) is JAX's too. The argument checks that remain still raise, and
+    so does a Trainer over two contexts in one process, now naming A7d."""
+    def run(mx, **kw):
+        net = _dense(mx)
+        other = mx.gluon.nn.Dense(2, in_units=4, prefix="o_")
+        other.initialize(mx.init.Constant(0.25))
+        params = net.collect_params()
+        params.update(other.collect_params())
+        trainer = mx.gluon.Trainer(params, "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9},
+                                   **kw)
+        for _ in range(2):
+            with mx.autograd.record():
+                y = (net(mx.nd.array(X)) ** 2).sum() + \
+                    other(mx.nd.array(X)).sum() * 3
+            y.backward()
+            trainer.step(2)
+        return [p.data().asnumpy() for p in params.values()], trainer
+
+    want, plain = run(mt, kvstore=None)
+    assert plain._kvstore is None
+    for kw in (dict(kvstore="dist_sync"), dict(kvstore="nccl"),
+               dict(kvstore=mt.kvstore.create("device")),
+               dict(update_on_kvstore=True),
+               dict(compression_params={"type": "2bit", "threshold": 0.5})):
+        got, trainer = run(mt, **kw)
+        assert trainer._kvstore.dispatch_stats["keys"] == 8
+        jkw = dict(kw)
+        if isinstance(kw.get("kvstore"), mt.kvstore.KVStore):
+            jkw["kvstore"] = jmx.kvstore.create("device")
+        jax_got, _ = run(jmx, **jkw)
+        for t, j, w in zip(got, jax_got, want):
+            if "compression_params" in kw:
+                np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-7)
+                assert not np.array_equal(t, w)
+            else:
+                np.testing.assert_array_equal(t, w)
+                np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-7)
     net = _dense(mt)
     params = net.collect_params()
-    for kw in (dict(kvstore="dist_sync"), dict(kvstore="nccl"),
-               dict(kvstore=object()), dict(update_on_kvstore=True),
-               dict(compression_params={"type": "2bit"})):
-        with pytest.raises(mt.MXNetError, match="A7"):
-            mt.gluon.Trainer(params, "sgd", **kw)
     other = mt.gluon.nn.Dense(2, in_units=4)
     other.initialize(ctx=mt.Context("cpu", 1))
     params.update(other.collect_params())
     trainer = mt.gluon.Trainer(params, "sgd")
-    with pytest.raises(mt.MXNetError, match="A7"):
+    with pytest.raises(mt.MXNetError, match="A7d"):
         trainer.step(1)
     with pytest.raises(ValueError):
         mt.gluon.Trainer([1, 2], "sgd")
     with pytest.raises(AssertionError):
-        mt.gluon.Trainer(net.collect_params(), mt.optimizer.SGD(),
+        mt.gluon.Trainer(_dense(mt).collect_params(), mt.optimizer.SGD(),
                          {"learning_rate": 0.1})
