@@ -292,7 +292,37 @@ Run from the root of a checkout on a machine with one CUDA GPU and
     from the same parameters, the parameters' and the moving statistics'
     change and the eval outputs within ``TOL_MODULE_FIT``; ``score`` and
     ``predict`` over 8 batches against the module's own ``forward``;
-14. traces 16 decode steps of a serve run, of an int8 serve run and of
+14. drives elastic worlds and the shard checkpoints (``elastic_phase``;
+    B1/B2a/B2b in the training flagship's steps, 12 x accum a step each):
+    ``python -m mxnet_tpu_torch.tools.elastic_launch`` over
+    ``entry.elastic_worker`` with the training flagship (bf16, lr 1e-2,
+    64 x 1024 tokens from ``RandomState(7)``, 8 rows a step, the global
+    batch kept): generation 0 is a world of 2 whose rank 1 never starts
+    (the simulated peer: exit 31, no heartbeat) and whose rank 0, on the
+    card, trains while its monitor thread finds the peer dead on the
+    sideband, captures the last completed step and exits 44; generation
+    1 resumes at world 1 with 2 micro-batches a step and finishes step 8;
+    its LOSS lines and final parameters must equal bitwise those of a
+    clean world-1 run from the same shard set in another process, the
+    DATA lines tile the 64 rows, and each of its steps launch each flash
+    kernel 24 times; it prints the capture's ms and bytes, the write's
+    MB/s, the TTR and the step ms. Then, in this process, flagship steps
+    at accum 1, a ~20 s spin kernel on the compute stream with the next
+    step queued behind it, and the coordinator's shrink on another
+    thread: the capture must commit within ``ELASTIC_CAPTURE_LIMIT_S``
+    while the stream is still wedged, bitwise the completed step's state;
+    during the wedge the flagship state is written as a 4-rank shard set
+    and merged at world 1 bitwise, merged with rank 2 lost and
+    ``allow_partial`` (exactly rank 2's lane slices zero), and a world-1
+    set is resharded to world 4 bitwise, with the bytes and MB/s;
+    ``examples/model_parallel/matrix_factorization.py`` at its defaults
+    through ``Module.fit`` with ``group2ctxs`` (the user half on the
+    host, the item half on the card) within ``TOL_MF`` of the all-card
+    fit, with the boundary transfers a batch; and ``Module(context=
+    [gpu(0), cpu(0)], kvstore="device")`` on the ResNet-18 thumbnail,
+    two batches bitwise the one-context module with a created store
+    (cuDNN deterministic for the leg);
+15. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
@@ -302,18 +332,19 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ``generate()`` decode step the two of flash decode, the bf16 train
    step the three tensor-core kernels, and the mesh forward the forward
    template;
-15. times the decode kernels (the paged kernel in bfloat16 and int8)
+16. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, by CUDA events and by device time
     with each kernel's GB/s of live bytes, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
-16. prints the card's name and power limit again, the kernels' JSON
+17. prints the card's name and power limit again, the kernels' JSON
     line (the paged kernel's rows with their speculative launches and
     their time at the verify window, the flash-decode row with the
     draft, solo-speculative and beam launches, every row with its
-    launches in the durable, the mesh-training and the Module phases),
+    launches in the durable, the mesh-training, the Module and the
+    elastic phases),
     then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
@@ -343,6 +374,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -5615,18 +5647,11 @@ def trainer_store_gate(torch, mt, device, spec=GLUON,
     return same
 
 
-def module_card_vs_cpu(torch, mt, spec=MODULE_CHECK, tol=TOL_MODULE_FIT):
-    """entry.module_fit on the example's ResNet-18 CIFAR branch, two
-    batches, fp32, on the card and on the CPU from the same arg_params
-    (drawn once on the CPU by the recipe's Xavier, each unit's bn2 gamma
-    then set to 0.01) and the same data order: the parameters' change,
-    the auxiliary states' change (each BatchNorm's moving mean and
-    variance) and the fitted modules' eval-mode outputs on one batch each
-    within ``tol`` relative L2 of the CPU's. Returns the fitted card
-    module and the three errors."""
-    from mxnet_tpu_torch import entry
+def module_check_start(mt, spec, shape):
+    """The ResNet-18 thumbnail's starting arg_params and aux_params, drawn
+    once on the CPU by the recipe's Xavier, each unit's bn2 gamma then set
+    to 0.01."""
     from mxnet_tpu_torch.symbols import resnet
-    shape = (3, spec["image_size"], spec["image_size"])
     with mt.cpu():
         mt.random.seed(1)
         probe = mt.mod.Module(resnet.get_symbol(
@@ -5640,6 +5665,21 @@ def module_card_vs_cpu(torch, mt, spec=MODULE_CHECK, tol=TOL_MODULE_FIT):
                  + (0.01 if k.endswith("_bn2_gamma") else 0.0)
                  for k, v in arg.items()}
         start_aux = {k: v.asnumpy() for k, v in aux.items()}
+    return start, start_aux
+
+
+def module_card_vs_cpu(torch, mt, spec=MODULE_CHECK, tol=TOL_MODULE_FIT):
+    """entry.module_fit on the example's ResNet-18 CIFAR branch, two
+    batches, fp32, on the card and on the CPU from the same arg_params
+    (drawn once on the CPU by the recipe's Xavier, each unit's bn2 gamma
+    then set to 0.01) and the same data order: the parameters' change,
+    the auxiliary states' change (each BatchNorm's moving mean and
+    variance) and the fitted modules' eval-mode outputs on one batch each
+    within ``tol`` relative L2 of the CPU's. Returns the fitted card
+    module and the three errors."""
+    from mxnet_tpu_torch import entry
+    shape = (3, spec["image_size"], spec["image_size"])
+    start, start_aux = module_check_start(mt, spec, shape)
     x = np.random.RandomState(5).uniform(
         -1, 1, (spec["batch"],) + shape).astype(np.float32)
     got = {}
@@ -5954,6 +5994,651 @@ def module_phase(torch, mt, device, spec=MODULE_FIT):
     return out
 
 
+# ------------------------------------------------------- elastic worlds ---
+
+# the training flagship under the port's elastic launcher: bf16, lr 1e-2,
+# entry.elastic_tokens' 64 x 1024 rows from RandomState(7), 8 global rows a
+# step; generation 0 is a world of 2 whose rank 1 never starts (the
+# simulated peer), rank 0 the card process
+ELASTIC = dict(steps=8, lr=1e-2, heartbeat_s=0.5, miss=3, world=2,
+               timeout=240)
+ELASTIC_ROWS_PER_STEP = 8
+# the in-process capture under a wedged compute stream
+ELASTIC_WEDGE_S = 20.0
+ELASTIC_CAPTURE_LIMIT_S = 10.0
+ELASTIC_WEDGE_STEPS = 3            # completed steps before the wedge
+ELASTIC_SPIN_PROBE = 10 ** 8       # cycles of the spin kernel's calibration
+ELASTIC_RESHARD_WORLD = 4
+# examples/model_parallel/matrix_factorization.py's defaults
+MF = dict(num_users=200, num_items=100, factor_size=8, batch_size=64,
+          num_epochs=8, lr=0.1, ratings=4096)
+# the placed fit against the all-card one, relative L2 of the parameters'
+# change from their start (fp32; the user half's sums on the host)
+TOL_MF = 1e-3
+
+
+def elastic_root():
+    """A fresh git-ignored directory of the checkout for sidebands and
+    shard sets (removed when the phase ends)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def _worker_cmd(ckdir, cfg_json, steps, solo):
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.entry", "--elastic-worker",
+           "--ckpt-dir", ckdir, "--steps", str(steps), "--gen-steps", "0",
+           "--config", cfg_json, "--dtype", "bfloat16",
+           "--lr", str(ELASTIC["lr"]), "--keep-global-batch",
+           "--heartbeat-s", str(ELASTIC["heartbeat_s"]),
+           "--miss", str(ELASTIC["miss"]), "--keep-generations", "8"]
+    return cmd + (["--solo"] if solo else [])
+
+
+def _child_env(**kw):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **kw)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    for name in ("MXNET_ELASTIC_RESUME_GEN", "MXNET_CHAOS"):
+        if name not in kw:
+            env.pop(name, None)
+    return env
+
+
+def _lines(pattern, out):
+    import re
+    return [m.groups() for m in re.finditer(pattern, out, re.M)]
+
+
+def elastic_shrink(torch, root):
+    """The flagship's shrink and exact resume through the port's launcher:
+    generation 0 (world 2, rank 1 the simulated absent peer) is shrunk by
+    rank 0's monitor thread while it trains, generation 1 resumes at
+    world 1 with 2 micro-batches a step and finishes the 8 steps; a clean
+    world-1 run from the same captured shard set, in another process,
+    must give its LOSS lines and final parameters bitwise; the DATA lines
+    must tile the 64 rows. Returns the numbers."""
+    sb, ckdir = os.path.join(root, "sb"), os.path.join(root, "ck")
+    cfg_json = json.dumps(TRAIN_CFG)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.elastic_launch",
+         "-n", str(ELASTIC["world"]), "--max-restarts", "1",
+         "--backoff-ms", "100", "--elastic-dir", sb, "--"]
+        + _worker_cmd(ckdir, cfg_json, ELASTIC["steps"], solo=True),
+        capture_output=True, text=True, timeout=ELASTIC["timeout"],
+        cwd=here, env=_child_env())
+    launch_s = time.perf_counter() - t0
+    out = r.stdout
+    with open(os.path.join(here, "build", "elastic_launch.log"), "w") as f:
+        f.write(out + "\n--- stderr ---\n" + r.stderr)
+    if r.returncode != 0:
+        raise AssertionError("elastic launcher exited %d:\n%s\n%s"
+                             % (r.returncode, out[-3000:], r.stderr[-3000:]))
+    for want in ("simulated peer: rank 1 of generation 0 never starts",
+                 "generation 0 exited [44, 31] -> shrink",
+                 "generation 1: world 1 (shrunk from 2)",
+                 "job complete after 2 generation(s), 1 counted restart(s)"):
+        if want not in out:
+            raise AssertionError("elastic launcher log lacks %r:\n%s"
+                                 % (want, out[-3000:]))
+    cap = _lines(r"^\[elastic\] rank 0 g0: shard of step (\d+) committed "
+                 r"in (\S+) ms \(host copies (\S+) ms, write (\S+) ms, "
+                 r"(\d+) bytes\)$", out)
+    if len(cap) != 1:
+        raise AssertionError("no single capture line in generation 0")
+    step0, cap_ms, copy_ms, write_ms, nbytes = cap[0]
+    step0 = int(step0)
+    ranges = {}
+    for _g, step, lo, hi in _lines(r"^DATA g(\d) r0 (\d+) (\d+) (\d+)$",
+                                   out):
+        if ranges.setdefault(int(step), (int(lo), int(hi))) != \
+                (int(lo), int(hi)):
+            raise AssertionError("step %s consumed two row ranges" % step)
+    rows = ELASTIC_ROWS_PER_STEP
+    if ranges != {s: ((s - 1) * rows, s * rows)
+                  for s in range(1, ELASTIC["steps"] + 1)}:
+        raise AssertionError("rows skipped or replayed: %s" % ranges)
+    g1 = dict(_lines(r"^LOSS g1 r0 (\d+) (\S+)$", out))
+    if sorted(int(s) for s in g1) != list(range(step0 + 1,
+                                                ELASTIC["steps"] + 1)):
+        raise AssertionError("generation 1 ran steps %s after a capture "
+                             "of step %d" % (sorted(g1), step0))
+    launches = _lines(r"^LAUNCHES g1 r0 (\d+) (\d+) (\d+) (\d+)$", out)
+    per_step = 2 * TRAIN_CFG["n_layers"]
+    if [tuple(int(x) for x in row[1:]) for row in launches] != \
+            [(per_step,) * 3] * len(g1):
+        raise AssertionError("generation 1's steps launched %s, not %d of "
+                             "each flash kernel" % (launches, per_step))
+    step_ms = {g: [float(ms) for _s, ms in _lines(
+        r"^STEPMS g%d r0 (\d+) (\S+)$" % g, out)] for g in (0, 1)}
+    ttr = _lines(r"^TTR (\S+)$", out)
+    final = _lines(r"^final g1 r0 step (\d+) param_l1 (\S+) fingerprint "
+                   r"(\S+)$", out)
+    if len(ttr) != 1 or len(final) != 1:
+        raise AssertionError("generation 1 printed no TTR or final line")
+
+    # the clean world-1 run from the same shard set, in another process
+    clean = os.path.join(root, "ck_clean")
+    shutil.copytree(ckdir, clean, copy_function=os.link)
+    t0 = time.perf_counter()
+    rc = subprocess.run(
+        _worker_cmd(clean, cfg_json, ELASTIC["steps"], solo=False),
+        capture_output=True, text=True, timeout=ELASTIC["timeout"],
+        cwd=here, env=_child_env(
+            MXNET_ELASTIC_DIR=os.path.join(root, "sb_clean"),
+            MXNET_ELASTIC_GENERATION="1", MXNET_ELASTIC_RESUME_GEN="1",
+            MXNET_ELASTIC_BASE_WORLD=str(ELASTIC["world"]),
+            MXNET_TPU_NUM_PROC="1", MXNET_TPU_PROC_ID="0"))
+    clean_s = time.perf_counter() - t0
+    if rc.returncode != 0:
+        raise AssertionError("the clean run exited %d:\n%s"
+                             % (rc.returncode, rc.stderr[-3000:]))
+    g1_clean = dict(_lines(r"^LOSS g1 r0 (\d+) (\S+)$", rc.stdout))
+    final_clean = _lines(r"^final g1 r0 step (\d+) param_l1 (\S+) "
+                         r"fingerprint (\S+)$", rc.stdout)
+    if g1_clean != g1 or final_clean != final:
+        raise AssertionError("generation 1 is not the clean run:\n%s\n%s\n"
+                             "%s\n%s" % (g1, g1_clean, final, final_clean))
+    losses = [float.fromhex(g1[s]) for s in sorted(g1, key=int)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite loss after the shrink")
+    res = {"captured_step": step0, "capture_ms": float(cap_ms),
+           "copy_ms": float(copy_ms), "write_ms": float(write_ms),
+           "bytes": int(nbytes), "ttr_ms": float(ttr[0][0]),
+           "step_ms_accum2": float(np.median(step_ms[1][1:])),
+           "first_step_ms_accum2": step_ms[1][0],
+           "gen0_steps": len(step_ms[0]), "launch_s": launch_s,
+           "clean_s": clean_s, "launches_per_step": per_step,
+           "steps_g1": len(g1), "fingerprint": final[0][2]}
+    log("elastic shrink (%s): the flagship (bf16, 8 x %d a step) under "
+        "the launcher; generation 0 world 2 with rank 1 never started (the "
+        "simulated peer), rank 0's monitor thread found the peer dead and "
+        "captured step %d while the main thread went on (%d step(s) done "
+        "in generation 0): %.1f ms (host "
+        "copies %.1f ms, write %.1f ms, %d bytes, %.0f MB/s); generation 1 "
+        "at world 1, accum 2, ran steps %d-%d, LOSS lines and final "
+        "parameters (fingerprint %s) bitwise the clean run's, rows 0-%d "
+        "each once; TTR %.1f ms (the shrink record to generation 1's first "
+        "step); step %.1f ms at accum 2 (first %.1f ms); B1/B2a/B2b %d "
+        "launches a step each; launcher %.1f s, clean run %.1f s"
+        % (card_line(), TRAIN_CFG["max_len"], step0, res["gen0_steps"],
+           res["capture_ms"],
+           res["copy_ms"], res["write_ms"], res["bytes"],
+           res["bytes"] / 1e6 / max(res["write_ms"] / 1e3, 1e-9),
+           step0 + 1, ELASTIC["steps"], res["fingerprint"],
+           ELASTIC["steps"] * rows, res["ttr_ms"], res["step_ms_accum2"],
+           res["first_step_ms_accum2"], per_step, launch_s, clean_s))
+    shutil.rmtree(clean, ignore_errors=True)
+    return res
+
+
+def _host_state(torch, params, mom):
+    return ({n: t.detach().cpu() for n, t in params.named_parameters()},
+            {n: t.detach().cpu() for n, t in mom.items()})
+
+
+def _bitwise(want_p, want_m, params, mom, what):
+    got_p = dict(params.named_parameters())
+    for n, t in want_p.items():
+        if got_p[n].dtype != t.dtype or not bool((got_p[n].cpu() == t)
+                                                  .all()):
+            raise AssertionError("%s: parameter %s differs" % (what, n))
+        if want_m is not None and not bool((mom[n].cpu() == want_m[n])
+                                           .all()):
+            raise AssertionError("%s: momentum %s differs" % (what, n))
+
+
+def _save_ranks(ck, path, cfg, params, mom, world, step, generation):
+    """A shard set written as ``world`` survivors write it, each rank's
+    save on a thread of its own (the crc32 and the writes release the
+    GIL)."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(world) as pool:
+        for done in [pool.submit(ck.save_shard_checkpoint, path, cfg, params,
+                                 momentum=mom, step=step, rank=r,
+                                 world=world, generation=generation,
+                                 keep_generations=8)
+                     for r in range(world)]:
+            done.result()
+
+
+def elastic_reshard(torch, tf, ck, params, want_p, want_m, captured, root):
+    """From one process, the flagship state (its host copy) as a 4-rank
+    shard set (each rank the full parameters and its slice of every lane,
+    the four written at once); merged at world 1 bitwise; rank 2's arrays
+    removed and merged with allow_partial, exactly rank 2's lane slices
+    zero and every other byte bitwise; the world-1 set the capture wrote
+    (``captured``) merged under a world-4 layout bitwise. Runs on the
+    host only, so it overlaps the wedge."""
+    world = ELASTIC_RESHARD_WORLD
+    host = tf._rebuild(params, lambda name, leaf: want_p[name])
+    d4 = os.path.join(root, "reshard4")
+    t0 = time.perf_counter()
+    _save_ranks(ck, d4, params.cfg, host, want_m, world, 7, 1)
+    save_s = time.perf_counter() - t0
+    save_bytes = sum(os.path.getsize(os.path.join(d4, f))
+                     for f in os.listdir(d4))
+    t0 = time.perf_counter()
+    _, p1, m1, step, ex = ck.load_shard_checkpoint(d4, device="cpu")
+    merge_s = time.perf_counter() - t0
+    if step != 7 or ex["world"] != world:
+        raise AssertionError("the 4-rank set merged as step %d world %d"
+                             % (step, ex["world"]))
+    _bitwise(want_p, want_m, p1, m1, "4 -> 1 merge")
+    del p1, m1
+    # rank 2 lost: exactly its lane slices resume as zeros
+    layout = ck.shard_layout(want_m, world)
+    lost = next(n for n in os.listdir(d4)
+                if n.startswith("shard-arrays-g1-r2of4"))
+    os.remove(os.path.join(d4, lost))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, pp, mp, _, _ = ck.load_shard_checkpoint(d4, allow_partial=True,
+                                                   device="cpu")
+    if not any("rank 2" in str(w.message) or "[2]" in str(w.message)
+               for w in caught):
+        raise AssertionError("the partial merge did not warn about rank 2")
+    _bitwise(want_p, None, pp, None, "partial merge parameters")
+    zeroed = 0
+    for lane in layout["lanes"]:
+        n_per = lane["l_pad"] // world
+        lo, hi = 2 * n_per, 3 * n_per
+        for key, _shape, size, offset in lane["segments"]:
+            name = key[len("m."):]
+            got = mp[name].reshape(-1)
+            want = want_m[name].reshape(-1)
+            mask = torch.zeros(size, dtype=torch.bool)
+            a, b = max(lo, offset), min(hi, offset + size)
+            if a < b:
+                mask[a - offset:b - offset] = True
+            if bool(got[mask].any()) or not bool(
+                    (got[~mask] == want[~mask]).all()):
+                raise AssertionError("partial merge: %s is not zero on rank "
+                                     "2's slice and bitwise elsewhere"
+                                     % name)
+            zeroed += int(mask.sum())
+    del pp, mp
+    shutil.rmtree(d4, ignore_errors=True)
+    # the world-1 set the capture wrote, merged, saved and merged under a
+    # world-4 layout
+    _, q, qm, _, _ = ck.load_shard_checkpoint(captured, device="cpu")
+    d14 = os.path.join(root, "reshard14")
+    t0 = time.perf_counter()
+    _save_ranks(ck, d14, q.cfg, q, qm, world, 8, 2)
+    host_save_s = time.perf_counter() - t0
+    del q, qm
+    _, q4, qm4, step, ex = ck.load_shard_checkpoint(d14, device="cpu")
+    if step != 8 or ex["world"] != world:
+        raise AssertionError("the 1 -> 4 reshard merged as step %d world %d"
+                             % (step, ex["world"]))
+    _bitwise(want_p, want_m, q4, qm4, "1 -> 4 reshard")
+    del q4, qm4
+    shutil.rmtree(d14, ignore_errors=True)
+    return {"save_bytes": save_bytes, "save_s": save_s, "merge_s": merge_s,
+            "save_mb_s": save_bytes / 1e6 / save_s,
+            "merge_mb_s": save_bytes / 1e6 / merge_s,
+            "host_save_s": host_save_s, "zeroed": zeroed}
+
+
+def elastic_wedge(torch, mt, device, root):
+    """The capture while the compute stream is wedged, in this process: a
+    few flagship steps through make_accum_train_step (accum 1; timed, and
+    each launching B1/B2a/B2b once a layer), then a ~20 s spin kernel on
+    the compute stream (standing in for an all-reduce whose peer is dead)
+    behind the next step's kernels, with the main thread blocked in a
+    fetch of the loss queued after the spin, as a rank whose all-reduce
+    hangs blocks in its loop's ``float(loss)``; the coordinator's shrink
+    (an injected exit), on another thread as the monitor runs it, must
+    commit the capture well within the wedge, and the captured state must
+    be bitwise the completed step's, not the one in flight. The 4-rank
+    reshard runs on that thread and the host while the wedge lasts. (The
+    spin follows the next step's kernels, where a real step's all-reduce
+    runs: queued before them, it would block the step's own call in its
+    backward pass, which reads back from the device.)"""
+    import threading
+    from mxnet_tpu_torch import entry, kernels
+    from mxnet_tpu_torch.models import checkpoint as ck
+    from mxnet_tpu_torch.models import transformer as tf
+    from mxnet_tpu_torch.parallel import elastic
+    cfg = tf.TransformerConfig(dtype=torch.bfloat16, **TRAIN_CFG)
+    params = tf.init_params(cfg, seed=0, device=device)
+    mom = tf.init_momentum(params)
+    step = elastic.make_accum_train_step(cfg, lr=ELASTIC["lr"], accum=1)
+    data = torch.from_numpy(entry.elastic_tokens(cfg)).to(device)
+    rows = ELASTIC_ROWS_PER_STEP
+    kernels.launches.clear()
+    step_s, ready = [], None
+    for k in range(ELASTIC_WEDGE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, mom, loss = step(params, mom,
+                                 data[k * rows:(k + 1) * rows][None])
+        ready = torch.cuda.Event()
+        ready.record()
+        float(loss)
+        step_s.append(time.perf_counter() - t0)
+    want_p, want_m = _host_state(torch, params, mom)
+    sb = os.path.join(root, "wedge-sb")
+    elastic.write_generation(sb, 0, 2)
+    live = {"params": params, "mom": mom, "ready": ready}
+    coord = elastic.ElasticCoordinator(
+        os.path.join(root, "wedge-ck"),
+        lambda: {"cfg": cfg, "params": live["params"],
+                 "momentum": live["mom"], "step": ELASTIC_WEDGE_STEPS,
+                 "ready": live["ready"]},
+        d=sb, rank=0, world=2, generation=0, monitor=False,
+        exit=lambda code: live.setdefault("exit", code))
+    # the training loop's step boundary: the first beat pins the host
+    # buffers the capture will copy into
+    t0 = time.perf_counter()
+    coord.beat(ELASTIC_WEDGE_STEPS)
+    reserve_s = time.perf_counter() - t0
+    # the spin kernel counts SM clock cycles: time a short one to convert
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(ELASTIC_SPIN_PROBE)
+    torch.cuda.synchronize()
+    cycles_per_s = ELASTIC_SPIN_PROBE / (time.perf_counter() - t0)
+    side = {}
+
+    def monitor():
+        # the monitor thread's part, as on a rank whose main thread is
+        # blocked in a collective: the capture, then the reshard, both
+        # on side streams and the host while the compute stream spins;
+        # a failure is raised again by the joining thread
+        try:
+            t0 = time.perf_counter()
+            coord.shrink({1})
+            side["capture_s"] = time.perf_counter() - t0
+            side["wedged_at_commit"] = not torch.cuda.current_stream(
+                device).query()
+            side["reshard"] = elastic_reshard(
+                torch, tf, ck, params, want_p, want_m,
+                os.path.join(root, "wedge-ck"), root)
+            side["wedged_after_reshard"] = not torch.cuda.current_stream(
+                device).query()
+        except BaseException as exc:  # noqa: BLE001 — raised by the joiner
+            side["error"] = exc
+    # the next step, in flight: its kernels queued, then the spin kernel
+    # where its all-reduce would hang, then the work after that collective
+    # (the update) whose loss the main thread fetches, as the worker's
+    # loop does with float(loss); the fetch blocks behind the spin
+    k = ELASTIC_WEDGE_STEPS
+    inflight = step(params, mom, data[k * rows:(k + 1) * rows][None])
+    t_wedge = time.perf_counter()
+    torch.cuda._sleep(int(ELASTIC_WEDGE_S * cycles_per_s))
+    after = inflight[2] * 1.0
+    runner = threading.Thread(target=monitor)
+    runner.start()
+    float(after)
+    runner.join()
+    torch.cuda.synchronize()
+    wedge_s = time.perf_counter() - t_wedge
+    if side.get("error") is not None:
+        raise side["error"]
+    capture_s, reshard = side["capture_s"], side["reshard"]
+    wedged_at_commit = side["wedged_at_commit"]
+    still_wedged = side["wedged_after_reshard"]
+    if live.get("exit") != elastic.SHRINK_EXIT_CODE:
+        raise AssertionError("the shrink did not exit 44")
+    if not wedged_at_commit or not capture_s <= ELASTIC_CAPTURE_LIMIT_S:
+        raise AssertionError("the capture took %.2f s (limit %.1f s; the "
+                             "stream still wedged at the commit: %s)"
+                             % (capture_s, ELASTIC_CAPTURE_LIMIT_S,
+                                wedged_at_commit))
+    _, cp, cm, cstep, ex = ck.load_shard_checkpoint(
+        os.path.join(root, "wedge-ck"), device="cpu")
+    if cstep != ELASTIC_WEDGE_STEPS or ex["world"] != 1:
+        raise AssertionError("the capture holds step %d world %d"
+                             % (cstep, ex["world"]))
+    _bitwise(want_p, want_m, cp, cm, "the wedged capture")
+    p_next = dict(inflight[0].named_parameters())
+    if all(bool((p_next[n].cpu() == t).all()) for n, t in want_p.items()):
+        raise AssertionError("the in-flight step changed nothing")
+    n_steps = ELASTIC_WEDGE_STEPS + 1
+    check_only(kernels, {k: cfg.n_layers * n_steps for k in TRAIN_KERNELS},
+               "the elastic phase's in-process steps")
+    launches = {k: kernels.launches[k] for k in TRAIN_KERNELS}
+    res = {"capture_s": capture_s, "capture": coord.capture,
+           "reserve_s": reserve_s,
+           "wedge_s": wedge_s, "still_wedged_after_reshard": still_wedged,
+           "step_ms_accum1": 1e3 * float(np.median(step_s[1:])),
+           "first_step_ms_accum1": 1e3 * step_s[0], "launches": launches,
+           "reshard": reshard}
+    log("elastic capture under a wedged stream (%s): %d flagship steps at "
+        "accum 1 (%.1f ms a step, first %.1f ms; %d launches of each flash "
+        "kernel over them and the in-flight step, %d a step), then a %.0f s "
+        "spin kernel on the "
+        "compute stream with step %d queued behind it: the shrink committed "
+        "step %d's shard in %.3f s (host copies %.1f ms on a side stream, "
+        "write %.1f ms, %d bytes; limit %.1f s) while the stream was still "
+        "wedged, bitwise step %d's state and not step %d's; the wedge "
+        "lasted %.1f s; the first step boundary pinned the capture's host "
+        "buffers in %.3f s"
+        % (card_line(), ELASTIC_WEDGE_STEPS, res["step_ms_accum1"],
+           res["first_step_ms_accum1"], launches["flash_fwd"],
+           cfg.n_layers, ELASTIC_WEDGE_S, ELASTIC_WEDGE_STEPS + 1, ELASTIC_WEDGE_STEPS,
+           capture_s, coord.capture["capture_ms"],
+           coord.capture["write_ms"], coord.capture["bytes"],
+           ELASTIC_CAPTURE_LIMIT_S, ELASTIC_WEDGE_STEPS,
+           ELASTIC_WEDGE_STEPS + 1, wedge_s, reserve_s))
+    log("elastic reshard (%s), during the wedge (still wedged after it: "
+        "%s): the flagship state as a %d-rank set, %d bytes saved in %.2f s "
+        "(%.0f MB/s, four ranks at once) and merged at world 1 in %.2f s "
+        "(%.0f MB/s), bitwise; rank 2 lost: %d momentum elements zero, "
+        "every other byte bitwise; the captured world-1 set resharded to "
+        "world %d (saved in %.2f s) and merged, bitwise"
+        % (card_line(), still_wedged, ELASTIC_RESHARD_WORLD,
+           reshard["save_bytes"], reshard["save_s"], reshard["save_mb_s"],
+           reshard["merge_s"], reshard["merge_mb_s"], reshard["zeroed"],
+           ELASTIC_RESHARD_WORLD, reshard["host_save_s"]))
+    shutil.rmtree(os.path.join(root, "wedge-ck"), ignore_errors=True)
+    return res
+
+
+def mf_symbol(mt, spec=MF):
+    """matrix_factorization.py's net."""
+    sym = mt.sym
+    user, item = sym.Variable("user"), sym.Variable("item")
+    score = sym.Variable("score_label")
+    with mt.AttrScope(ctx_group="dev1"):
+        user_vec = sym.Flatten(sym.Embedding(
+            user, input_dim=spec["num_users"],
+            output_dim=spec["factor_size"], name="user_emb"))
+    with mt.AttrScope(ctx_group="dev2"):
+        item_vec = sym.Flatten(sym.Embedding(
+            item, input_dim=spec["num_items"],
+            output_dim=spec["factor_size"], name="item_emb"))
+        pred = sym.sum(user_vec * item_vec, axis=1)
+    return sym.LinearRegressionOutput(pred, score, name="score")
+
+
+def mf_data(spec=MF, seed=0):
+    """The example's synthetic ratings and Normal(0.1) starting
+    embeddings (drawn once on the host, so both fits start alike)."""
+    rng = np.random.RandomState(seed)
+    true_u = rng.randn(spec["num_users"], 4).astype(np.float32)
+    true_i = rng.randn(spec["num_items"], 4).astype(np.float32)
+    users = rng.randint(0, spec["num_users"], spec["ratings"])
+    items = rng.randint(0, spec["num_items"], spec["ratings"])
+    scores = (true_u[users] * true_i[items]).sum(1)
+    init = np.random.RandomState(seed + 1)
+    start = {"user_emb_weight": (init.randn(spec["num_users"],
+                                            spec["factor_size"]) * 0.1)
+             .astype(np.float32),
+             "item_emb_weight": (init.randn(spec["num_items"],
+                                            spec["factor_size"]) * 0.1)
+             .astype(np.float32)}
+    return users.astype(np.float32), items.astype(np.float32), scores, start
+
+
+def elastic_group2ctx(torch, mt, spec=MF, tol=TOL_MF):
+    """matrix_factorization.py through Module.fit at its defaults (Adam,
+    lr 0.1, 8 epochs of 64-row batches, mse) with the user half placed on
+    the host and the item half on the card (group2ctxs), against the same
+    fit with every group on the card."""
+    users, items, scores, start = mf_data(spec)
+    fits = {}
+    for key, g2c in (("placed", {"dev1": mt.cpu(0), "dev2": mt.gpu(0)}),
+                     ("card", {"dev1": mt.gpu(0), "dev2": mt.gpu(0)})):
+        with mt.gpu(0):
+            np.random.seed(3)
+            train = mt.io.NDArrayIter(
+                {"user": users, "item": items}, {"score_label": scores},
+                batch_size=spec["batch_size"], shuffle=True)
+            mod = mt.mod.Module(mf_symbol(mt, spec),
+                                data_names=("user", "item"),
+                                label_names=("score_label",),
+                                group2ctxs=g2c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.fit(train, num_epoch=spec["num_epochs"], optimizer="adam",
+                    optimizer_params={"learning_rate": spec["lr"]},
+                    arg_params={k: mt.nd.array(v) for k, v in start.items()},
+                    eval_metric="mse")
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            train.reset()
+            mod.forward_backward(train.next())
+            transfers = list(mod._exec.transfers)
+            pred = mod.get_outputs()[0]
+            ex = mod._exec
+            placement = {n: str(ex.arg_dict[n]._data.device)
+                         for n in ("user_emb_weight", "item_emb_weight")}
+            placement["prediction"] = str(pred._data.device)
+            mse = dict(mod.score(train, "mse"))["mse"]
+        args, _ = mod.get_params()
+        fits[key] = ({k: v.asnumpy() for k, v in args.items()}, fit_s,
+                     transfers, placement, mse)
+    got, want = fits["placed"][0], fits["card"][0]
+    worst = max(float(np.linalg.norm(got[k] - want[k])
+                      / np.linalg.norm(want[k] - start[k])) for k in want)
+    placed = fits["placed"][3]
+    if not (placed["item_emb_weight"].startswith("cuda")
+            and placed["prediction"].startswith("cuda")
+            and placed["user_emb_weight"] == "cpu"):
+        raise AssertionError("group2ctx placement: %s" % placed)
+    if not worst <= tol or not np.isfinite(fits["placed"][4]):
+        raise AssertionError("the placed fit is %.3g from the card's" % worst)
+    tr = fits["placed"][2]
+    if not tr or fits["card"][2]:
+        raise AssertionError("boundary transfers: placed %s, card %s"
+                             % (tr, fits["card"][2]))
+    desc = ", ".join("%s -> %s %d B" % (a, b, n) for a, b, n in tr)
+    log("group2ctx (%s): matrix_factorization.py's defaults (%d x %d and "
+        "%d x %d embeddings, %d ratings, batch %d, %d epochs of Adam lr "
+        "%g) with dev1 on cpu(0) and dev2 on gpu(0): placement %s; the "
+        "fit %.2f s (all on the card %.2f s), train mse %.5f (card %.5f); "
+        "parameters within %.3g of the all-card fit's change (relative L2, "
+        "limit %g); %d boundary transfers a batch (forward and backward): "
+        "%s" % (card_line(), spec["num_users"], spec["factor_size"],
+                spec["num_items"], spec["factor_size"], spec["ratings"],
+                spec["batch_size"], spec["num_epochs"], spec["lr"], placed,
+                fits["placed"][1], fits["card"][1], fits["placed"][4],
+                fits["card"][4], worst, tol, len(tr), desc))
+    return {"rel": worst, "transfers": len(tr),
+            "transfer_bytes": sum(n for _a, _b, n in tr),
+            "fit_s": fits["placed"][1], "card_fit_s": fits["card"][1]}
+
+
+def elastic_two_contexts(torch, mt, spec=MODULE_CHECK):
+    """Module(context=[gpu(0), cpu(0)], kvstore="device") binds on gpu(0)
+    and makes a store (update_on_kvstore): two batches of the ResNet-18
+    thumbnail give parameters and moving statistics bitwise those of the
+    module bound on [gpu(0)] with a created device store, with the same
+    dispatch_stats. cuDNN's convolution backward is not deterministic, so
+    the leg sets torch.backends.cudnn.deterministic and restores it."""
+    from mxnet_tpu_torch import entry
+    from mxnet_tpu_torch.symbols import resnet
+    shape = (3, spec["image_size"], spec["image_size"])
+    start, start_aux = module_check_start(mt, spec, shape)
+    got = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for key, context, store in (
+                ("two", [mt.gpu(0), mt.cpu(0)], "device"),
+                ("one", [mt.gpu(0)], mt.kvstore.create("device"))):
+            with mt.gpu(0):
+                np.random.seed(0)
+                train = entry.synthetic_iter(
+                    spec["classes"], shape, spec["batch"],
+                    num_batches=spec["num_batches"])
+                mod = mt.mod.Module(resnet.get_symbol(
+                    spec["classes"], spec["num_layers"], shape),
+                    context=context)
+                mod.fit(train, eval_metric="acc", kvstore=store,
+                        optimizer="sgd", optimizer_params=entry.FIT_SGD,
+                        arg_params={k: mt.nd.array(v)
+                                    for k, v in start.items()},
+                        aux_params={k: mt.nd.array(v)
+                                    for k, v in start_aux.items()},
+                        num_epoch=1)
+            arg, aux = mod.get_params()
+            got[key] = ({k: v.asnumpy() for k, v in arg.items()},
+                        {k: v.asnumpy() for k, v in aux.items()},
+                        mod._kvstore, mod._update_on_kvstore)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    two, one = got["two"], got["one"]
+    if two[2] is None or not two[3] or one[2] is None or not one[3]:
+        raise AssertionError("the two-context module made no store")
+    if two[2].dispatch_stats != one[2].dispatch_stats:
+        raise AssertionError("dispatch_stats differ: %s vs %s"
+                             % (two[2].dispatch_stats, one[2].dispatch_stats))
+    for a, b in ((two[0], one[0]), (two[1], one[1])):
+        for k in b:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError("the two-context module's %s is not "
+                                     "the created store's" % k)
+    log("Module over [gpu(0), cpu(0)] with kvstore='device' (%s): bound on "
+        "gpu(0), a store made (%s, update_on_kvstore), %d batches of the "
+        "ResNet-%d thumbnail (%d x %d^2) bitwise the one-context module "
+        "with a created device store, dispatch_stats %s (cudnn "
+        "deterministic for the leg, restored to %s)"
+        % (card_line(), two[2].type, spec["num_batches"],
+           spec["num_layers"], spec["batch"], spec["image_size"],
+           two[2].dispatch_stats, saved))
+    return {"dispatch_stats": dict(two[2].dispatch_stats)}
+
+
+def elastic_phase(torch, mt, device):
+    """Elastic worlds and the shard checkpoints on the card:
+    the flagship's shrink and exact resume under the port's launcher, the
+    capture under a wedged compute stream with the 4-rank reshard beside
+    it, group2ctx placement across the host and the card, and a Module
+    over two contexts. Returns the numbers and the launches."""
+    t0 = time.perf_counter()
+    root = elastic_root()
+    out = {}
+    try:
+        out["shrink"] = elastic_shrink(torch, root)
+        torch.cuda.empty_cache()
+        out["wedge"] = elastic_wedge(torch, mt, device, root)
+        torch.cuda.empty_cache()
+        out["group2ctx"] = elastic_group2ctx(torch, mt)
+        out["two_contexts"] = elastic_two_contexts(torch, mt)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    per_step = out["shrink"]["launches_per_step"]
+    workers = per_step * out["shrink"]["steps_g1"]
+    out["launches"] = {k: out["wedge"]["launches"][k] + workers
+                       for k in TRAIN_KERNELS}
+    out["seconds"] = time.perf_counter() - t0
+    log("elastic phase (%s): %.1f s; B1/B2a/B2b launches %s (in-process %s, "
+        "generation 1's worker %d each: %d a step at accum 2)"
+        % (card_line(), out["seconds"], out["launches"],
+           out["wedge"]["launches"], workers, per_step))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6125,6 +6810,7 @@ def main():
                       resnet["train"]["step_ms"])
     io_phase(torch, mxnet_tpu_torch, device)
     moduled = module_phase(torch, mxnet_tpu_torch, device)
+    elasticd = elastic_phase(torch, mxnet_tpu_torch, device)
     log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms; "
         "mesh forward %.3f ms" % (served["step_ms"], generated["step_ms"],
                                   trained["step_ms"], meshed["forward_ms"]))
@@ -6157,6 +6843,9 @@ def main():
         row["mesh_launches"] = mesh_trained.get(row["name"], 0)
         # the kvstore and Module phase's path launches no hand kernel
         row["module_launches"] = moduled["launches"].get(row["name"], 0)
+        # the elastic phase's flagship steps (B1/B2a/B2b only), in this
+        # process and in generation 1's worker
+        row["elastic_launches"] = elasticd["launches"].get(row["name"], 0)
     log(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,12 @@ same step fed by ``io.ImageRecordIter`` from a RecordIO file it writes.
 ``examples/image_classification/train_imagenet.py --benchmark 1`` through
 ``common.fit``: ``Module.fit`` of the example's symbolic ResNet
 (``symbols.resnet``) on ``synthetic_iter``'s data through a kvstore.
+``elastic_worker`` is one generation of an elastic job (the counterpart
+of ``examples/elastic_training.py``'s ``elastic_worker``), run by the
+port's launcher as ``python -m mxnet_tpu_torch.entry --elastic-worker``;
+``dryrun_multichip(n)`` is the counterpart of
+``__graft_entry__.dryrun_multichip`` on an ``n``-rank world of processes
+(each runs ``python -m mxnet_tpu_torch.entry --dryrun-rank``).
 
 ``entry`` and ``build_train_step`` trace the Gluon model-zoo net through
 ``utils.functionalize_block`` and run its graph function with torch ops
@@ -21,6 +27,7 @@ tensors by name (``models.convert.graph_params_from_numpy``).
 import io as _io
 import os
 import shutil
+import sys
 import tempfile
 import time
 
@@ -35,12 +42,13 @@ from . import module
 from . import ndarray as nd
 from . import recordio
 from .symbols import resnet as resnet_symbols
-from .context import current_context
+from .context import current_context, resolve_device
 from .gluon.model_zoo import vision
 from .utils import functionalize_block
 
 __all__ = ["entry", "build_train_step", "make_record_dataset", "record_iter",
-           "real_data", "synthetic_iter", "module_fit"]
+           "real_data", "synthetic_iter", "module_fit", "elastic_worker",
+           "elastic_tokens", "dryrun_multichip"]
 
 MOMENTUM = 0.9
 SEED = 0            # entry's example input; real_data's records and draws
@@ -341,3 +349,466 @@ def module_fit(batch=128, image_size=224, num_layers=50, classes=CLASSES,
                                                          disp_batches)]
                 + list(batch_end_callback or []))
     return mod
+
+
+# ------------------------------------------------------ elastic worker ---
+
+# examples/elastic_training.py's elastic worker: its toy model, its fixed
+# token set (64 rows from RandomState(7)) and 8 global rows a step
+ELASTIC_TOY_CFG = dict(vocab_size=41, d_model=16, n_heads=2, n_layers=1,
+                       d_ff=32, max_len=32)
+ELASTIC_ROWS = 8
+ELASTIC_DATA = dict(rows=64, seed=7)
+ELASTIC_LR = 0.1
+# an absent peer's exit code (the elastic worker's `solo` mode)
+ABSENT_PEER_EXIT_CODE = 31
+# a collective's time limit in an elastic world, well past the heartbeat
+# staleness window, so that the backend's watchdog does not end a
+# survivor before its shrink is committed
+ELASTIC_COLLECTIVE_TIMEOUT_S = 300.0
+
+
+def elastic_tokens(cfg, spec=ELASTIC_DATA):
+    """The worker's fixed token set, as the example makes it."""
+    return np.random.RandomState(spec["seed"]).randint(
+        0, cfg.vocab_size, (spec["rows"], cfg.max_len)).astype(np.int32)
+
+
+def _say(line):
+    """One line to stdout in one write, so that the lines of the ranks
+    sharing a pipe never interleave."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
+def _param_l1(params):
+    return float(sum(float(p.detach().abs().sum()) for p in
+                     params.parameters()))
+
+
+def elastic_worker(ckpt_dir, cfg=None, steps=8, gen_steps=2, lr=ELASTIC_LR,
+                   allow_partial=False, keep_global_batch=False,
+                   heartbeat_s=None, miss=None, keep_generations=None,
+                   chaos_spec=None, solo=False, device=None):
+    """One generation of an elastic job under
+    ``mxnet_tpu_torch.tools.elastic_launch`` (the port's counterpart of
+    ``examples/elastic_training.py``'s ``elastic_worker``). Returns the
+    process's exit code; a shrink or a boundary with a coordinator leaves
+    the process from inside (44, 45).
+
+    The rank, world and generation come from the launcher's variables.
+    The worker resumes through ``checkpoint.resume_elastic`` (the newest
+    shard set or checkpoint; ``MXNET_ELASTIC_RESUME_GEN`` pins a shard
+    generation) or starts fresh from ``init_params(cfg, seed=0)``, reads
+    ``elastic_tokens(cfg)`` through an ``io.NDArrayIter`` cursor, 8 global
+    rows a step whatever the world, and trains with
+    ``elastic.make_accum_train_step`` at ``accum =
+    accumulation_factor(base_world, world)`` under ``keep_global_batch``.
+    Above a world of one it joins the process group (NCCL on the GPU,
+    gloo on the CPU) and installs an ``ElasticCoordinator`` whose provider
+    holds the last completed step, with the CUDA event recorded after it;
+    it saves a shard set at a boundary and at the end. ``cfg`` is a
+    ``TransformerConfig`` (the example's toy model by default).
+    ``heartbeat_s``, ``miss`` and ``keep_generations`` are the JAX
+    package's knobs (2 s, 3, 2); ``chaos_spec`` installs chaos rules (the
+    launcher's ``--chaos-spec`` reaches the worker as ``MXNET_CHAOS``).
+
+    ``solo`` is a one-card world: rank 0 trains alone on the global batch
+    without a process group, and every other rank exits at once with
+    ``ABSENT_PEER_EXIT_CODE`` and no heartbeat, a peer whose host never
+    came up. Rank 0's monitor thread then finds it dead on the sideband,
+    as it would a real one.
+
+    Machine-checkable lines: ``LOSS g<gen> r<rank> <step> <float hex>``,
+    ``DATA g<gen> r<rank> <step> <row_lo> <row_hi>``, ``LAUNCHES
+    g<gen> r<rank> <step> <flash_fwd> <flash_bwd_dq> <flash_bwd_dkv>``
+    (the step's kernel launches), ``STEPMS g<gen> r<rank> <step> <ms>``,
+    ``TTR <ms>`` (after the first step of a generation that came up in a
+    recovery: from the failure's record to that step) and ``final
+    g<gen> r<rank> step <n> param_l1 <x> fingerprint <crc>``."""
+    from . import kernels, parallel
+    from .context import Context
+    from .models import checkpoint as ckpt
+    from .models import transformer as tf
+    from .observability import chaos
+    from .parallel import elastic
+
+    rank, world = elastic.rank_env(), elastic.world_env()
+    gen = elastic.generation_env()
+    base_world = int(os.environ.get("MXNET_ELASTIC_BASE_WORLD", world))
+    if solo and rank != 0:
+        _say("simulated peer: rank %d of generation %d never starts (no "
+             "heartbeat; exit %d)" % (rank, gen, ABSENT_PEER_EXIT_CODE))
+        return ABSENT_PEER_EXIT_CODE
+    if chaos_spec:
+        chaos.install(chaos_spec)
+    cfg = cfg or tf.TransformerConfig(**ELASTIC_TOY_CFG)
+    joined = not solo and world > 1 and parallel.init_distributed(
+        timeout=ELASTIC_COLLECTIVE_TIMEOUT_S)
+    device = resolve_device(device)
+    mesh = parallel.make_mesh({"dp": world, "tp": 1, "sp": 1, "ep": 1},
+                              device=device) if joined else None
+    accum = elastic.accumulation_factor(base_world, world) \
+        if keep_global_batch else 1
+    rows = ELASTIC_ROWS
+
+    def fresh():
+        p = tf.init_params(cfg, seed=0, device=device)
+        if mesh is not None:
+            p = tf.shard_params(p, cfg, mesh)
+        return cfg, p, tf.init_momentum(p), 0, {}
+
+    resume_gen = os.environ.get("MXNET_ELASTIC_RESUME_GEN")
+    _, params, mom, start, extras = ckpt.resume_elastic(
+        ckpt_dir, mesh, init=fresh, expect_generation=gen,
+        allow_partial=allow_partial,
+        generation=int(resume_gen) if resume_gen else None, device=device)
+    data = elastic_tokens(cfg)
+    host = Context("cpu", 0)
+    with host:
+        it = io.NDArrayIter(data, batch_size=rows,
+                            last_batch_handle="discard")
+    if extras.get("cursor"):
+        it.load_state_dict(elastic.cursor_from_json(extras["cursor"]))
+    if extras.get("rng"):
+        elastic.restore_rng(extras["rng"])
+    if start:
+        _say("resumed g%d r%d from step %d (world %d, accum %d)"
+             % (gen, rank, start, world, accum))
+
+    live = {"params": params, "mom": mom, "step": start,
+            "cursor": it.state_dict(), "ready": None}
+
+    def provider():
+        return {"cfg": cfg, "params": live["params"],
+                "momentum": live["mom"], "step": live["step"],
+                "cursor": elastic.jsonable_cursor(live["cursor"]),
+                "rng": elastic.capture_rng(), "ready": live["ready"],
+                "metadata": {"elastic": {"generation": gen,
+                                         "world": world}}}
+
+    coord = None
+    if elastic.enabled() and world > 1:
+        coord = elastic.install_coordinator(elastic.ElasticCoordinator(
+            ckpt_dir, provider, interval=heartbeat_s, miss=miss,
+            keep_generations=keep_generations, monitor=not joined))
+        if joined:
+            # every rank has beaten once it passes the barrier: only then
+            # may a missing heartbeat mean a dead peer
+            torch.distributed.barrier()
+            coord.start()
+    ckpt.install_emergency_checkpoint(ckpt_dir, provider, on_watchdog=False)
+
+    def save_shard(step):
+        ckpt.save_shard_checkpoint(
+            ckpt_dir, cfg, live["params"], momentum=live["mom"], step=step,
+            rank=rank, world=world, generation=gen + 1,
+            cursor=elastic.jsonable_cursor(live["cursor"]),
+            rng=elastic.capture_rng(), base_world=base_world,
+            keep_generations=keep_generations, ready=live["ready"])
+
+    step_fn = elastic.make_accum_train_step(cfg, mesh, lr=lr, accum=accum)
+    cuda = device.type == "cuda"
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    gen_steps_done = 0
+    for step in range(start + 1, steps + 1):
+        row_lo = int(it.cursor) + rows      # the rows this batch takes
+        with host:
+            batch = it.next().data[0].asnumpy().astype(np.int32)
+        micro = torch.from_numpy(batch.reshape(
+            accum, rows // accum, cfg.max_len)).to(device)
+        before = [kernels.launches[n] for n in names]
+        t0 = time.perf_counter()
+        try:
+            params, mom, loss = step_fn(params, mom, micro)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+            loss_val = float(loss)          # the step COMPLETED
+        except Exception:
+            # a gloo peer's death can surface as a collective error rather
+            # than a hang: membership is still the heartbeats' verdict, so
+            # poll out the staleness window before concluding
+            if coord is not None:
+                hb = elastic.heartbeat_s(heartbeat_s)
+                deadline = time.time() + hb * (
+                    elastic.miss_threshold(miss) + 2)
+                while time.time() < deadline:
+                    dead = coord.dead()
+                    if dead:
+                        coord.shrink(dead)  # exits 44
+                    time.sleep(hb / 2)
+            raise
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        # print BEFORE publishing the step to the capture: a shrink landing
+        # in between resumes from the previous step and prints this step's
+        # lines again, the same (at-least-once logging, the update applied
+        # once)
+        _say("DATA g%d r%d %d %d %d" % (gen, rank, step, row_lo,
+                                        row_lo + rows))
+        _say("LOSS g%d r%d %d %s" % (gen, rank, step, loss_val.hex()))
+        _say("LAUNCHES g%d r%d %d %s" % (
+            gen, rank, step, " ".join(str(kernels.launches[n] - b)
+                                      for n, b in zip(names, before))))
+        _say("STEPMS g%d r%d %d %.3f" % (gen, rank, step, step_ms))
+        live.update(params=params, mom=mom, step=step,
+                    cursor=it.state_dict(), ready=ready)
+        if gen_steps_done == 0 and rank == 0:
+            ttr = elastic.observe_recovery()
+            if ttr is not None:
+                _say("TTR %.1f" % ttr)
+        if coord is not None:
+            coord.beat(step)
+            coord.check()
+        chaos.fire("train.step", step=step)   # injected kills land here
+        gen_steps_done += 1
+        if step < steps and gen_steps and gen_steps_done >= gen_steps \
+                and world < base_world:
+            # a generation boundary: hand back so the recovered host can
+            # rejoin; the g+1 shard set carries the exact cursor
+            if coord is not None and not coord.stop():
+                coord.wait_for_shrink()     # the shrink leaves with 44
+            save_shard(step)
+            _say("boundary g%d r%d at step %d" % (gen, rank, step))
+            if coord is not None:
+                coord.leave_at_boundary()
+            return elastic.BOUNDARY_EXIT_CODE
+    # disarm the shrink first: this rank is done, and a shrink that began
+    # on the monitor thread captured an earlier step and leaves with 44
+    if coord is not None and not coord.stop():
+        coord.wait_for_shrink()
+    save_shard(steps)
+    ckpt.uninstall_emergency_checkpoint()
+    fingerprint = ckpt.fingerprint_entries(
+        ("p." + n, ckpt._dtype_name(t), tuple(t.shape),
+         ckpt._to_numpy(t.detach().cpu()).tobytes())
+        for n, t in tf.flat_tensors(params).items())
+    _say("final g%d r%d step %d param_l1 %.6f fingerprint %s"
+         % (gen, rank, steps, _param_l1(params), fingerprint))
+    return 0
+
+
+# ------------------------------------------------------ multichip dryrun --
+
+def _dryrun_axes(n):
+    """``__graft_entry__.dryrun_multichip``'s factoring: sp, tp, then ep
+    take a factor of 2 each before dp; dp absorbs the rest."""
+    axes = {"dp": 1, "tp": 1, "sp": 1, "ep": 1}
+    for name in ("sp", "tp", "ep", "dp"):
+        if n % 2 == 0 and n > 1:
+            axes[name] *= 2
+            n //= 2
+    axes["dp"] *= n
+    return axes
+
+
+def _dryrun_pp_axes(n):
+    axes = {"pp": 2, "sp": 1, "tp": 1, "dp": 1, "ep": 1}
+    n //= 2
+    for name in ("sp", "tp", "dp"):
+        if n % 2 == 0 and n > 1:
+            axes[name] *= 2
+            n //= 2
+    axes["dp"] *= n
+    return axes
+
+
+def _dryrun_rank(n, store, out):
+    """One rank of :func:`dryrun_multichip`: the three legs, rank 0
+    writing their losses to ``out``."""
+    import json as _json
+    from . import autograd, gluon, parallel
+    from . import random as _random
+    from .context import Context, gpu
+    from .models import transformer as tf
+
+    rank = int(os.environ["MXNET_TPU_PROC_ID"])
+    parallel.init_distributed("file://" + store, n, rank)
+    cuda = torch.cuda.is_available()
+    device = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+    ctx = gpu(device.index) if cuda else Context("cpu", 0)
+    losses = {}
+
+    def report(what, mesh_axes, loss):
+        if not np.isfinite(loss):
+            raise AssertionError("non-finite %s loss in the multichip dryrun"
+                                 % what)
+        losses[what] = loss
+        if rank == 0:
+            print("dryrun_multichip(%d): %s mesh=%s loss=%.4f OK"
+                  % (n, what, mesh_axes, loss), flush=True)
+
+    # the LM step under dp/tp/sp/ep: experts really sharded over ep
+    axes = _dryrun_axes(n)
+    mesh = parallel.make_mesh(axes, device=device)
+    cfg = tf.TransformerConfig(
+        vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+        n_experts=max(2, axes["ep"]), max_len=32, n_kv_heads=2, rope=True,
+        use_ring_attention=axes["sp"] > 1, remat_layers=True)
+    params = tf.shard_params(tf.init_params(cfg, seed=0, device=device),
+                             cfg, mesh)
+    momentum = tf.init_momentum(params)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (max(4, 2 * axes["dp"]), cfg.max_len))
+    _, _, loss = tf.make_train_step(cfg, mesh, lr=1e-2)(params, momentum,
+                                                         tokens)
+    report("lm", axes, float(loss))
+
+    # ResNet-50 data parallel through the Gluon Trainer over dist_sync:
+    # each rank its block of the global batch, the gradients summed
+    rb = 2 * n
+    _random.seed(0)
+    with ctx:
+        rnet = vision.resnet50_v1(classes=10)
+        rnet.initialize(initializer.Xavier())
+        rnet.hybridize()
+        trainer = gluon.Trainer(rnet.collect_params(), "sgd",
+                                {"learning_rate": 0.05, "momentum": 0.9},
+                                kvstore="dist_sync")
+        rx = np.random.RandomState(2).rand(rb, 3, 32, 32).astype("float32")
+        ry = np.random.RandomState(3).randint(0, 10, (rb,)).astype("float32")
+        lo, hi = 2 * rank, 2 * rank + 2
+        with autograd.record():
+            part = gluon.loss.SoftmaxCrossEntropyLoss()(
+                rnet(nd.array(rx[lo:hi])), nd.array(ry[lo:hi])).sum() / rb
+        part.backward()
+        trainer.step(1)
+        total = part._data.detach().reshape(1).clone()
+        torch.distributed.all_reduce(total)
+    report("resnet50 dp", {"dp": n}, float(total[0]))
+
+    # pipeline parallelism: pp x sp x tp, the stage-major schedule
+    if n % 2 == 0:
+        pp_axes = _dryrun_pp_axes(n)
+        pp_mesh = parallel.make_mesh(pp_axes, device=device)
+        pp_cfg = tf.TransformerConfig(
+            vocab_size=64, d_model=32, n_heads=4, n_layers=4, d_ff=64,
+            max_len=32, pp_axis="pp", use_ring_attention=pp_axes["sp"] > 1,
+            remat_layers=True)
+        pp_params = tf.shard_params(
+            tf.init_params(pp_cfg, seed=0, device=device), pp_cfg, pp_mesh)
+        pp_tokens = np.random.RandomState(1).randint(
+            0, pp_cfg.vocab_size, (max(4, 2 * pp_axes["dp"]),
+                                   pp_cfg.max_len))
+        _, _, pp_loss = tf.make_train_step(pp_cfg, pp_mesh, lr=1e-2)(
+            pp_params, tf.init_momentum(pp_params), pp_tokens)
+        report("pp", pp_axes, float(pp_loss))
+    torch.distributed.barrier()
+    if rank == 0:
+        with open(out, "w") as f:
+            _json.dump(losses, f)
+    torch.distributed.destroy_process_group()
+
+
+def dryrun_multichip(n, device=None, timeout=600):
+    """The port's counterpart of ``__graft_entry__.dryrun_multichip``:
+    spawn an ``n``-rank world (each rank a process running this module,
+    joined through ``parallel.init_distributed`` over a FileStore) and
+    run one step of each of JAX's three legs — the LM train step under
+    dp/tp/sp/ep (JAX's axis factoring), the ResNet-50 dp step through the
+    Gluon ``Trainer`` over ``dist_sync``, and the pp x sp x tp step. Each
+    leg's loss must be finite; rank 0 prints ``... loss=... OK`` per leg.
+
+    The world uses NCCL, one card a rank, and needs ``n`` cards, unless
+    the caller asks for the CPU (``device="cpu"``): then gloo. Returns
+    {leg: loss}."""
+    import json as _json
+    import subprocess
+    import sys
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        resolve_device(device)
+        if torch.cuda.device_count() < n:
+            raise RuntimeError(
+                "dryrun_multichip(%d) needs %d cards, one a rank (this host "
+                "has %d); pass device='cpu' for a gloo world on the host"
+                % (n, n, torch.cuda.device_count()))
+    work = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        store, out = os.path.join(work, "store"), os.path.join(work,
+                                                               "out.json")
+        env = dict(os.environ, MXNET_TPU_NUM_PROC=str(n))
+        if cpu:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.entry", "--dryrun-rank",
+             str(n), store, out], env=dict(env, MXNET_TPU_PROC_ID=str(r)))
+            for r in range(n)]
+        deadline = time.time() + timeout
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, deadline - time.time())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if any(c != 0 for c in codes):
+            raise RuntimeError("dryrun_multichip(%d): rank exit codes %s"
+                               % (n, codes))
+        with open(out) as f:
+            return _json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _main(argv=None):
+    import argparse
+    import json as _json
+    import sys
+    from .models import transformer as tf
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dryrun-rank"] and len(argv) == 4:
+        _dryrun_rank(int(argv[1]), argv[2], argv[3])
+        return 0
+    ap = argparse.ArgumentParser(
+        description="the port's elastic worker, one generation of a job "
+                    "under python -m mxnet_tpu_torch.tools.elastic_launch")
+    ap.add_argument("--elastic-worker", action="store_true", required=True)
+    ap.add_argument("--ckpt-dir", default="./elastic_ckpt")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--gen-steps", type=int, default=2,
+                    help="steps a shrunk generation runs before handing "
+                         "back at a boundary")
+    ap.add_argument("--lr", type=float, default=ELASTIC_LR)
+    ap.add_argument("--config", default=None,
+                    help="TransformerConfig fields as JSON (default: the "
+                         "example's toy model)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    ap.add_argument("--allow-partial", action="store_true")
+    ap.add_argument("--keep-global-batch", action="store_true")
+    ap.add_argument("--heartbeat-s", type=float, default=None)
+    ap.add_argument("--miss", type=int, default=None)
+    ap.add_argument("--keep-generations", type=int, default=None)
+    ap.add_argument("--solo", action="store_true",
+                    help="one card: rank 0 trains alone, other ranks exit "
+                         "at once as absent peers")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA device)")
+    args = ap.parse_args(argv)
+    fields = _json.loads(args.config) if args.config else \
+        dict(ELASTIC_TOY_CFG)
+    cfg = tf.TransformerConfig(dtype=getattr(torch, args.dtype), **fields)
+    return elastic_worker(
+        args.ckpt_dir, cfg, steps=args.steps, gen_steps=args.gen_steps,
+        lr=args.lr, allow_partial=args.allow_partial,
+        keep_global_batch=args.keep_global_batch,
+        heartbeat_s=args.heartbeat_s, miss=args.miss,
+        keep_generations=args.keep_generations,
+        # the launcher's --chaos-spec reaches the worker as MXNET_CHAOS
+        chaos_spec=os.environ.get("MXNET_CHAOS"), solo=args.solo,
+        device=args.device)
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -8,15 +8,23 @@ BatchNorm's batch statistics fold into its running statistics,
 ``momentum * old + (1 - momentum) * stat`` in the aux arrays' dtype, out
 of the autograd graph (the reference op mutates its aux states in
 place; here the new values are returned). Stateful-RNG ops draw from the
-``generator`` given.
+``generator`` given. With ``node_device`` (the ``group2ctx`` placement
+pass, graph_executor.cc:997) every node runs on its device: its inputs
+move there first, a transfer at each group boundary, and the copies are
+differentiable, so gradients flow back across them.
 
 ``Executor`` (``Symbol.bind``/``simple_bind``) runs that function:
 ``forward(is_train=True)`` records the graph with torch.autograd and
 ``backward(out_grads)`` takes the gradients of the arguments whose
 ``grad_req`` is not "null", as often as it is called, until the next
-forward. The reference's gradient mirroring (``MXNET_BACKWARD_DO_MIRROR``,
-a TPU memory lever), its observability and NaN-guard hooks and
-``group2ctx`` placement are not ported.
+forward. ``group2ctx`` places the nodes that carry a ``__ctx_group__``
+attribute on their group's device and the rest on the default context;
+each argument, gradient and auxiliary array moves at bind to the device
+of the variable that owns it, and the placed graph runs op by op (as the
+JAX package's placed graphs run unjitted). ``transfers`` lists the
+boundary copies of the last forward and backward. The reference's
+gradient mirroring (``MXNET_BACKWARD_DO_MIRROR``, a TPU memory lever) and
+its observability and NaN-guard hooks are not ported.
 """
 
 import torch
@@ -64,9 +72,12 @@ def node_eval_fn(node):
     return fn
 
 
-def build_graph_fn(symbol, is_train):
+def build_graph_fn(symbol, is_train, node_device=None, transfers=None):
     """fn(arg_dict, aux_dict, generator) -> (outputs list, new_aux dict)
-    over torch tensors."""
+    over torch tensors. ``node_device`` (node -> torch.device or None)
+    places each node: its inputs are copied to its device when they lie
+    elsewhere, and each copy is appended to the list ``transfers`` as
+    (source device, destination device, bytes)."""
     all_nodes = symbol._nodes
     nodes = symbol._active_nodes()
     out_refs = [(all_nodes[ni], oi) for ni, oi in symbol._outputs]
@@ -87,6 +98,14 @@ def build_graph_fn(symbol, is_train):
                 if pname in names)
         plan.append((node, fn, rng, folds))
 
+    def place(node, t):
+        dev = None if node_device is None else node_device(node)
+        if dev is None or t.device == dev:
+            return t
+        if transfers is not None:
+            transfers.append((t.device, dev, t.numel() * t.element_size()))
+        return _Transfer.apply(t, dev, transfers)
+
     def graph_fn(arg_arrays, aux_arrays, generator=None):
         vals = {}
         aux_updates = {}
@@ -94,13 +113,13 @@ def build_graph_fn(symbol, is_train):
             if fn is None:
                 name = node.name
                 if name in arg_arrays:
-                    vals[(id(node), 0)] = arg_arrays[name]
+                    vals[(id(node), 0)] = place(node, arg_arrays[name])
                 elif name in aux_arrays:
-                    vals[(id(node), 0)] = aux_arrays[name]
+                    vals[(id(node), 0)] = place(node, aux_arrays[name])
                 else:
                     raise MXNetError("unbound variable %s" % name)
                 continue
-            ins = [vals[(id(s._nodes[s._outputs[0][0]]), oi)]
+            ins = [place(node, vals[(id(s._nodes[s._outputs[0][0]]), oi)])
                    for s, oi in node.inputs]
             out = fn(*ins, generator=generator) if rng else fn(*ins)
             if node.op == "BatchNorm":
@@ -111,8 +130,8 @@ def build_graph_fn(symbol, is_train):
                 with torch.no_grad():
                     for k, aux_name in folds:
                         old = aux_arrays[aux_name]
-                        aux_updates[aux_name] = \
-                            mom * old + (1 - mom) * out[k].detach()
+                        aux_updates[aux_name] = mom * old + (1 - mom) * \
+                            out[k].detach().to(old.device)
                 continue
             outs = list(out) if isinstance(out, (tuple, list)) else [out]
             for k, o in enumerate(outs):
@@ -120,6 +139,23 @@ def build_graph_fn(symbol, is_train):
         return [vals[(id(node), oi)] for node, oi in out_refs], aux_updates
 
     return graph_fn
+
+
+class _Transfer(torch.autograd.Function):
+    """A copy to another device whose backward copies the gradient back,
+    each copy recorded in ``transfers``."""
+
+    @staticmethod
+    def forward(ctx, x, dev, transfers):
+        ctx.src, ctx.transfers = x.device, transfers
+        return x.to(dev)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.transfers is not None:
+            ctx.transfers.append((g.device, ctx.src,
+                                  g.numel() * g.element_size()))
+        return g.to(ctx.src), None, None
 
 
 def needs_rng(symbol):
@@ -134,9 +170,6 @@ class Executor:
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, group2ctx=None):
         from . import ndarray as nd
-        if group2ctx:
-            raise MXNetError("Executor: group2ctx placement (model "
-                             "parallelism) waits for ROADMAP item A7d")
         self._symbol = symbol
         self._ctx = ctx
         arg_names = symbol.list_arguments()
@@ -166,8 +199,35 @@ class Executor:
         self.outputs = []
         self._recorded = None
         self._needs_rng = needs_rng(symbol)
-        self._infer_fn = build_graph_fn(symbol, is_train=False)
-        self._train_fn = build_graph_fn(symbol, is_train=True)
+        self._group2ctx = dict(group2ctx or {})
+        self.transfers = []
+        node_device = self._place(ctx) if self._group2ctx else None
+        self._infer_fn = build_graph_fn(symbol, False, node_device,
+                                        self.transfers)
+        self._train_fn = build_graph_fn(symbol, True, node_device,
+                                        self.transfers)
+
+    def _place(self, ctx):
+        """The group2ctx pass (graph_executor.cc:997): node -> device, a
+        grouped node on its group's context and the rest on ``ctx``; each
+        variable's argument, gradient and auxiliary arrays move to its
+        device now."""
+        def node_ctx(node):
+            return self._group2ctx.get(node.attrs.get("__ctx_group__"), ctx)
+
+        def node_device(node):
+            return node_ctx(node).torch_device
+
+        for node in self._symbol._active_nodes():
+            if not node.is_var():
+                continue
+            for arrays in (self.arg_dict, self.grad_dict, self.aux_dict):
+                arr = arrays.get(node.name)
+                if arr is not None:
+                    c = node_ctx(node)
+                    arr._data = arr._data.to(c.torch_device)
+                    arr._ctx = c
+        return node_device
 
     # ------------------------------------------------------------ run ---
     def forward(self, is_train=False, **kwargs):
@@ -176,6 +236,7 @@ class Executor:
         BatchNorm running statistics in ``aux_dict``; is_train=False is
         pure inference."""
         from . import ndarray as nd
+        del self.transfers[:]
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError(
@@ -206,7 +267,9 @@ class Executor:
                           for k, v in self.arg_dict.items()}
             with torch.no_grad():
                 outs, _ = self._infer_fn(arg_arrays, aux_arrays, gen)
-        self.outputs = [nd.NDArray(o.detach(), self._ctx) for o in outs]
+        # a placed graph's outputs take the context of the device they lie on
+        ctx = None if self._group2ctx else self._ctx
+        self.outputs = [nd.NDArray(o.detach(), ctx) for o in outs]
         return self.outputs
 
     def backward(self, out_grads=None):

@@ -14,15 +14,19 @@ same way, the latter over the ``torch.distributed`` world.
 ``update_on_kvstore`` (set automatically when the store's sharded update
 applies: ``shard_update`` on, more than one rank, sgd/nag/adam) moves
 the optimizer into the store. ``kvstore=None`` keeps the local update
-path. Parameters on more than one context in one process raise naming
-ROADMAP item A7d. The reference's observability, chaos, memory-budget, elastic and
-integrity hooks and its AMP loss-scaler attribute are not ported.
+path, which also trains parameters that lie on several contexts, each
+updated on its own, as the JAX package's Trainer does; with a store, such
+parameters raise (JAX's fused push fails on them). Under an elastic
+launcher each step ends at ``parallel.elastic.step_boundary`` (heartbeat
+and membership check), as in JAX. The reference's observability, chaos,
+memory-budget and integrity hooks and its AMP loss-scaler attribute are
+not ported.
 """
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
-from ..parallel import fusion
+from ..parallel import elastic, fusion
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
@@ -80,20 +84,26 @@ class Trainer(object):
     def _ready(self):
         """Bring the kvstore up once, at the first call that needs it.
 
-        The parameters must share one context: a Trainer over several
-        contexts in one process is data parallelism inside the process,
-        ROADMAP item A7d (run one process a device over a dist store)."""
+        Parameters on several contexts train without a store, each updated
+        on its own context. A store packs every gradient into one buffer a
+        lane and needs them on one device: the JAX package's fused push
+        fails on parameters on two devices (its concatenate rejects them),
+        and the port refuses them up front."""
         if self._kv_initialized:
             return
+        kv = self._kvstore_type
         ctxs = {c for p in self._params if p._data is not None
                 for c in p.list_ctx()}
-        if len(ctxs) > 1:
+        if len(ctxs) > 1 and kv is not None:
             raise MXNetError(
-                "Trainer: training over %d contexts (%s) in one process "
-                "waits for ROADMAP item A7d; run one process a device "
-                "over a dist kvstore" % (
-                    len(ctxs), ", ".join(sorted(str(c) for c in ctxs))))
-        kv = self._kvstore_type
+                "Trainer: the parameters lie on %d contexts (%s) and a "
+                "kvstore (%r) would aggregate them; its fused push packs "
+                "every gradient into one buffer on one device, and the JAX "
+                "package's Trainer fails there too. Pass kvstore=None to "
+                "update each parameter on its own context, or move the "
+                "parameters to one context" % (
+                    len(ctxs), ", ".join(sorted(str(c) for c in ctxs)),
+                    kv if isinstance(kv, str) else kv.type))
         if kv is not None and not isinstance(kv, kvs.KVStore):
             kv = kvs.create(kv)
         self._kvstore = kv
@@ -141,6 +151,12 @@ class Trainer(object):
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)
+        if elastic.enabled():
+            # the elastic membership check at the step boundary: a dead
+            # peer found here shrinks before the next collective can
+            # block this rank
+            self._elastic_steps = getattr(self, "_elastic_steps", 0) + 1
+            elastic.step_boundary(self._elastic_steps)
 
     def allreduce_grads(self):
         self._ready()

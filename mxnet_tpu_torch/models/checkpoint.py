@@ -41,20 +41,31 @@ arrays under the ``#`` suffix (``p.layers.0.wq#q8``, ``#scale`` and
 ``#dt``, a zero-size array of the weight's dtype), in both directions;
 they are serving artifacts, so :func:`restore_train_state` refuses them,
 as JAX does. Restoring onto a mesh goes through
-``transformer.shard_params`` (each rank's block). Not ported: the shard
-checkpoints and elastic resume (``save_shard_checkpoint`` through
-``resume_elastic``), which need a multi-process world (ROADMAP item A7d),
-the memory budget's snapshot admission and the collective-hang
-watchdog's escalation hook (A10).
+``transformer.shard_params`` (each rank's block).
+
+**Elastic shard sets** (:func:`save_shard_checkpoint` through
+:func:`resume_elastic`) are the JAX package's too: one
+``shard-arrays-g<g>-r<r>of<w>-<stamp>.npz`` and
+``shard-manifest-g<g>-r<r>of<w>.json`` per survivor, with the replicated
+parameters, the rank's slice of every flat momentum lane
+(:func:`shard_layout`, ``fusion.plan_buckets`` over the momentum), the
+data cursor and the RNG snapshot, so a set either package wrote merges
+in the other. A shard save is collective-free: on the GPU it copies the
+tensors into pinned host memory on a stream of its own that waits only
+for the ``ready`` event of the step they belong to (:func:`_local_values`).
+Not ported: the memory budget's snapshot admission and the
+collective-hang watchdog's escalation hook (ROADMAP A10).
 """
 
 import atexit
+import collections
 import dataclasses
 import gc
 import json
 import os
 import signal
 import threading
+import time
 import traceback
 import warnings
 import zlib
@@ -96,24 +107,6 @@ class CheckpointIncompatible(CheckpointCorrupt):
     """A checkpoint that cannot serve THIS resume: a config mismatch (or
     the elastic world / generation a shard save records). The message
     names the mismatching field and both values."""
-
-
-def _a7_refusal(name):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            "checkpoint.%s: shard checkpoints and elastic resume need a "
-            "multi-process world and come with ROADMAP item A7d" % name)
-    refuse.__name__ = name
-    refuse.__doc__ = ("Not ported: raises naming ROADMAP item A7d (shard "
-                      "checkpoints and elastic resume).")
-    return refuse
-
-
-save_shard_checkpoint = _a7_refusal("save_shard_checkpoint")
-load_shard_checkpoint = _a7_refusal("load_shard_checkpoint")
-list_shard_generations = _a7_refusal("list_shard_generations")
-shard_layout = _a7_refusal("shard_layout")
-resume_elastic = _a7_refusal("resume_elastic")
 
 
 # ---------------------------------------------------------- host trees --
@@ -575,6 +568,17 @@ def _load_manifest(path, manifest_name, mesh, device):
                 "checkpoint %s (%s): parameter fingerprint %s does not "
                 "match manifest %s — refusing unverified weights"
                 % (path, manifest_name, got_fp, want_fp))
+    params, momentum = _state_from_flat(path, cfg, flat,
+                                        manifest["has_momentum"], mesh, device)
+    return cfg, params, momentum, int(manifest["step"]), \
+        manifest.get("metadata", {})
+
+
+def _state_from_flat(path, cfg, flat, has_momentum, mesh, device):
+    """(params, momentum) from verified flat arrays {key: (numpy array,
+    dtype name)}: a TransformerLM on ``device`` (or each rank's block of
+    it under ``mesh``) and the momentum dict by parameter name, or
+    None."""
     from .transformer import (Q8Weight, TransformerLM, _set_leaf,
                               shard_params)
     params = TransformerLM(cfg, device if mesh is None else mesh.device)
@@ -602,7 +606,7 @@ def _load_manifest(path, manifest_name, mesh, device):
                 _to_tensor(scale, scale_dt, p.device),
                 _DTYPES[flat[q8 + "dt"][1]]))
     momentum = None
-    if manifest["has_momentum"]:
+    if has_momentum:
         momentum = {k[len(mref):]: _to_tensor(arr, dt, params.device)
                     for k, (arr, dt) in flat.items() if k.startswith(mref)}
     if mesh is not None:
@@ -614,8 +618,7 @@ def _load_manifest(path, manifest_name, mesh, device):
             for name, m in momentum.items():
                 _set_leaf(shell, name, m)
             momentum = dict(shard_params(shell, cfg, mesh).named_parameters())
-    return cfg, params, momentum, int(manifest["step"]), \
-        manifest.get("metadata", {})
+    return params, momentum
 
 
 def load_checkpoint(path, mesh=None, fallback=True, device=None):
@@ -819,6 +822,549 @@ def _finish_train_state(cfg, params, momentum, step):
     return cfg, params, momentum, step
 
 
+# ------------------------------------------- elastic shard checkpoints --
+#
+# A *shard set* is one per-rank checkpoint per survivor of an elastic
+# generation: the replicated parameters (every rank carries them: any one
+# readable copy restores), this rank's contiguous slice of each flat
+# momentum lane, the data cursor and the RNG snapshot. The lane layout is
+# `fusion.plan_buckets` over the momentum in sorted-key order, each lane
+# padded to a multiple of the world as `ShardSlot` pads it, so any two
+# ranks compute the same layout from the same state. Merge-on-load
+# reassembles the full lanes from the recorded layout, not from a replan,
+# so a relaunch under other bucket settings still loads; re-partitioning
+# for another world is the next save's replan over the merged state.
+
+_SHARD_FORMAT = "mxnet_tpu.transformer.shard/1"
+
+# what the last shard save of this process cost: the host copies (ms),
+# the write (ms) and the bytes of its data file
+_last_shard = {"capture_ms": None, "write_ms": None, "bytes": None}
+
+
+def _np_dtype(name):
+    """The numpy dtype of a dtype name on disk: bf16 as 2-byte void
+    records, as the JAX package writes it."""
+    return np.dtype("V2") if name == "bfloat16" else np.dtype(name)
+
+
+def _leaf_dtype(x):
+    if torch.is_tensor(x):
+        return _dtype_name(x)
+    return np.dtype(getattr(x, "dtype", np.float32)).name
+
+
+# pinned host buffers reserved for a later capture, by (shape, dtype),
+# and the capture's side stream of each device
+_host_pool = {}
+_capture_streams = {}
+_host_pool_lock = threading.Lock()
+
+
+def _reserve_host_buffers(tensors):
+    """Pin host buffers now for the copies a later :func:`_local_values`
+    makes of these CUDA tensors, and make its side stream on their
+    device, so that the capture neither pins memory nor makes a stream
+    while the device is blocked. On the H100 the process's first
+    ``torch.cuda.Stream``, made while another thread waited on the device
+    behind a spinning kernel, waited until that wait ended; copies on a
+    stream made beforehand did not. The elastic coordinator reserves at
+    the training loop's first step boundary. Returns the buffers
+    reserved."""
+    tensors = [t for t in tensors if torch.is_tensor(t) and t.is_cuda]
+    wanted = collections.Counter((tuple(t.shape), t.dtype) for t in tensors)
+    with _host_pool_lock:
+        for dev in {t.device for t in tensors}:
+            if dev not in _capture_streams:
+                _capture_streams[dev] = torch.cuda.Stream(device=dev)
+        for (shape, dtype), n in wanted.items():
+            have = _host_pool.setdefault((shape, dtype), [])
+            while len(have) < n:
+                have.append(torch.empty(shape, dtype=dtype, pin_memory=True))
+    return sum(n for n in wanted.values())
+
+
+def _host_buffer(t):
+    """(a pinned buffer for ``t``'s copy, whether it came from the
+    reserved pool)."""
+    with _host_pool_lock:
+        have = _host_pool.get((tuple(t.shape), t.dtype))
+        if have:
+            return have.pop(), True
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True), False
+
+
+def _return_host_buffers(bufs):
+    with _host_pool_lock:
+        for buf in bufs:
+            _host_pool.setdefault((tuple(buf.shape), buf.dtype), []).append(
+                buf)
+
+
+def _local_values(flat, ready=None):
+    """Host copies of every leaf of ``flat`` ({key: tensor or numpy
+    array}) without a collective: ``({key: numpy array}, {key: dtype
+    name}, [pooled buffers])``.
+
+    The elastic capture calls this from the monitor thread while the
+    main thread may be blocked in an all-reduce whose peer is dead. A
+    ``.cpu()`` there would queue its copy on the compute stream behind
+    that all-reduce and never finish, and a copy into pageable memory
+    waits for the device too, even on another stream. So each device's
+    tensors are copied into pinned host memory on a stream of their own
+    that waits only for ``ready`` (the CUDA event the training loop
+    recorded after the step these tensors belong to; without one, for the
+    work queued so far on the calling thread's current stream), and only
+    that stream is synchronized.
+
+    On the H100 such copies finished while another thread waited on the
+    device behind the hung kernel (in ``float(loss)`` or
+    ``torch.cuda.synchronize()``), on a stream made before that wait
+    (:func:`_reserve_host_buffers` makes it, and pins the buffers, at the
+    training loop's first step boundary). The buffers taken from that
+    pool are listed in the third value, for the caller to hand back
+    (``_return_host_buffers``) once the arrays are written."""
+    host, dtypes, sides, pooled = {}, {}, {}, []
+    for key, x in flat.items():
+        if isinstance(x, np.ndarray):
+            host[key], dtypes[key] = x, x.dtype.name
+            continue
+        t = x.detach()
+        dtypes[key] = _dtype_name(t)
+        if not t.is_cuda:
+            host[key] = t
+            continue
+        side = sides.get(t.device)
+        if side is None:
+            with _host_pool_lock:
+                side = _capture_streams.get(t.device)
+            side = sides[t.device] = side or torch.cuda.Stream(
+                device=t.device)
+            if ready is not None:
+                side.wait_event(ready)
+            else:
+                side.wait_stream(torch.cuda.current_stream(t.device))
+        buf, from_pool = _host_buffer(t)
+        if from_pool:
+            pooled.append(buf)
+        with torch.cuda.stream(side):
+            buf.copy_(t, non_blocking=True)
+        host[key] = buf
+    for side in sides.values():
+        side.synchronize()
+    return ({k: v if isinstance(v, np.ndarray) else _to_numpy(v)
+             for k, v in host.items()}, dtypes, pooled)
+
+
+def _momentum_flat(momentum):
+    """{"m.<name>": leaf} of a momentum dict by parameter name."""
+    return {_MOMENTUM + _SEP + n: m for n, m in momentum.items()}
+
+
+def shard_layout(momentum, world):
+    """Deterministic lane layout for sharding a momentum dict (by
+    parameter name, tensors or numpy arrays) over ``world`` ranks:
+    ``fusion.plan_buckets`` over the flattened leaves in sorted-key
+    order, each lane padded so ``world`` divides it. Returns
+    ``{"signature", "world", "lanes": [{bucket, lane, dtype, size, l_pad,
+    segments}]}``, segments as ``[key, shape, size, offset]``: the JAX
+    package's layout for the same tree."""
+    from ..parallel import fusion
+    flat = _momentum_flat(momentum)
+    entries = [(k, tuple(int(d) for d in np.shape(flat[k])),
+                _leaf_dtype(flat[k])) for k in sorted(flat)]
+    plan = fusion.plan_buckets(entries)
+    sig = "%08x" % (zlib.crc32(
+        repr(fusion.plan_signature(entries)).encode()) & 0xFFFFFFFF)
+    world = int(world)
+    lanes = []
+    for bucket in plan:
+        for li, lane in enumerate(bucket.lanes):
+            l_pad = -(-lane.size // world) * world
+            lanes.append({
+                "bucket": bucket.index, "lane": li,
+                "dtype": str(lane.dtype), "size": lane.size,
+                "l_pad": l_pad,
+                "segments": [[s.key, list(s.shape), s.size, s.offset]
+                             for s in lane.segments]})
+    return {"signature": sig, "world": world, "lanes": lanes}
+
+
+def _lane_key(lane):
+    return "ms.%d.%d" % (lane["bucket"], lane["lane"])
+
+
+def _pack_lane_host(lane, flat):
+    """Host-side pack: the lane's segments raveled back to back, zero
+    padded to ``l_pad`` (the numpy twin of ``fusion.pack_lane``)."""
+    dt = _np_dtype(lane["dtype"])
+    out = np.zeros(lane["l_pad"], dt)
+    for key, _shape, size, offset in lane["segments"]:
+        out[offset:offset + size] = np.ravel(
+            np.asarray(flat[key])).astype(dt, copy=False)
+    return out
+
+
+def _shard_manifest_name(generation, rank, world):
+    return "shard-manifest-g%d-r%dof%d.json" % (generation, rank, world)
+
+
+def save_shard_checkpoint(path, cfg, params, momentum=None, step=0,
+                          rank=0, world=1, generation=0, cursor=None,
+                          rng=None, base_world=None, metadata=None,
+                          keep_generations=None, ready=None):
+    """One survivor's shard of an elastic generation's state.
+
+    Writes ``shard-arrays-g<g>-r<r>of<w>-<stamp>.npz`` and its manifest:
+    the parameters (a TransformerLM) in full, the momentum (a dict by
+    parameter name) as THIS rank's slice of every flat lane
+    (``shard_layout(momentum, world)``), the iterator ``cursor`` (a JSON
+    ``state_dict()``), the ``rng`` snapshot, and the layout itself, so
+    merge-on-load never replans. Collective-free (see
+    :func:`_local_values`; ``ready`` is the CUDA event after which the
+    tensors hold this step's values), so it runs from a monitor thread
+    while the main thread is blocked. Keeps the newest
+    ``keep_generations`` complete shard generations (default 2)."""
+    keep_generations = 2 if keep_generations is None else keep_generations
+    os.makedirs(path, exist_ok=True)
+    rank, world = int(rank), int(world)
+    if not 0 <= rank < world:
+        raise ValueError("shard rank %d outside world %d" % (rank, world))
+    t0 = time.perf_counter()
+    flat = _flatten(params, None)
+    if momentum is not None:
+        flat.update(_momentum_flat(momentum))
+    values, dtypes, pinned = _local_values(flat, ready)
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    try:
+        _write_shard(path, cfg, values, dtypes, momentum, step, rank, world,
+                     generation, cursor, rng, base_world, metadata, t0,
+                     capture_ms)
+    finally:
+        del values
+        _return_host_buffers(pinned)
+    _sweep_shards(path, keep_generations)
+    return path
+
+
+def _write_shard(path, cfg, values, dtypes, momentum, step, rank, world,
+                 generation, cursor, rng, base_world, metadata, t0,
+                 capture_ms):
+    host = {k: v for k, v in values.items()
+            if k.startswith(_PARAMS + _SEP)}
+    dtypes = {k: dtypes[k] for k in host}
+    layout = None
+    if momentum is not None:
+        layout = shard_layout(momentum, world)
+        host_m = {k: v for k, v in values.items()
+                  if k.startswith(_MOMENTUM + _SEP)}
+        for lane in layout["lanes"]:
+            packed = _pack_lane_host(lane, host_m)
+            n = lane["l_pad"] // world
+            host[_lane_key(lane)] = packed[rank * n:(rank + 1) * n]
+            dtypes[_lane_key(lane)] = lane["dtype"]
+    stamp = "%d-%s" % (int(step), os.urandom(4).hex())
+    arrays_file = "shard-arrays-g%d-r%dof%d-%s.npz" % (generation, rank,
+                                                       world, stamp)
+    manifest = {
+        "format": _SHARD_FORMAT,
+        "config": _cfg_to_json(cfg),
+        "generation": int(generation), "world": world, "rank": rank,
+        "base_world": int(world if base_world is None else base_world),
+        "step": int(step),
+        "has_momentum": momentum is not None,
+        "layout": layout,
+        "arrays_file": arrays_file,
+        "dtypes": dtypes,
+        "arrays": sorted(host),
+        "checksums": {k: _crc(v) for k, v in host.items()},
+        "param_fingerprint": _param_fingerprint(host, dtypes),
+        "cursor": cursor, "rng": rng,
+        "metadata": metadata or {},
+    }
+    manifest_text = json.dumps(manifest, indent=1, sort_keys=True)
+    tmp = os.path.join(path, "." + arrays_file + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **host)
+    os.replace(tmp, os.path.join(path, arrays_file))
+    _chaos.fire("checkpoint.write", path=path, step=int(step), shard=rank)
+    name = _shard_manifest_name(generation, rank, world)
+    tmp = os.path.join(path, "." + name + ".tmp")
+    with open(tmp, "w") as f:
+        f.write(manifest_text)
+    os.replace(tmp, os.path.join(path, name))     # the commit point
+    _last_committed_step[0] = int(step)
+    _last_shard.update(
+        capture_ms=capture_ms,
+        write_ms=1e3 * (time.perf_counter() - t0) - capture_ms,
+        bytes=os.path.getsize(os.path.join(path, arrays_file)))
+
+
+def _shard_manifests(path):
+    """[(generation, rank, world, manifest dict, name)] for every readable
+    shard manifest under ``path``."""
+    out = []
+    if not os.path.isdir(path):
+        return out
+    for name in os.listdir(path):
+        if not (name.startswith("shard-manifest-")
+                and name.endswith(".json")):
+            continue
+        try:
+            with open(os.path.join(path, name)) as f:
+                m = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if m.get("format") != _SHARD_FORMAT:
+            continue
+        out.append((int(m.get("generation", -1)), int(m.get("rank", -1)),
+                    int(m.get("world", 0)), m, name))
+    out.sort(key=lambda e: (e[0], e[1]))
+    return out
+
+
+def list_shard_generations(path):
+    """Complete shard generations under ``path``, oldest first:
+    [(generation, step, world)] where every rank 0..world-1 committed a
+    manifest and all agree on the step."""
+    by_gen = {}
+    for gen, rank, world, m, _name in _shard_manifests(path):
+        by_gen.setdefault(gen, []).append((rank, world, m))
+    out = []
+    for gen in sorted(by_gen):
+        entries = by_gen[gen]
+        worlds = {w for _r, w, _m in entries}
+        steps = {int(m.get("step", -1)) for _r, _w, m in entries}
+        ranks = {r for r, _w, _m in entries}
+        if len(worlds) == 1 and len(steps) == 1 \
+                and ranks == set(range(next(iter(worlds)))):
+            out.append((gen, next(iter(steps)), next(iter(worlds))))
+    return out
+
+
+def _sweep_shards(path, keep_generations):
+    """Retention for shard sets: keep the newest ``keep_generations``
+    COMPLETE generations (and any incomplete newer one: a set the other
+    survivors are still writing is not garbage); drop older manifests
+    and their data files."""
+    keep_generations = max(int(keep_generations), 1)
+    complete = [g for g, _s, _w in list_shard_generations(path)]
+    if not complete:
+        return
+    keep_from = complete[-keep_generations] \
+        if len(complete) >= keep_generations else complete[0]
+    for gen, _rank, _world, m, name in _shard_manifests(path):
+        if gen >= keep_from:
+            continue
+        for stale in (name, m.get("arrays_file")):
+            if not stale:
+                continue
+            try:
+                os.remove(os.path.join(path, stale))
+            except OSError:
+                pass
+
+
+def _check_same(field, values, path):
+    distinct = sorted(set(values), key=str)
+    if len(distinct) > 1:
+        raise CheckpointIncompatible(
+            "shard set %s: ranks disagree on %s (%s) — refusing to merge a "
+            "mixed set" % (path, field, distinct))
+    return distinct[0]
+
+
+def load_shard_checkpoint(path, mesh=None, generation=None,
+                          allow_partial=False, device=None):
+    """Merge-on-load of one shard generation: ``(cfg, params, momentum,
+    step, extras)``, params a TransformerLM on ``device`` (or each rank's
+    block under ``mesh``), momentum the dict by parameter name, extras
+    ``generation``, ``world``, ``base_world``, ``cursor``, ``rng`` and
+    ``metadata``.
+
+    Takes the newest COMPLETE generation (or ``generation``), verifies
+    every rank's arrays against its manifest's digests, reassembles the
+    full momentum lanes from the recorded layout, and restores the
+    parameters from the lowest readable rank's copy. A mixed or
+    incomplete set raises :class:`CheckpointIncompatible` naming the
+    field or the missing ranks; with ``allow_partial=True`` a missing or
+    unreadable rank's lane slices are zero-filled, with a warning."""
+    sets = {}
+    for gen, rank, world, m, name in _shard_manifests(path):
+        sets.setdefault(gen, {})[rank] = (m, name)
+    if not sets:
+        raise FileNotFoundError("no shard manifests under %s" % path)
+    if generation is None:
+        complete = [g for g, _s, _w in list_shard_generations(path)]
+        generation = complete[-1] if complete else max(sets)
+    if generation not in sets:
+        raise CheckpointIncompatible(
+            "shard set %s: no manifests for generation %s (have %s)"
+            % (path, generation, sorted(sets)))
+    ranks = sets[generation]
+    world = _check_same("world size",
+                        [m.get("world") for m, _n in ranks.values()], path)
+    step = _check_same("step",
+                       [m.get("step") for m, _n in ranks.values()], path)
+    cfg_json = _check_same(
+        "config", [json.dumps(m.get("config"), sort_keys=True)
+                   for m, _n in ranks.values()], path)
+    has_momentum = any(m.get("has_momentum") for m, _n in ranks.values())
+    layouts = [m.get("layout") for m, _n in ranks.values()
+               if m.get("layout") is not None]
+    if layouts:
+        _check_same("shard layout",
+                    [l.get("signature") for l in layouts], path)
+    missing = sorted(set(range(world)) - set(ranks))
+    if missing and not allow_partial:
+        raise CheckpointIncompatible(
+            "shard set %s: generation %d is incomplete — missing rank(s) "
+            "%s of world %d (pass allow_partial=True to zero-fill their "
+            "optimizer slices)" % (path, generation, missing, world))
+    # each rank's verified arrays; the parameters fall back across ranks,
+    # and a rank lost to corruption degrades like a missing one
+    arrays, errors = {}, []
+    for rank in sorted(ranks):
+        m, name = ranks[rank]
+        try:
+            arrays[rank] = _read_arrays(path, m, name)
+        except CheckpointCorrupt as e:
+            errors.append(e)
+            if not allow_partial:
+                raise
+            warnings.warn(
+                "mxnet_tpu_torch.checkpoint: %s — zero-filling rank %d's "
+                "optimizer slices" % (e, rank), RuntimeWarning, stacklevel=2)
+    if not arrays:
+        raise errors[0] if errors else CheckpointCorrupt(
+            "shard set %s: no readable rank" % path)
+    if missing:
+        warnings.warn(
+            "mxnet_tpu_torch.checkpoint: shard generation %d missing "
+            "rank(s) %s — their optimizer slices resume as zeros"
+            % (generation, missing), RuntimeWarning, stacklevel=2)
+    first = min(arrays)
+    pref = _PARAMS + _SEP
+    want_fp = ranks[first][0].get("param_fingerprint")
+    if want_fp is not None:
+        got_fp = _fingerprint_of(arrays[first])
+        if got_fp != want_fp:
+            raise CheckpointCorrupt(
+                "shard set %s: rank %d parameter fingerprint %s does not "
+                "match manifest %s — refusing unverified weights"
+                % (path, first, got_fp, want_fp))
+    flat = {k: v for k, v in arrays[first].items() if k.startswith(pref)}
+    has_m = has_momentum and bool(layouts)
+    if has_m:
+        for lane in layouts[0]["lanes"]:
+            key = _lane_key(lane)
+            n = lane["l_pad"] // world
+            full = np.zeros(lane["l_pad"], _np_dtype(lane["dtype"]))
+            for rank in range(world):
+                got = arrays.get(rank, {}).get(key)
+                if got is None:
+                    continue
+                got = got[0]
+                if got.shape != (n,):
+                    raise CheckpointIncompatible(
+                        "shard set %s: rank %d lane %s slice has shape %s, "
+                        "layout says (%d,) — layout/world mismatch"
+                        % (path, rank, key, got.shape, n))
+                full[rank * n:(rank + 1) * n] = got
+            for skey, shape, size, offset in lane["segments"]:
+                flat[skey] = (full[offset:offset + size].reshape(shape),
+                              lane["dtype"])
+    cfg = _cfg_from_json(json.loads(cfg_json))
+    if mesh is None:
+        device = resolve_device(device)
+    params, momentum = _state_from_flat(path, cfg, flat, has_m, mesh,
+                                        device)
+    m0 = ranks[first][0]
+    extras = {"generation": int(generation), "world": int(world),
+              "base_world": int(m0.get("base_world", world)),
+              "cursor": m0.get("cursor"), "rng": m0.get("rng"),
+              "metadata": m0.get("metadata", {})}
+    return cfg, params, momentum, int(step), extras
+
+
+def resume_elastic(path, mesh=None, init=None, expect_world=None,
+                   expect_generation=None, allow_partial=False,
+                   generation=None, device=None):
+    """The elastic worker's resume: the newest usable state — a shard set
+    or a full checkpoint, whichever carries the LATER step (a tie goes to
+    the shard set, which also carries the cursor). Returns ``(cfg,
+    params, momentum, step, extras)``; ``extras`` is ``{}`` from a full
+    checkpoint without cursor or RNG, or from ``init()``.
+
+    ``expect_generation`` refuses a shard set from a generation NEWER
+    than the one launching (a stale rendezvous record);
+    ``expect_world`` refuses a momentum-less set recorded for another
+    world; both raise :class:`CheckpointIncompatible` naming the
+    mismatch. An explicit ``generation`` pins the resume to that shard
+    set (the exact-comparison harness's entry point)."""
+    wait_for_pending_save()
+    shard_gens = list_shard_generations(path) if os.path.isdir(path) \
+        else []
+    if generation is not None:
+        shard_gens = [e for e in shard_gens if e[0] == int(generation)]
+        if not shard_gens:
+            raise CheckpointIncompatible(
+                "no complete shard set for generation %s under %s"
+                % (generation, path))
+    full = list_checkpoints(path) if generation is None else []
+    shard_step = shard_gens[-1][1] if shard_gens else None
+    full_step = full[-1][0] if full else None
+    if shard_step is not None and (full_step is None
+                                   or shard_step >= full_step):
+        gen = shard_gens[-1][0]
+        if expect_generation is not None and gen > int(expect_generation):
+            raise CheckpointIncompatible(
+                "shard set %s: newest generation %d is AHEAD of the "
+                "launching generation %d — the supervisor is reading a "
+                "stale rendezvous record" % (path, gen,
+                                             int(expect_generation)))
+        try:
+            out = load_shard_checkpoint(path, mesh=mesh, generation=gen,
+                                        allow_partial=allow_partial,
+                                        device=device)
+        except CheckpointIncompatible:
+            raise
+        except CheckpointCorrupt as e:
+            # an unverifiable shard set must not serve the resume: fall
+            # through to the newest verified full checkpoint
+            if not full:
+                raise
+            warnings.warn(
+                "mxnet_tpu_torch.checkpoint: %s — falling back to the "
+                "newest verified full checkpoint" % e,
+                RuntimeWarning, stacklevel=2)
+        else:
+            if expect_world is not None and out[4]["world"] != int(
+                    expect_world) and out[2] is None:
+                raise CheckpointIncompatible(
+                    "shard set %s: recorded world %d cannot serve world %d "
+                    "(no optimizer lanes to re-partition)"
+                    % (path, out[4]["world"], int(expect_world)))
+            cfg, params, momentum, step, extras = out
+            if momentum is None:
+                from .transformer import init_momentum
+                momentum = init_momentum(params)
+            return cfg, params, momentum, step, extras
+    if full:
+        cfg, params, momentum, step, meta = load_checkpoint(
+            path, mesh=mesh, device=device)
+        cfg, params, momentum, step = _finish_train_state(
+            cfg, params, momentum, step)
+        extras = {k: meta[k] for k in ("cursor", "rng")
+                  if (meta or {}).get(k) is not None}
+        return cfg, params, momentum, step, extras
+    if init is None:
+        raise FileNotFoundError(
+            "no checkpoint under %s and no init() provided" % path)
+    out = init()
+    return tuple(out) + ({},) if len(out) == 4 else out
+
+
 # ------------------------------------------------ emergency checkpoint --
 
 _emergency_lock = threading.Lock()
@@ -910,6 +1456,19 @@ def _atexit_pass():
         traceback.print_exc()
 
 
+def _prune_stale_sideband():
+    """Drop the heartbeat, shrink and watchdog files of previous elastic
+    generations, so a relaunch never reads a dead generation's membership
+    as live. No-op outside an elastic run."""
+    try:
+        from ..parallel import elastic
+        d = elastic.elastic_dir()
+        if d:
+            elastic.prune_stale(d, elastic.generation_env())
+    except Exception:  # noqa: BLE001 — best-effort hygiene only
+        pass
+
+
 def install_emergency_checkpoint(path, state, keep=2, on_sigterm=True,
                                  on_watchdog=True, on_sigint=True,
                                  atexit_pass=True):
@@ -920,12 +1479,15 @@ def install_emergency_checkpoint(path, state, keep=2, on_sigterm=True,
     ``on_sigint`` the same for SIGINT (exit 130); ``atexit_pass`` saves
     once at interpreter exit for the step the cadence missed.
     ``on_watchdog`` is accepted for the JAX signature: the collective-hang
-    watchdog comes with ROADMAP item A10."""
+    watchdog comes with ROADMAP item A10. Installing also prunes the
+    stale sideband files of previous elastic generations
+    (``parallel.elastic.prune_stale``)."""
     with _emergency_lock:
         _emergency["path"] = path
         _emergency["state"] = state
         _emergency["keep"] = int(keep)
         _emergency["fired"] = False
+    _prune_stale_sideband()
     if on_sigterm:
         try:
             prev = signal.signal(signal.SIGTERM, _sigterm_handler)

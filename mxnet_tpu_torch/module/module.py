@@ -10,10 +10,16 @@ DataParallelExecutorGroup splitting batches on the host
 (executor_group.py:282 in the reference). ``update`` takes one of four
 routes: fused (``pushpull_fused``, keys in reverse-registration order) or
 key by key, with the optimizer in the store (``update_on_kvstore``) or
-local. ``group2ctxs`` and a ``work_load_list`` over more than one
-context are model and multi-device data parallelism inside one process,
-ROADMAP item A7d, and raise naming it. The JAX module's observability,
-chaos and integrity hooks are not ported.
+local. A ``context`` list (with a ``work_load_list``, or without) is
+accepted as the JAX package accepts it: the module binds on
+``context[0]``, and ``_create_kvstore`` counts ``len(context)`` devices,
+so ``kvstore="device"`` over two contexts makes a store and updates on
+it. ``group2ctxs`` (a dict, or a list of dicts whose first serves
+``context[0]``) places the symbol's ``ctx_group`` nodes through the
+executor's ``group2ctx`` pass: model parallelism, a transfer at each group
+boundary. The JAX module accepts ``group2ctxs`` and binds every node on
+``context[0]``. The JAX module's observability, chaos and integrity hooks
+are not ported.
 """
 
 import logging
@@ -39,22 +45,15 @@ class Module(BaseModule):
                  fixed_param_names=None, state_names=None, group2ctxs=None,
                  compression_params=None):
         super().__init__(logger=logger)
-        if group2ctxs:
-            raise MXNetError(
-                "Module: group2ctxs placement (model parallelism) waits for "
-                "ROADMAP item A7d")
-        if work_load_list is not None and len(work_load_list) > 1:
-            raise MXNetError(
-                "Module: a work_load_list over %d contexts (data "
-                "parallelism inside one process) waits for ROADMAP item "
-                "A7d; run one process a device over a dist kvstore"
-                % len(work_load_list))
         if context is None:
             context = ctx_mod.current_context()
         if isinstance(context, ctx_mod.Context):
             context = [context]
         self._context = context
         self._work_load_list = work_load_list
+        if isinstance(group2ctxs, (list, tuple)):
+            group2ctxs = group2ctxs[0] if group2ctxs else None
+        self._group2ctxs = dict(group2ctxs or {})
 
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
@@ -308,7 +307,7 @@ class Module(BaseModule):
         self._exec = Executor(self._symbol, self._context[0], args,
                               args_grad=args_grad,
                               grad_req=grad_req if for_training else "null",
-                              aux_states=auxs)
+                              aux_states=auxs, group2ctx=self._group2ctxs)
         self.binded = True
 
         # params loaded before bind (Module.load) land in the fresh executor

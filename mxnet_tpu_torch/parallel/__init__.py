@@ -30,12 +30,13 @@ that differs by rank) is the identity forward and all-reduces its
 cotangent. So a loss that is the same on every rank gives every rank the
 gradient of that one loss, once.
 
-``fusion`` holds the bucketed all-reduce and ``pipeline`` the pipeline
-stages. ``elastic`` is not ported yet: importing it raises
-NotImplementedError naming ROADMAP item A7d.
+``fusion`` holds the bucketed all-reduce, ``pipeline`` the pipeline
+stages and ``elastic`` the elastic membership protocol (shrink, exact
+resume and regrow) and the accumulating train step.
 """
 
 import contextlib
+import datetime
 import os
 
 import numpy as np
@@ -47,19 +48,24 @@ from ..context import resolve_device
 __all__ = ["Mesh", "P", "make_mesh", "current_mesh", "use_mesh", "set_mesh",
            "shard", "replicate", "all_reduce", "all_gather", "reduce_scatter",
            "ring_permute", "pvary", "device_count", "init_distributed",
-           "fusion", "bucketed_all_reduce"]
+           "fusion", "bucketed_all_reduce", "elastic"]
 
 _CURRENT_MESH = None
 
 
-def init_distributed(coordinator=None, num_processes=None, process_id=None):
+def init_distributed(coordinator=None, num_processes=None, process_id=None,
+                     timeout=None):
     """Join a multi-process job, as the JAX package's ``init_distributed``
     does: arguments default to the launcher's ``MXNET_TPU_COORDINATOR``
     (host:port, or an init URL such as ``file:///path``),
     ``MXNET_TPU_NUM_PROC`` and ``MXNET_TPU_PROC_ID``. The backend is NCCL
     when CUDA is available (each process then takes the card of its rank
-    modulo the card count) and gloo otherwise. No-op, returning False,
-    when the job has a single process and no coordinator."""
+    modulo the card count) and gloo otherwise. ``timeout`` (seconds) bounds
+    a collective before the backend gives up on it (torch's default when
+    None); an elastic worker sets it well past the heartbeat staleness
+    window, so that NCCL's watchdog does not tear a survivor down before
+    its shrink is committed. No-op, returning False, when the job has a
+    single process and no coordinator."""
     coordinator = coordinator or os.environ.get("MXNET_TPU_COORDINATOR")
     num_processes = int(num_processes or
                         os.environ.get("MXNET_TPU_NUM_PROC", "1"))
@@ -75,8 +81,10 @@ def init_distributed(coordinator=None, num_processes=None, process_id=None):
         backend = "nccl"
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     url = coordinator if "://" in coordinator else "tcp://" + coordinator
+    kw = {} if timeout is None else \
+        {"timeout": datetime.timedelta(seconds=float(timeout))}
     dist.init_process_group(backend, init_method=url,
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id, **kw)
     return True
 
 
@@ -442,3 +450,5 @@ def ring_permute(x, axis_name, shift=1, mesh=None):
 # entry point re-exported here for train-step authors
 from . import fusion                                    # noqa: E402
 from .fusion import bucketed_all_reduce                 # noqa: E402,F401
+# the elastic membership protocol and the accumulating train step
+from . import elastic                                   # noqa: E402,F401

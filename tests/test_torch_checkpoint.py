@@ -10,9 +10,11 @@ against the uninterrupted run, and the format across packages: a
 JAX-written checkpoint loads in the port bitwise with the same
 ``param_fingerprint``, a port-written one loads in JAX's
 ``load_checkpoint`` and verifies under both ``verify_lineage``s. The
-shard functions refuse naming A7d; ``q8`` trees load (their round trips
-across packages are in tests/test_torch_int8_weights.py). Tolerance:
-exact everywhere (bytes, fingerprints, steps)."""
+shard functions work (a shard set round trips and resumes; the rest of
+their surface is tests/test_torch_checkpoint_shards.py); ``q8`` trees
+load (their round trips across packages are in
+tests/test_torch_int8_weights.py). Tolerance: exact everywhere (bytes,
+fingerprints, steps)."""
 
 import json
 import os
@@ -364,11 +366,27 @@ def test_port_written_loads_in_jax_and_verifies(tmp_path, dtype):
 
 
 def test_shard_and_q8_refusals_name_their_items(tmp_path):
-    for name in ("save_shard_checkpoint", "load_shard_checkpoint",
-                 "list_shard_generations", "shard_layout",
-                 "resume_elastic"):
-        with pytest.raises(NotImplementedError, match="A7d"):
-            getattr(ck, name)(str(tmp_path))
+    """The shard functions, which refused before they were ported, now
+    work: a two-rank set saved by the port lists, merges bitwise and
+    resumes, and its layout is JAX's for the same momentum. q8 trees load
+    and refuse to train, as in JAX."""
+    cfg = _cfg()
+    p = ttf.init_params(cfg, seed=0, device="cpu")
+    m = {n: torch.full_like(t, 0.5) + i for i, (n, t) in
+         enumerate(p.named_parameters())}
+    sd = str(tmp_path / "shards")
+    for r in range(2):
+        ck.save_shard_checkpoint(sd, cfg, p, momentum=m, step=4, rank=r,
+                                 world=2, generation=1)
+    assert ck.list_shard_generations(sd) == [(1, 4, 2)]
+    _, p2, m2, step, extras = ck.load_shard_checkpoint(sd, device="cpu")
+    assert step == 4 and extras["world"] == 2
+    _assert_same(p2, p)
+    _assert_same(m2, m)
+    jm = jax.tree.map(np.asarray, ttf.unflatten_tree(
+        {n: t.numpy() for n, t in m.items()}))
+    assert ck.shard_layout(m, 3) == jck.shard_layout(jm, 3)
+    assert ck.resume_elastic(sd, device="cpu")[3] == 4
     jcfg = jtf.TransformerConfig(**CFG)
     q8 = jtf.quantize_weights_int8(jtf.init_params(jcfg, seed=0))
     jck.save_checkpoint(str(tmp_path / "q8"), jcfg, q8, step=1)

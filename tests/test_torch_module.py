@@ -5,8 +5,10 @@ code runs through both packages on seeded numpy data and parameters.
 
 Covered: ``Module`` bind, init_params/set_params, fit, score, predict
 (an iterator and a bare array), iter_predict, save/load of checkpoints
-and optimizer states, reshape, the input-name checks and the refusals
-that name ROADMAP A7d; all four routes of ``update`` (the store's
+and optimizer states, reshape, the input-name checks, and the context
+arguments that refused before they were ported (``group2ctxs``, a
+context list with a ``work_load_list``, the executor's ``group2ctx``;
+their parity with JAX is tests/test_torch_group2ctx.py's); all four routes of ``update`` (the store's
 ``pushpull_fused`` or its per-key push/pull, with the optimizer in the
 store or local; and no store), bitwise equal among themselves;
 ``BucketingModule`` (switching buckets, checkpoint, ``load_dict``),
@@ -242,20 +244,45 @@ def test_set_params_reshape_and_forward_outputs():
 
 
 def test_input_name_checks_and_refusals():
+    """The input-name checks raise; the context arguments that refused
+    before they were ported now run, each the same as JAX's Module: a
+    ``group2ctxs`` placement and a two-context module with a
+    ``work_load_list`` give JAX's forward outputs (TOL), and an executor
+    with a ``group2ctx`` the unplaced one's (bitwise)."""
     sym = _mlp(mt)
     with pytest.raises(ValueError, match="data_names"):
         mt.mod.Module(sym, data_names=("image",))
     mt.mod.Module(sym, label_names=("no_such_label",))   # warns only
-    with pytest.raises(mt.MXNetError, match="A7d"):
-        mt.mod.Module(sym, group2ctxs={"dev1": mt.cpu()})
-    with pytest.raises(mt.MXNetError, match="A7d"):
-        mt.mod.Module(sym, context=[mt.cpu(), mt.cpu(1)],
-                      work_load_list=[1, 1])
     mod = mt.mod.Module(sym)
     with pytest.raises(mt.MXNetError, match="bind"):
         mod.get_params()
-    with pytest.raises(mt.MXNetError, match="A7d"):
-        mt.executor.Executor(sym, mt.cpu(), {}, group2ctx={"a": mt.cpu()})
+    x, y = _data()
+    params = _mlp_params()
+    want = None
+    for kw in (dict(group2ctxs={"dev1": "cpu1"}),
+               dict(context=["cpu0", "cpu1"], work_load_list=[1, 1])):
+        outs = []
+        for mx in (mt, jmx):
+            ctxs = {"cpu0": mx.cpu(), "cpu1": mx.Context("cpu", 1)}
+            args = {k: ({g: ctxs[c] for g, c in v.items()}
+                        if isinstance(v, dict) else
+                        [ctxs.get(c, c) for c in v]
+                        if k == "context" else v) for k, v in kw.items()}
+            m = mx.mod.Module(_mlp(mx), **args)
+            m.bind([("data", (4, 8))], [("softmax_label", (4,))])
+            m.init_params(arg_params=_nds(mx, params))
+            m.forward(mx.io.DataBatch([mx.nd.array(x[:4])],
+                                      [mx.nd.array(y[:4])]))
+            outs.append(m.get_outputs()[0].asnumpy())
+        np.testing.assert_allclose(outs[0], outs[1], **TOL)
+        want = outs[1] if want is None else want
+        np.testing.assert_allclose(outs[0], want, **TOL)
+    args = {k: mt.nd.array(v) for k, v in params.items()}
+    args.update(data=mt.nd.array(x[:4]), softmax_label=mt.nd.array(y[:4]))
+    plain = mt.executor.Executor(sym, mt.cpu(), args).forward()[0]
+    placed = mt.executor.Executor(sym, mt.cpu(), args,
+                                  group2ctx={"a": mt.cpu()}).forward()[0]
+    np.testing.assert_array_equal(placed.asnumpy(), plain.asnumpy())
 
 
 def _bucket_sym_gen(mx):

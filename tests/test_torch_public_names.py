@@ -116,13 +116,27 @@ PARALLEL_JAX_ONLY = {"NamedSharding"}
     - PARALLEL_JAX_ONLY))
 def test_parallel_name(name):
     """Each public name of the JAX ``parallel`` exists in the port's; the
-    elastic module, not ported, raises naming ROADMAP item A7d on
-    import."""
+    elastic module, which raised on import before it was ported, now
+    holds every public name of JAX's."""
     if name == "elastic":
-        with pytest.raises(NotImplementedError, match="ROADMAP item A7d"):
-            importlib.import_module("mxnet_tpu_torch.parallel.elastic")
-        return
+        port = importlib.import_module("mxnet_tpu_torch.parallel.elastic")
+        jax_names = importlib.import_module(
+            "mxnet_tpu.parallel.elastic").__all__
+        assert [n for n in jax_names if not hasattr(port, n)] == []
     assert getattr(importlib.import_module("mxnet_tpu_torch.parallel"), name)
+
+
+@pytest.mark.parametrize("module,name", [
+    (m, n) for m in ("parallel.elastic", "models.checkpoint")
+    for n in importlib.import_module("mxnet_tpu." + m).__all__])
+def test_elastic_and_checkpoint_name(module, name):
+    """Each public name of JAX's elastic module and checkpoint module
+    exists in the port's, the exit codes with JAX's values."""
+    port = importlib.import_module("mxnet_tpu_torch." + module)
+    assert hasattr(port, name), name
+    if name.endswith("_EXIT_CODE"):
+        jmod = importlib.import_module("mxnet_tpu." + module)
+        assert getattr(port, name) == getattr(jmod, name)
 
 
 @pytest.mark.parametrize("name", importlib.import_module(

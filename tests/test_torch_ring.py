@@ -282,14 +282,19 @@ def test_refusals_name_their_slice():
 @pytest.mark.parametrize("name", ["fusion", "elastic", "pipeline"])
 def test_unported_parallel_modules_raise(name):
     """fusion (both halves: the in-step bucketed all-reduce and the
-    store's FlatOptimizer, ShardSlot and switches) and pipeline are
-    ported, every public name of the JAX modules present and the
-    switches answering; elastic still raises naming ROADMAP item A7d."""
-    if name == "elastic":
-        with pytest.raises(NotImplementedError, match="A7d"):
-            importlib.import_module("mxnet_tpu_torch.parallel." + name)
-        return
+    store's FlatOptimizer, ShardSlot and switches), pipeline and elastic
+    (which raised on import before it was ported) are ported, every
+    public name of the JAX modules present and the switches answering;
+    elastic's exit codes and default knobs are JAX's."""
     mod = importlib.import_module("mxnet_tpu_torch.parallel." + name)
+    if name == "elastic":
+        jel = importlib.import_module("mxnet_tpu.parallel.elastic")
+        assert (mod.SHRINK_EXIT_CODE, mod.BOUNDARY_EXIT_CODE) == \
+            (jel.SHRINK_EXIT_CODE, jel.BOUNDARY_EXIT_CODE)
+        assert (mod.heartbeat_s(), mod.miss_threshold(),
+                mod.keep_global_batch()) == (2.0, 3, False)
+        assert mod.accumulation_factor(4, 2) == \
+            jel.accumulation_factor(4, 2) == 2
     jmod = importlib.import_module("mxnet_tpu.parallel." + name)
     for attr in jmod.__all__:
         assert hasattr(mod, attr), attr

@@ -302,8 +302,12 @@ def test_refusals_name_the_kvstore_item():
     give the store-less path's weights bitwise, each against JAX's same
     run; 2-bit compression
     (threshold 0.5, so that these gradients leave codes of 00 and of
-    +-t) is JAX's too. The argument checks that remain still raise, and
-    so does a Trainer over two contexts in one process, now naming A7d."""
+    +-t) is JAX's too. The argument checks that remain still raise. A
+    Trainer over two contexts, which refused before, trains without a
+    store (each parameter updated where it lies, as JAX's does: the
+    parameters are those of the same Trainer on one context, bitwise);
+    with a store it raises saying that JAX's fused push fails there too
+    (tests/test_torch_group2ctx.py holds both against JAX)."""
     def run(mx, **kw):
         net = _dense(mx)
         other = mx.gluon.nn.Dense(2, in_units=4, prefix="o_")
@@ -346,8 +350,31 @@ def test_refusals_name_the_kvstore_item():
     other.initialize(ctx=mt.Context("cpu", 1))
     params.update(other.collect_params())
     trainer = mt.gluon.Trainer(params, "sgd")
-    with pytest.raises(mt.MXNetError, match="A7d"):
+    with pytest.raises(mt.MXNetError, match="JAX package"):
         trainer.step(1)
+
+    def two_contexts(ctx):
+        net = _dense(mt)
+        other = mt.gluon.nn.Dense(2, in_units=4, prefix="o_")
+        other.initialize(mt.init.Constant(0.25), ctx=ctx)
+        params = net.collect_params()
+        params.update(other.collect_params())
+        trainer = mt.gluon.Trainer(params, "sgd", {"learning_rate": 0.1,
+                                                   "momentum": 0.9},
+                                   kvstore=None)
+        for _ in range(2):
+            with mt.autograd.record():
+                y = (net(mt.nd.array(X)) ** 2).sum() + \
+                    other(mt.nd.array(X)).sum() * 3
+            y.backward()
+            trainer.step(2)
+        return [p.data().asnumpy() for p in params.values()], \
+            [p.list_ctx()[0] for p in params.values()]
+    got, ctxs = two_contexts(mt.Context("cpu", 1))
+    one, _ = two_contexts(mt.cpu())
+    assert ctxs[-1] == mt.Context("cpu", 1) and ctxs[0] == mt.cpu()
+    for a, b in zip(got, one):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         mt.gluon.Trainer([1, 2], "sgd")
     with pytest.raises(AssertionError):
