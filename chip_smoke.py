@@ -322,7 +322,37 @@ Run from the root of a checkout on a machine with one CUDA GPU and
     [gpu(0), cpu(0)], kvstore="device")`` on the ResNet-18 thumbnail,
     two batches bitwise the one-context module with a created store
     (cuDNN deterministic for the leg);
-15. traces 16 decode steps of a serve run, of an int8 serve run and of
+15. drives random sampling, control flow and the recurrent nets
+    (``rnn_phase``; no hand-written kernel, and it fails if one is
+    launched): every scalar sampler of ``nd.random`` and every
+    multisample ``sample_*`` op draws 2^20 values on gpu(0), in float32
+    and, where it takes a float dtype, float16 (stored as bfloat16),
+    whose mean and variance must lie within ``RNN_SE`` standard errors
+    of the distribution's and whose seeded KS or chi-square p-value must
+    exceed ``RNN_P_MIN``; ``mx.random.seed`` twice must give bitwise
+    equal draws; ``_sample_unique_zipfian``'s rows must be
+    duplicate-free; the pdf ops and their gradients must match the CPU's
+    within ``TOL_PDF``; each sampler's ms per 2^20 draws is printed. Then
+    upstream's Gluon word language model at its medium configuration
+    with ``--tied`` (``entry.word_lm``: vocab 33278, a 2-layer LSTM of
+    650, dropout 0.5, bptt 35 x batch 32, SGD lr 20, gradient clipping)
+    takes 20 hybridized steps on seeded tokens: the loss starts within
+    0.5 of ln 33278, stays finite and falls; it prints tokens/s over
+    steps 5-20, the step's profile (host and device ms, idle share) and
+    the RNN op's kernel launches a step; one fp32 step with dropout 0
+    on the card and on the CPU from the same parameters must agree by
+    ``TOL_WORD_LM``. ``lstm_bucketing.py`` at its defaults
+    (``entry.bucketing_lm``: vocab 10000, embed 200, two
+    ``rnn.LSTMCell(200)``, buckets 10-60, batch 32, 24 batches of seeded
+    sentences through ``BucketSentenceIter`` and ``BucketingModule.fit``)
+    must bind each bucket once and score its sentences after the fit
+    below the epoch's training perplexity, and its rnn checkpoint must
+    round-trip bitwise; it prints samples/s. Last, the LSTM of
+    ``benchmark/python/control_flow/rnn.py`` (seq 64, batch 32, hidden
+    256) through ``sym.contrib.foreach``, a hybridized ``gluon.rnn.LSTM``
+    and an unrolled ``LSTMCell`` loop: outputs within
+    ``TOL_CONTROL_FLOW``, each route's ms printed;
+16. traces 16 decode steps of a serve run, of an int8 serve run and of
    ``generate()``, 3 train steps and 3 mesh forwards, with
    ``torch.profiler`` and prints, for each, the host ms per step, the
    device ms per step (the sum of the kernels' own times), the device's
@@ -332,19 +362,19 @@ Run from the root of a checkout on a machine with one CUDA GPU and
    ``generate()`` decode step the two of flash decode, the bf16 train
    step the three tensor-core kernels, and the mesh forward the forward
    template;
-16. times the decode kernels (the paged kernel in bfloat16 and int8)
+17. times the decode kernels (the paged kernel in bfloat16 and int8)
     and the yardstick with every lane at one length, over 8, 32 and 128
     lanes and lengths 256 and 4096, by CUDA events and by device time
     with each kernel's GB/s of live bytes, and the
     flash forward, forward + backward and the yardstick over sequence
     lengths 1024, 4096 and 8192 at 8192 tokens, to show what limits the
     kernels;
-17. prints the card's name and power limit again, the kernels' JSON
-    line (the paged kernel's rows with their speculative launches and
-    their time at the verify window, the flash-decode row with the
-    draft, solo-speculative and beam launches, every row with its
-    launches in the durable, the mesh-training, the Module and the
-    elastic phases),
+18. prints the whole script's seconds, the card's name and power limit
+    again, the kernels' JSON line (the paged kernel's rows with their
+    speculative launches and their time at the verify window, the
+    flash-decode row with the draft, solo-speculative and beam launches,
+    every row with its launches in the durable, the mesh-training, the
+    Module, the elastic and the rnn phases),
     then as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits nonzero and prints no
@@ -6639,7 +6669,710 @@ def elastic_phase(torch, mt, device):
     return out
 
 
+# ---------------- random sampling, control flow and recurrent nets ---
+
+# draws of each sampler on the card, in float32 and, where the sampler
+# takes a float dtype, in float16 (which the port stores as bfloat16)
+RNN_DRAWS = 2 ** 20
+# a sample mean must lie within RNN_SE standard errors of its
+# distribution's mean (sqrt(var / n)), a sample variance within RNN_SE of
+# its variance (sqrt((mu4 - var^2) / n), mu4 the fourth central moment):
+# a correct sampler fails one such check in ~5e8
+RNN_SE = 6.0
+# floor of each seeded draw's p-value: Kolmogorov-Smirnov for float32
+# continuous draws, chi-square for discrete ones (singles, the tails
+# pooled to an expectation of 5) and for bfloat16 ones (64 bins of equal
+# probability whose edges are midpoints between bfloat16 neighbours, so
+# that rounding to bfloat16 moves no draw across an edge)
+RNN_P_MIN = 1e-4
+# _sample_unique_zipfian at a sampled softmax's size: 128 rows of 8192
+# candidates from 2^20 classes; every row must be duplicate-free
+RNN_ZIPF = dict(range_max=2 ** 20, shape=(128, 8192))
+# multinomial rows of ``sample_multinomial``'s case
+RNN_MULTINOMIAL = ((0.1, 0.2, 0.3, 0.4), (0.5, 0.05, 0.2, 0.25))
+# pdf ops and their gradients, card vs CPU (the port against itself). A
+# density and its gradient in the sample, element by element, |card -
+# cpu| <= atol + rtol |cpu|: both evaluate the same fp32 closed forms,
+# whose log, exp and lgamma (digamma in the gradients) differ between the
+# two devices' math libraries by a few fp32 ulps (2^-23 of a value each),
+# which the few terms of a density keep within ~1e-5 of it. A parameter's
+# gradient sums its row's RNN_PDF["n"] samples' terms, which cancel (the
+# negative binomial's d/dp holds k/p - x/(1-p)), so it is held by its
+# relative L2 error: on the CPU, fp32 against float64 reaches 1.6e-5
+# (the generalized negative binomial's alpha), and each device sums in
+# its own order
+TOL_PDF = (1e-5, 1e-4)
+TOL_PDF_PARAM_GRAD = 1e-4
+RNN_PDF = dict(rows=8, n=4096)
+# the Gluon word LM (entry.WORD_LM: upstream's train.py defaults with
+# --tied): steps hybridized, the window timed, the profiled steps
+WORD_LM_STEPS = 20
+WORD_LM_TIMED_FROM = 4              # steps 5-20 timed
+WORD_LM_PROFILE_STEPS = 4
+# word LM card vs CPU in fp32 (TF32 off, dropout 0), from the same
+# parameters: the first window's loss by its relative error and every
+# gradient by its relative L2 error, as the flagship's train_equivalence
+# holds them, then WORD_LM_EQUIV_STEPS whole steps (clip, trainer.step):
+# each step's loss by its relative error and each parameter's change over
+# the steps by its relative L2 error. The decoder's 650-long dots and the
+# LSTM's 35 steps of recurrence sum fp32 products in another order on
+# each device, and lr 20 amplifies that from step to step (the third
+# step's loss is ~22). Read on an H100 (NVIDIA H100 80GB HBM3, 700.00 W),
+# fp32 against the CPU: gradients 2.04e-6, the steps' losses 6.14e-5,
+# the change 8.60e-5; the card with TF32 matmuls: 4.86e-4, 1.02e-4 and
+# 7.41e-4. The gradient and change limits sit between the two readings,
+# and the TF32 readings, taken in every run, must exceed them.
+WORD_LM_EQUIV_STEPS = 3
+TOL_WORD_LM = dict(loss=1e-4, grad=5e-5, steps=3e-4, change=2.5e-4)
+# the word LM's loss falls: the median of the last five steps' losses at
+# least this far below ln(vocab), which a net whose update did nothing
+# (its loss stays at ln(vocab), dropout or not) cannot reach
+WORD_LM_DROP = 0.5
+# the bucketing LSTM at lstm_bucketing.py's defaults (entry.BUCKETING_LM)
+BUCKETING_TIMED_FROM = 4            # batches 5-24 timed
+# control flow at benchmark/python/control_flow/rnn.py's defaults: the
+# three LSTM routes' outputs agree to TOL_CONTROL_FLOW (max abs): each
+# output sums 512 fp32 products of size ~0.05 in another order (the
+# fused layer projects every step's input in one matmul), at worst
+# 512 x 2^-24 of a sum of magnitude ~1 a step, and the LSTM's gates
+# contract what an earlier step carries
+CONTROL_FLOW = dict(seq_len=64, batch=32, hidden=256)
+TOL_CONTROL_FLOW = 1e-4
+CONTROL_FLOW_ITERS = 5
+
+
+def sampler_cases(mt):
+    """[(label, draw(dtype) -> NDArray of rows x draws, [frozen scipy
+    distribution of each row], discrete, takes a float dtype)] at
+    RNN_DRAWS draws a case: the scalar samplers through ``nd.random``, the
+    multisample ``sample_*`` ops on two parameter rows of RNN_DRAWS / 2."""
+    from scipy import stats
+    nd = mt.nd
+    n, half = (RNN_DRAWS,), (RNN_DRAWS // 2,)
+
+    def arr(*v):
+        return nd.array(np.array(v, np.float32))
+
+    def nbinom_gen(mu, alpha):
+        # the generalized negative binomial's NB(1 / alpha, 1 / (1 + alpha mu))
+        return stats.nbinom(1.0 / alpha, 1.0 / (1.0 + alpha * mu))
+
+    rnd = nd.random
+    return [
+        ("uniform", lambda dt: rnd.uniform(-1, 2, shape=n, dtype=dt),
+         [stats.uniform(-1, 3)], False, True),
+        ("normal", lambda dt: rnd.normal(1, 2, shape=n, dtype=dt),
+         [stats.norm(1, 2)], False, True),
+        ("gamma", lambda dt: rnd.gamma(2.5, 0.5, shape=n, dtype=dt),
+         [stats.gamma(2.5, scale=0.5)], False, True),
+        ("exponential", lambda dt: rnd.exponential(2.0, shape=n, dtype=dt),
+         [stats.expon(scale=0.5)], False, True),
+        ("poisson", lambda dt: rnd.poisson(4.0, shape=n, dtype=dt),
+         [stats.poisson(4.0)], True, True),
+        ("negative_binomial",
+         lambda dt: rnd.negative_binomial(3, 0.4, shape=n, dtype=dt),
+         [stats.nbinom(3, 0.4)], True, True),
+        ("generalized_negative_binomial",
+         lambda dt: rnd.generalized_negative_binomial(2.0, 0.5, shape=n,
+                                                      dtype=dt),
+         [nbinom_gen(2.0, 0.5)], True, True),
+        ("randint", lambda dt: rnd.randint(0, 10, shape=n),
+         [stats.randint(0, 10)], True, False),
+        ("sample_uniform",
+         lambda dt: rnd.uniform(arr(0, -2), arr(1, 3), shape=half, dtype=dt),
+         [stats.uniform(0, 1), stats.uniform(-2, 5)], False, True),
+        ("sample_normal",
+         lambda dt: rnd.normal(arr(0, 3), arr(1, 0.5), shape=half, dtype=dt),
+         [stats.norm(0, 1), stats.norm(3, 0.5)], False, True),
+        ("sample_gamma",
+         lambda dt: rnd.gamma(arr(0.7, 3), arr(1, 2), shape=half, dtype=dt),
+         [stats.gamma(0.7, scale=1), stats.gamma(3, scale=2)], False, True),
+        ("sample_exponential",
+         lambda dt: rnd.exponential(arr(1, 4), shape=half, dtype=dt),
+         [stats.expon(scale=1), stats.expon(scale=0.25)], False, True),
+        ("sample_poisson",
+         lambda dt: rnd.poisson(arr(0.5, 12), shape=half, dtype=dt),
+         [stats.poisson(0.5), stats.poisson(12)], True, True),
+        ("sample_negative_binomial",
+         lambda dt: nd.sample_negative_binomial(arr(2, 5), arr(0.3, 0.8),
+                                                shape=half, dtype=dt),
+         [stats.nbinom(2, 0.3), stats.nbinom(5, 0.8)], True, True),
+        ("sample_generalized_negative_binomial",
+         lambda dt: nd.sample_generalized_negative_binomial(
+             arr(1, 6), arr(0.3, 1.5), shape=half, dtype=dt),
+         [nbinom_gen(1, 0.3), nbinom_gen(6, 1.5)], True, True),
+        ("sample_multinomial",
+         lambda dt: rnd.multinomial(
+             nd.array(np.array(RNN_MULTINOMIAL, np.float32)), shape=half),
+         [stats.rv_discrete(values=(np.arange(4), p))
+          for p in RNN_MULTINOMIAL], True, False),
+    ]
+
+
+def _bf16_midpoints(q):
+    """Midpoints between each value's bfloat16 neighbours near ``q``
+    (sorted, distinct): a draw rounded to bfloat16 lies on the same side
+    of such an edge as the float32 value it was rounded from."""
+    bits = (np.asarray(q, np.float32).view(np.uint32) >> 16).astype(
+        np.uint32)
+    lo = (bits << 16).view(np.float32).astype(np.float64)
+    hi = ((bits + 1) << 16).view(np.float32).astype(np.float64)
+    return np.unique((lo + hi) / 2)
+
+
+def draw_pvalue(stats, row, dist, discrete, bf16):
+    """The seeded draw's p-value under ``dist`` (RNN_P_MIN's tests)."""
+    n = row.size
+    if discrete:
+        if not np.array_equal(row, np.round(row)):
+            raise AssertionError("a discrete sampler drew a non-integer")
+        lo, hi = int(dist.ppf(5.0 / n)), int(dist.ppf(1.0 - 5.0 / n))
+        vals = np.clip(row, lo, hi).astype(np.int64) - lo
+        counts = np.bincount(vals, minlength=hi - lo + 1)
+        inner = np.arange(lo + 1, hi)
+        expect = np.concatenate([[dist.cdf(lo)], dist.pmf(inner),
+                                 [dist.sf(hi - 1)]])
+        return stats.chisquare(counts, expect / expect.sum() * n).pvalue
+    if not bf16:
+        return stats.kstest(row, dist.cdf).pvalue
+    edges = _bf16_midpoints(dist.ppf(np.arange(1, 64) / 64.0))
+    counts = np.bincount(np.searchsorted(edges, row),
+                         minlength=edges.size + 1)
+    expect = np.diff(np.concatenate([[0.0], dist.cdf(edges), [1.0]]))
+    return stats.chisquare(counts, expect / expect.sum() * n).pvalue
+
+
+def draw_moments(row, dist):
+    """(mean, variance) of ``row`` as multiples of their standard
+    errors away from ``dist``'s."""
+    m, v, _, k = (float(s) for s in dist.stats(moments="mvsk"))
+    n = row.size
+    mu4 = (k + 3.0) * v * v
+    return ((row.mean() - m) / np.sqrt(v / n),
+            (row.var() - v) / np.sqrt((mu4 - v * v) / n))
+
+
+def rnn_samplers(torch, mt, card):
+    """Every sampler at RNN_DRAWS draws on gpu(0): moments, a
+    distribution test, bitwise reseeding, the ms per RNN_DRAWS draws;
+    the unique zipfian's rows."""
+    from scipy import stats
+    out = {}
+    cases = sampler_cases(mt)
+    device = mt.gpu(0).torch_device
+    for label, draw, dists, discrete, floats in cases:
+        for dt in ("float32", "float16") if floats else ("int32",):
+            x = draw(dt)
+            want_dtype = {"float16": torch.bfloat16,
+                          "float32": torch.float32}.get(dt, torch.int32)
+            if x._data.dtype != want_dtype or x._data.device != device:
+                raise AssertionError("%s (%s) drew %s on %s" % (
+                    label, dt, x._data.dtype, x._data.device))
+            rows = x._data.double().reshape(len(dists), -1).cpu().numpy()
+            if not np.isfinite(rows).all():
+                raise AssertionError("%s (%s): a draw is not finite"
+                                     % (label, dt))
+            worst = (0.0, 0.0, 1.0)
+            for row, dist in zip(rows, dists):
+                lo, hi = dist.support()
+                if row.min() < lo or row.max() > hi:
+                    raise AssertionError("%s (%s): draws in [%g, %g] leave "
+                                         "the support [%g, %g]" % (
+                                             label, dt, row.min(), row.max(),
+                                             lo, hi))
+                z_mean, z_var = draw_moments(row, dist)
+                p = draw_pvalue(stats, row, dist, discrete,
+                                dt == "float16")
+                worst = (max(worst[0], abs(z_mean)),
+                         max(worst[1], abs(z_var)), min(worst[2], p))
+            if worst[0] > RNN_SE or worst[1] > RNN_SE or worst[2] < RNN_P_MIN:
+                raise AssertionError(
+                    "%s (%s): mean %.2f and variance %.2f standard errors "
+                    "off (limit %g), p %.3g (floor %g)"
+                    % (label, dt, worst[0], worst[1], RNN_SE, worst[2],
+                       RNN_P_MIN))
+            ms = time_ms(lambda: draw(dt), 5)
+            out[label, dt] = dict(ms=ms, z_mean=worst[0], z_var=worst[1],
+                                  p=worst[2])
+            log("sampler %s %s: %.4f ms per %d draws; mean %.2f, variance "
+                "%.2f standard errors off, p %.3g (%s)"
+                % (label, dt, ms, RNN_DRAWS, worst[0], worst[1], worst[2],
+                   card))
+    # mx.random.seed(s) twice: every draw bitwise
+    runs = []
+    for _ in range(2):
+        mt.random.seed(7)
+        runs.append([draw("float32" if floats else "int32")._data
+                     for _, draw, _, _, floats in cases])
+    for (label, *_), a, b in zip(cases, *runs):
+        if not torch.equal(a, b):
+            raise AssertionError("%s: seed 7 twice drew different values"
+                                 % label)
+    del runs
+    z = mt.nd._sample_unique_zipfian(**RNN_ZIPF)._data
+    ordered = torch.sort(z, dim=-1).values
+    dups = int((ordered[:, 1:] == ordered[:, :-1]).sum())
+    if dups or int(z.min()) < 0 or int(z.max()) >= RNN_ZIPF["range_max"]:
+        raise AssertionError("_sample_unique_zipfian: %d duplicates, values "
+                             "in [%d, %d]" % (dups, int(z.min()),
+                                              int(z.max())))
+    ms = time_ms(lambda: mt.nd._sample_unique_zipfian(**RNN_ZIPF), 5)
+    out["_sample_unique_zipfian", "int32"] = dict(ms=ms)
+    log("sampler _sample_unique_zipfian %s: %.4f ms per %d draws, rows "
+        "duplicate-free (%s)" % (RNN_ZIPF, ms, z.numel(), card))
+    return out
+
+
+def pdf_inputs(rows, n, seed=11):
+    """{pdf op: numpy inputs} at ``rows`` parameter rows of ``n``
+    samples each, inside each density's support."""
+    rs = np.random.RandomState(seed)
+
+    def u(shape, lo, hi):
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+
+    def ints(shape, hi):
+        return rs.randint(0, hi, shape).astype(np.float32)
+
+    s, p = (rows, n), (rows,)
+    simplex = u((rows, n // 8, 3), 0.1, 1.0)
+    simplex /= simplex.sum(-1, keepdims=True)
+    return {
+        "_random_pdf_uniform": [u(s, 0.05, 0.95), u(p, -0.2, 0.0),
+                                u(p, 1.0, 1.3)],
+        "_random_pdf_normal": [u(s, -2, 2), u(p, -0.5, 0.5),
+                               u(p, 0.5, 2.0)],
+        "_random_pdf_gamma": [u(s, 0.2, 3.0), u(p, 1.0, 3.0),
+                              u(p, 0.5, 2.0)],
+        "_random_pdf_exponential": [u(s, 0.0, 3.0), u(p, 0.5, 2.0)],
+        "_random_pdf_poisson": [ints(s, 7), u(p, 0.5, 4.0)],
+        "_random_pdf_negative_binomial": [ints(s, 8), u(p, 3.0, 5.0),
+                                          u(p, 0.2, 0.8)],
+        "_random_pdf_generalized_negative_binomial": [
+            ints(s, 8), u(p, 1.0, 4.0), u(p, 0.2, 1.0)],
+        "_random_pdf_dirichlet": [simplex, u((rows, 3), 0.8, 3.0)],
+    }
+
+
+def rnn_pdf(torch, mt, spec=RNN_PDF):
+    """Each pdf op, density and log-density, and the gradients of all its
+    inputs under a seeded cotangent, on the card against the CPU
+    (TOL_PDF, TOL_PDF_PARAM_GRAD)."""
+    atol, rtol = TOL_PDF
+    worst = worst_param = 0.0
+    for name, inputs in pdf_inputs(spec["rows"], spec["n"]).items():
+        for is_log in (False, True):
+            got = []
+            for ctx in (mt.gpu(0), mt.cpu()):
+                arrs = [mt.nd.array(x, ctx=ctx) for x in inputs]
+                for a in arrs:
+                    a.attach_grad()
+                with mt.autograd.record():
+                    out = getattr(mt.nd, name)(*arrs, is_log=is_log)
+                cot = np.random.RandomState(5).uniform(
+                    0.5, 1.5, out.shape).astype(np.float32)
+                out.backward(mt.nd.array(cot, ctx=ctx))
+                got.append([out.asnumpy()] + [a.grad.asnumpy()
+                                              for a in arrs])
+            for i, (a, b) in enumerate(zip(*got)):
+                what = ("value", "sample grad")[i] if i < 2 else \
+                    "parameter %d grad" % (i - 1)
+                if not np.isfinite(a).all():
+                    raise AssertionError("%s (is_log %s) %s: not finite on "
+                                         "the card" % (name, is_log, what))
+                if i < 2:
+                    excess = np.abs(a - b) - (atol + rtol * np.abs(b))
+                    if excess.max() > 0:
+                        raise AssertionError(
+                            "%s (is_log %s) %s: card vs CPU off by %.3g "
+                            "beyond TOL_PDF" % (name, is_log, what,
+                                                excess.max()))
+                    worst = max(worst, float(np.max(
+                        np.abs(a - b) / (atol + rtol * np.abs(b)))))
+                    continue
+                rel = float(np.linalg.norm(a - b)
+                            / max(np.linalg.norm(b), 1e-30))
+                if rel > TOL_PDF_PARAM_GRAD:
+                    raise AssertionError(
+                        "%s (is_log %s) %s: card vs CPU relative L2 %.3g "
+                        "(limit %g)" % (name, is_log, what, rel,
+                                        TOL_PDF_PARAM_GRAD))
+                worst_param = max(worst_param, rel)
+    log("pdf ops: 8 densities x (pdf, log-pdf) at %d x %d samples, card vs "
+        "CPU: values and sample gradients within TOL_PDF %s (worst %.3f of "
+        "it), parameter gradients' relative L2 worst %.2e (limit %g)"
+        % (spec["rows"], spec["n"], TOL_PDF, worst, worst_param,
+           TOL_PDF_PARAM_GRAD))
+    return dict(worst=worst, worst_param_grad=worst_param)
+
+
+def word_lm_loss_grads(mt, run):
+    """(mean token loss, {parameter: gradient on the host}) of one
+    recorded forward and backward of ``run``'s first window, from zero
+    hidden states."""
+    data, target = run.batch(0)
+    with mt.autograd.record():
+        output, _ = run.model(data, run.hidden)
+        loss = run.loss(output, target)
+    loss.backward()
+    grads = {name: p.grad(run.ctx)._data.detach().cpu()
+             for name, p in run.model._collect_params_with_prefix().items()}
+    return float(loss.mean().asscalar()), grads
+
+
+def word_lm_card_vs_cpu(torch, mt):
+    """The word LM at WORD_LM's widths, dropout 0, from the same
+    parameters on the card and on the CPU: the first window's loss and
+    gradients, then WORD_LM_EQUIV_STEPS whole steps' losses and the
+    parameters' change, in fp32; and the card's readings with TF32
+    matmuls on, which the limits must not admit."""
+    from mxnet_tpu_torch import entry
+    t0 = time.perf_counter()
+    steps = WORD_LM_EQUIV_STEPS
+    runs = {key: entry.word_lm_setup(ctx=ctx, seed=1, windows=steps,
+                                     dropout=0.0)
+            for key, ctx in (("card", mt.gpu(0)), ("tf32", mt.gpu(0)),
+                             ("host", mt.cpu()))}
+    start = {name: p.data()._data.detach().cpu().clone() for name, p in
+             runs["card"].model._collect_params_with_prefix().items()}
+    got = {}
+    for key, run in runs.items():
+        torch.backends.cuda.matmul.allow_tf32 = key == "tf32"
+        try:
+            params = run.model._collect_params_with_prefix()
+            for name, value in start.items():
+                params[name].set_data(mt.nd.array(value.numpy(), ctx=run.ctx))
+            loss, grads = word_lm_loss_grads(mt, run)
+            losses = [float(run.step(i).mean().asscalar())
+                      for i in range(steps)]
+            change = {name: p.data()._data.detach().cpu() - start[name]
+                      for name, p in params.items()}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        got[key] = dict(loss=loss, grads=grads, losses=losses, change=change)
+    host = got["host"]
+
+    def readings(dev):
+        return dict(
+            loss=abs(dev["loss"] - host["loss"]) / abs(host["loss"]),
+            steps=max(abs(a - b) / abs(b)
+                      for a, b in zip(dev["losses"], host["losses"])),
+            grad=max((rel_l2(dev["grads"][k], host["grads"][k]), k)
+                     for k in host["grads"]),
+            change=max((rel_l2(dev["change"][k], host["change"][k]), k)
+                       for k in host["change"]))
+    fp32, tf32 = readings(got["card"]), readings(got["tf32"])
+    log("word LM card vs CPU (dropout 0, %d x %d windows, limits %s): fp32 "
+        "(TF32 off): first-window loss %.6f vs %.6f (rel %.2e), worst "
+        "gradient relative L2 %.2e (%s); the %d steps' losses %s vs %s "
+        "(worst rel %.2e), worst change relative L2 over them %.2e (%s); "
+        "the card with TF32 on: loss %.2e, gradient %.2e (%s), steps' "
+        "losses %.2e, change %.2e (%s); %.1f s" % (
+            entry.WORD_LM["bptt"], entry.WORD_LM["batch_size"], TOL_WORD_LM,
+            got["card"]["loss"], host["loss"], fp32["loss"],
+            fp32["grad"][0], fp32["grad"][1], steps,
+            ["%.6f" % x for x in got["card"]["losses"]],
+            ["%.6f" % x for x in host["losses"]], fp32["steps"],
+            fp32["change"][0], fp32["change"][1], tf32["loss"],
+            tf32["grad"][0], tf32["grad"][1], tf32["steps"],
+            tf32["change"][0], tf32["change"][1], time.perf_counter() - t0))
+    worst = {k: v[0] if isinstance(v, tuple) else v for k, v in fp32.items()}
+    if any(not worst[k] <= TOL_WORD_LM[k] for k in TOL_WORD_LM):
+        raise AssertionError("word LM card vs CPU: %s (gradient %s, change "
+                             "%s) past the limits %s" % (
+                                 worst, fp32["grad"][1], fp32["change"][1],
+                                 TOL_WORD_LM))
+    if not tf32["grad"][0] > TOL_WORD_LM["grad"] \
+            or not tf32["change"][0] > TOL_WORD_LM["change"]:
+        raise AssertionError("word LM card vs CPU: TF32 matmuls read "
+                             "gradient %.3g and change %.3g, within the "
+                             "limits %s: the gate cannot tell them from fp32"
+                             % (tf32["grad"][0], tf32["change"][0],
+                                TOL_WORD_LM))
+    return dict(fp32=worst, tf32_grad_rel_l2=tf32["grad"][0],
+                tf32_change_rel_l2=tf32["change"][0])
+
+
+def kernel_launches(torch, fn, steps=3):
+    """CUDA kernels that ``fn()`` launches a call, by torch.profiler (the
+    pad markers not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pad_trace(torch)
+            for _ in range(steps):
+                fn()
+            pad_trace(torch)
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and MARK_KERNEL not in e.key]
+    rows = traced(torch, run, "the RNN op")
+    return sum(e.count for e in rows) / steps
+
+
+def rnn_word_lm(torch, mt, card):
+    """upstream's word_language_model at WORD_LM (train.py's defaults,
+    --tied): WORD_LM_STEPS steps hybridized on seeded tokens, the loss
+    near ln(vocab) at first, finite and falling (the last five's median
+    WORD_LM_DROP below ln(vocab)), every parameter changed; tokens/s
+    over steps 5-20 by CUDA events; a profile of WORD_LM_PROFILE_STEPS
+    steps; the RNN op's kernel launches in one forward and backward at
+    the step's shape."""
+    from mxnet_tpu_torch import entry
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    spec = entry.WORD_LM
+    t0 = time.perf_counter()
+    run = entry.word_lm_setup(ctx=mt.gpu(0), seed=0, windows=WORD_LM_STEPS)
+    setup_s = time.perf_counter() - t0
+    params = run.model._collect_params_with_prefix()
+    before = {name: p.data()._data.detach().clone()
+              for name, p in params.items()}
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(WORD_LM_STEPS):
+        if i == WORD_LM_TIMED_FROM:
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+            start.record()
+        losses.append(run.step(i).mean())
+    end.record()
+    torch.cuda.synchronize()
+    timed = WORD_LM_STEPS - WORD_LM_TIMED_FROM
+    step_ms = start.elapsed_time(end) / timed
+    host_ms = 1e3 * (time.perf_counter() - t_host) / timed
+    losses = [float(x.asscalar()) for x in losses]
+    tokens = spec["bptt"] * spec["batch_size"]
+    tok_s = tokens / (step_ms / 1e3)
+    ln_v = float(np.log(spec["vocab"]))
+    still = sorted(name for name, p in params.items()
+                   if torch.equal(p.data()._data, before[name]))
+    del before
+    log("word LM (%s; vocab %d, %d x %d LSTM, dropout %g, tied, bptt %d x "
+        "batch %d, SGD lr %g, clip %g, hybridized): setup %.1f s, losses "
+        "%s; %.1f tokens/s over steps %d-%d (%.3f ms a step by CUDA events, "
+        "%.3f ms on the host clock); the last five's median %.4f (limit "
+        "%.4f); parameters unchanged %s" % (
+            card, spec["vocab"], spec["nlayers"], spec["nhid"],
+            spec["dropout"], spec["bptt"], spec["batch_size"], spec["lr"],
+            spec["clip"], setup_s, ["%.4f" % x for x in losses], tok_s,
+            WORD_LM_TIMED_FROM + 1, WORD_LM_STEPS, step_ms, host_ms,
+            np.median(losses[-5:]), ln_v - WORD_LM_DROP, still))
+    if not np.isfinite(losses).all() or abs(losses[0] - ln_v) > 0.5 \
+            or not np.mean(losses[-5:]) < np.mean(losses[:5]) \
+            or not losses[-1] < losses[0] \
+            or not np.median(losses[-5:]) < ln_v - WORD_LM_DROP or still:
+        raise AssertionError("word LM: losses %s (ln vocab %.3f), "
+                             "parameters unchanged %s: not finite, not near "
+                             "ln vocab at first, not falling, or not updated"
+                             % (losses, ln_v, still))
+    steps = iter(range(WORD_LM_STEPS, 10 ** 6))
+    profile_steps(torch, "word LM step (%s)" % card,
+                  lambda: run.step(next(steps)),
+                  steps=WORD_LM_PROFILE_STEPS, top=8, kinds=TRAIN_KINDS)
+    # the RNN op alone, forward and backward at the step's shape
+    layer = run.model.rnn
+    n = spec["nlayers"]
+    names = ["l%d_%s" % (i, w) for i in range(n)
+             for w in ("i2h_weight", "h2h_weight")] + [
+        "l%d_%s" % (i, w) for i in range(n) for w in ("i2h_bias", "h2h_bias")]
+    params = torch.cat([getattr(layer, k).data()._data.reshape(-1)
+                        for k in names]).detach().requires_grad_()
+    x = torch.rand((spec["bptt"], spec["batch_size"], spec["emsize"]),
+                   device=params.device, requires_grad=True)
+    gen = mt.random.generator(params.device)
+
+    def rnn_op():
+        out = ops_nn.rnn(x, params, state_size=spec["nhid"],
+                         num_layers=spec["nlayers"], mode="lstm",
+                         p=spec["dropout"], state_outputs=True,
+                         generator=gen, is_train=True)
+        out[0].sum().backward()
+    launches = kernel_launches(torch, rnn_op)
+    log("word LM: the RNN op launches %.0f CUDA kernels a step (forward and "
+        "backward, %d time steps x %d layers, dropout between them)"
+        % (launches, spec["bptt"], spec["nlayers"]))
+    return dict(losses=losses, tokens_s=tok_s, step_ms=step_ms,
+                host_ms=host_ms, rnn_op_launches=launches)
+
+
+def rnn_bucketing(torch, mt, card):
+    """lstm_bucketing.py at BUCKETING_LM through BucketingModule.fit:
+    each bucket bound once, the perplexity finite and falling (the fitted
+    module scores the epoch's sentences below the epoch's training
+    perplexity), samples/s over batches 5-24, and an rnn checkpoint round
+    trip, bitwise."""
+    from mxnet_tpu_torch import entry
+    spec = entry.BUCKETING_LM
+    binds = collections.Counter()
+    bind = mt.module.Module.bind
+
+    def counting_bind(self, data_shapes, *args, **kwargs):
+        d = data_shapes[0]
+        binds[tuple(getattr(d, "shape", None) or d[1])[1]] += 1
+        return bind(self, data_shapes, *args, **kwargs)
+
+    seen = []
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        m = param.eval_metric
+        seen.append((time.perf_counter(), m.sum_metric, m.num_inst))
+
+    t0 = time.perf_counter()
+    mt.module.Module.bind = counting_bind
+    try:
+        mod, stack, train = entry.bucketing_lm(
+            ctx=mt.gpu(0), seed=0, batch_end_callback=[on_batch])
+    finally:
+        mt.module.Module.bind = bind
+    fit_s = time.perf_counter() - t0
+    if dict(binds) != {b: 1 for b in spec["buckets"]}:
+        raise AssertionError("bucketing: binds per bucket %s" % dict(binds))
+    if len(seen) != spec["batches"]:
+        raise AssertionError("bucketing: %d batches, not %d"
+                             % (len(seen), spec["batches"]))
+    ppl = [float(np.exp((s1 - s0) / (n1 - n0))) for (_, s0, n0), (_, s1, n1)
+           in zip([(0.0, 0.0, 0)] + seen[:-1], seen)]
+    t_a, t_b = seen[BUCKETING_TIMED_FROM - 1][0], seen[-1][0]
+    samples_s = (len(seen) - BUCKETING_TIMED_FROM) * spec["batch_size"] / (
+        t_b - t_a)
+    log("bucketing LSTM (%s; vocab %d, embed %d, %d x LSTMCell(%d), "
+        "buckets %s, batch %d, %d batches, SGD lr %g wd %g): fit %.1f s; "
+        "per-batch perplexity %s; %.1f samples/s over batches %d-%d"
+        % (card, spec["vocab"], spec["num_embed"], spec["num_layers"],
+           spec["num_hidden"], list(spec["buckets"]), spec["batch_size"],
+           spec["batches"], spec["lr"], spec["wd"], fit_s,
+           ["%.1f" % p for p in ppl], samples_s, BUCKETING_TIMED_FROM + 1,
+           spec["batches"]))
+    # the fitted module scored on the same sentences: below the epoch's
+    # training perplexity, which its earlier weights gave
+    train.reset()
+    fitted = dict(mod.score(train, mt.metric.Perplexity(
+        spec["invalid_label"])))["perplexity"]
+    trained = float(np.exp(seen[-1][1] / seen[-1][2]))
+    log("bucketing LSTM: the epoch's training perplexity %.2f, the fitted "
+        "module's on the same sentences %.2f" % (trained, fitted))
+    if not np.isfinite(ppl).all() or not fitted < trained:
+        raise AssertionError("bucketing: perplexity %s not finite, or the "
+                             "fitted module's %.3f not below the epoch's "
+                             "%.3f" % (ppl, fitted, trained))
+    arg, aux = mod.get_params()
+    root = tempfile.mkdtemp(prefix="rnn_ckpt_")
+    try:
+        prefix = os.path.join(root, "lstm_bucketing")
+        mt.rnn.save_rnn_checkpoint(stack, prefix, 1, mod.symbol, arg, aux)
+        _, arg2, aux2 = mt.rnn.load_rnn_checkpoint(stack, prefix, 1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if sorted(arg2) != sorted(arg) or sorted(aux2) != sorted(aux) or any(
+            not np.array_equal(arg2[k].asnumpy(), arg[k].asnumpy())
+            for k in arg):
+        raise AssertionError("bucketing: the rnn checkpoint did not round "
+                             "trip bitwise")
+    log("bucketing LSTM: save_rnn_checkpoint / load_rnn_checkpoint round "
+        "trip bitwise (%d arrays)" % len(arg))
+    return dict(perplexity=ppl, samples_s=samples_s, fit_s=fit_s)
+
+
+def rnn_control_flow(torch, mt, card, spec=CONTROL_FLOW):
+    """benchmark/python/control_flow/rnn.py's LSTM three ways on gpu(0),
+    from the same weights: ``sym.contrib.foreach`` over ``rnn.LSTMCell``,
+    the hybridized fused ``gluon.rnn.LSTM``, and ``gluon.rnn.LSTMCell``
+    stepped in a Python loop; their outputs agree to TOL_CONTROL_FLOW and
+    each is timed."""
+    T, N, H = spec["seq_len"], spec["batch"], spec["hidden"]
+    ctx = mt.gpu(0)
+    rs = np.random.RandomState(3)
+    x_np = rs.rand(T, N, H).astype(np.float32)
+    w = {k: rs.uniform(-0.1, 0.1, s).astype(np.float32) for k, s in (
+        ("i2h_weight", (4 * H, H)), ("h2h_weight", (4 * H, H)),
+        ("i2h_bias", (4 * H,)), ("h2h_bias", (4 * H,)))}
+    nd = mt.nd
+    with ctx:
+        x = nd.array(x_np)
+        fused = mt.gluon.rnn.LSTM(H, input_size=H, prefix="cf_fused_")
+        fused.initialize(ctx=ctx)
+        for k, v in w.items():
+            getattr(fused, "l0_" + k).set_data(nd.array(v))
+        fused.hybridize()
+        cell = mt.gluon.rnn.LSTMCell(H, input_size=H, prefix="cf_cell_")
+        cell.initialize(ctx=ctx)
+        for k, v in w.items():
+            getattr(cell, k).set_data(nd.array(v))
+
+        def unrolled():
+            states = cell.begin_state(batch_size=N)
+            outs = []
+            for t in range(T):
+                out, states = cell(x[t], states)
+                outs.append(out)
+            return nd.stack(*outs)
+
+        scell = mt.rnn.LSTMCell(num_hidden=H, prefix="cf_")
+        outs, _ = mt.sym.contrib.foreach(
+            lambda xt, states: scell(xt, states), mt.sym.Variable("data"),
+            [mt.sym.Variable("h0"), mt.sym.Variable("c0")])
+        args = {"data": x, "h0": nd.zeros((N, H)), "c0": nd.zeros((N, H))}
+        args.update({"cf_" + k: nd.array(v) for k, v in w.items()})
+        ex = outs.bind(ctx, args)
+        routes = {"foreach": lambda: ex.forward()[0],
+                  "fused (hybridized)": lambda: fused(x),
+                  "unrolled cell": unrolled}
+        got = {k: f().asnumpy() for k, f in routes.items()}
+        ms = {k: time_ms(f, CONTROL_FLOW_ITERS) for k, f in routes.items()}
+    ref = got["fused (hybridized)"]
+    errs = {k: float(np.abs(v - ref).max()) for k, v in got.items()}
+    log("control flow (%s; seq %d, batch %d, hidden %d): ms per sequence "
+        "%s; max abs vs the fused layer %s (limit %g)" % (
+            card, T, N, H, {k: round(v, 3) for k, v in ms.items()},
+            {k: "%.2e" % v for k, v in errs.items()}, TOL_CONTROL_FLOW))
+    if any(v.shape != (T, N, H) or not np.isfinite(v).all()
+           for v in got.values()) or max(errs.values()) > TOL_CONTROL_FLOW:
+        raise AssertionError("control flow: routes disagree: %s" % errs)
+    return dict(ms=ms, errs=errs)
+
+
+def rnn_phase(torch, mt):
+    """Random sampling, control flow and the recurrent nets on the card
+    (``random``, ``ops/random_ops``, ``control_flow``, ``rnn``,
+    ``gluon.rnn``, ``gluon.contrib.rnn``, ``entry.word_lm`` and
+    ``entry.bucketing_lm``; no hand kernel, and it fails if one is
+    launched). Returns the numbers and the launches."""
+    t0 = time.perf_counter()
+    card = card_line()
+    before = collections.Counter(mt.kernels.launches)
+    out = {}
+    # what makes arrays without a context makes them on the card
+    with mt.gpu(0):
+        out["samplers"] = rnn_samplers(torch, mt, card)
+        out["pdf"] = rnn_pdf(torch, mt)
+        torch.cuda.empty_cache()
+        out["word_lm"] = rnn_word_lm(torch, mt, card)
+        torch.cuda.empty_cache()
+        out["word_lm_check"] = word_lm_card_vs_cpu(torch, mt)
+        torch.cuda.empty_cache()
+        out["bucketing"] = rnn_bucketing(torch, mt, card)
+        torch.cuda.empty_cache()
+        out["control_flow"] = rnn_control_flow(torch, mt, card)
+    torch.cuda.empty_cache()
+    launched = collections.Counter(mt.kernels.launches)
+    launched.subtract(before)
+    out["launches"] = {k: v for k, v in launched.items() if v}
+    out["seconds"] = time.perf_counter() - t0
+    log("rnn phase (%s): %.1f s; hand-kernel launches %s (the path runs "
+        "none)" % (card, out["seconds"], out["launches"]))
+    if out["launches"]:
+        raise AssertionError("rnn phase: a hand kernel ran on a path that "
+                             "has none: %s" % out["launches"])
+    return out
+
+
 def main():
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -6811,6 +7544,8 @@ def main():
     io_phase(torch, mxnet_tpu_torch, device)
     moduled = module_phase(torch, mxnet_tpu_torch, device)
     elasticd = elastic_phase(torch, mxnet_tpu_torch, device)
+    torch.cuda.empty_cache()
+    rnnd = rnn_phase(torch, mxnet_tpu_torch)
     log("decode step: serve %.3f ms, generate %.3f ms; train step %.3f ms; "
         "mesh forward %.3f ms" % (served["step_ms"], generated["step_ms"],
                                   trained["step_ms"], meshed["forward_ms"]))
@@ -6846,6 +7581,11 @@ def main():
         # the elastic phase's flagship steps (B1/B2a/B2b only), in this
         # process and in generation 1's worker
         row["elastic_launches"] = elasticd["launches"].get(row["name"], 0)
+        # random sampling, control flow and the recurrent nets launch no
+        # hand kernel
+        row["rnn_launches"] = rnnd["launches"].get(row["name"], 0)
+    log("chip_smoke: %.1f s in all (%s)" % (time.perf_counter() - t_script,
+                                           card_line()))
     log(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,10 @@ iterators, ``image``'s decode, augmenters and iterators,
 ``Trainer``'s store path) with the Module front end (``module``/``mod``,
 ``model``, ``metric``, ``callback``, ``executor_manager``, and
 ``entry.module_fit``, the counterpart of ``train_imagenet.py``'s
-``Module.fit``). The default context is ``gpu(0)``:
+``Module.fit``); and random sampling (``random``, ``ops.random_ops``),
+control flow (``control_flow``, ``ops.control_flow_ops``) and the
+recurrent nets (``rnn``, ``gluon.rnn``, ``gluon.contrib.rnn``, with
+``entry.word_lm`` and ``entry.bucketing_lm``). The default context is ``gpu(0)``:
 without a CUDA device it raises; host callers say ``with cpu():``.
 Importing the package needs neither ``nvcc``, NVRTC, Triton nor a GPU:
 kernels build at first launch.
@@ -48,6 +51,7 @@ from . import lr_scheduler, optimizer
 from . import recordio, io, image, contrib
 from . import gradient_compression, kvstore, kvstore_server
 from . import metric, callback, model, executor_manager, module
+from . import control_flow, rnn
 from .attribute import AttrScope
 from .name import NameManager, Prefix
 from .symbol import Symbol
@@ -67,13 +71,12 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "utils", "lr_scheduler", "optimizer", "recordio", "io", "image",
            "contrib", "gradient_compression", "kvstore", "kvstore_server",
            "metric", "callback", "model", "executor_manager", "module",
-           "mod"]
+           "mod", "control_flow", "rnn"]
 
 # names of the JAX package's top level that the port has not ported yet:
 # name -> (JAX module, ROADMAP item)
 _QUEUED = {
     "sparse": ("sparse.py", "A9"),
-    "rnn": ("rnn/", "A9"),
     "operator": ("operator.py", "A9"),
     "numpy": ("numpy/", "A9"),
     "np": ("numpy/", "A9"),

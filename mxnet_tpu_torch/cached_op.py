@@ -56,13 +56,15 @@ class CachedOp:
         args = {n: by_name[n]._data for n in self._arg_names}
         aux = {n: by_name[n]._data for n in self._aux_names}
         ctx = inputs[0]._ctx
-        gen = _random.generator(inputs[0]._data.device) \
-            if self._needs_rng else None
+        device = inputs[0]._data.device
+        # drawn from on every call, so a hybridized block's masks are
+        # fresh each time
+        gen = _random.generator(device) if self._needs_rng else None
         recording = autograd.is_recording() and any(
             t.requires_grad for t in args.values())
         with torch.set_grad_enabled(recording):
             outs, aux_up = self._get_fn(autograd.is_training())(
-                args, aux, gen)
+                args, aux, gen, device)
         for name, val in aux_up.items():
             by_name[name]._set_data(val)
         return [nd.NDArray(o, ctx) for o in outs]

@@ -1,13 +1,14 @@
 """Contrib namespace (port of ``mxnet_tpu/contrib/``; reference:
-python/mxnet/contrib/__init__.py). ``io`` (``DataLoaderIter``) is here;
-each of the JAX package's other contrib submodules is ROADMAP item A9 and
-raises ``MXNetError`` naming it.
+python/mxnet/contrib/__init__.py). ``io`` (``DataLoaderIter``),
+``ndarray`` and ``symbol`` (the ``nd.contrib``/``sym.contrib``
+namespaces) are here; each of the JAX package's other contrib submodules
+is ROADMAP item A9 and raises ``MXNetError`` naming it.
 """
 
 from ..base import MXNetError
-from . import io
+from . import io, ndarray, symbol
 
-__all__ = ["io"]
+__all__ = ["io", "ndarray", "symbol"]
 
 # the JAX package's other contrib submodules: name -> its path there
 _QUEUED = {"amp": "contrib/amp/", "onnx": "contrib/onnx/",
@@ -16,7 +17,6 @@ _QUEUED = {"amp": "contrib/amp/", "onnx": "contrib/onnx/",
            "svrg_optimization": "contrib/svrg_optimization/",
            "tensorboard": "contrib/tensorboard.py", "text": "contrib/text/",
            "autograd": "contrib/autograd.py",
-           "ndarray": "contrib/ndarray.py", "symbol": "contrib/symbol.py",
            "tensorrt": "contrib/tensorrt.py"}
 
 

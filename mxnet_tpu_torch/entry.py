@@ -14,6 +14,10 @@ port's launcher as ``python -m mxnet_tpu_torch.entry --elastic-worker``;
 ``dryrun_multichip(n)`` is the counterpart of
 ``__graft_entry__.dryrun_multichip`` on an ``n``-rank world of processes
 (each runs ``python -m mxnet_tpu_torch.entry --dryrun-rank``).
+``word_lm`` is upstream MXNet's ``example/gluon/word_language_model``
+(``model.py``'s ``RNNModel``, ``train.py``'s loop) and ``bucketing_lm``
+its ``example/rnn/bucketing/lstm_bucketing.py``, each at its published
+widths unless told otherwise, on tokens made from a seed.
 
 ``entry`` and ``build_train_step`` trace the Gluon model-zoo net through
 ``utils.functionalize_block`` and run its graph function with torch ops
@@ -48,7 +52,9 @@ from .utils import functionalize_block
 
 __all__ = ["entry", "build_train_step", "make_record_dataset", "record_iter",
            "real_data", "synthetic_iter", "module_fit", "elastic_worker",
-           "elastic_tokens", "dryrun_multichip"]
+           "elastic_tokens", "dryrun_multichip", "lm_tokens",
+           "word_lm_model", "word_lm_setup", "word_lm",
+           "bucketing_sentences", "bucketing_lm"]
 
 MOMENTUM = 0.9
 SEED = 0            # entry's example input; real_data's records and draws
@@ -758,6 +764,232 @@ def dryrun_multichip(n, device=None, timeout=600):
             return _json.load(f)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ------------------------------------------------- recurrent LMs ---
+
+# upstream example/gluon/word_language_model/train.py's defaults with
+# --tied (WikiText-2's vocabulary), and example/rnn/bucketing/
+# lstm_bucketing.py's (PTB's vocabulary)
+WORD_LM = dict(vocab=33278, emsize=650, nhid=650, nlayers=2, dropout=0.5,
+               lr=20.0, clip=0.25, bptt=35, batch_size=32)
+BUCKETING_LM = dict(vocab=10000, num_embed=200, num_hidden=200,
+                    num_layers=2, buckets=(10, 20, 30, 40, 50, 60),
+                    batch_size=32, batches=24, lr=0.01, mom=0.0, wd=1e-5,
+                    invalid_label=0, start_label=1)
+
+
+def lm_tokens(n, vocab, seed=0, low=0):
+    """``n`` token ids in [low, vocab) from ``RandomState(seed)``,
+    log-uniform (a Zipf-like frequency profile, as words in text have):
+    the stand-in for a corpus that the repository does not hold."""
+    u = np.random.RandomState(seed).rand(n)
+    span = vocab - low
+    ids = np.floor(np.exp(u * np.log(span + 1.0))) - 1.0
+    return (low + np.clip(ids, 0, span - 1)).astype(np.int64)
+
+
+def word_lm_model(vocab, emsize, nhid, nlayers, dropout=0.5, prefix=None):
+    """Upstream ``model.py``'s ``RNNModel`` with ``--tied``: Embedding
+    (Uniform(0.1)), dropout, the fused LSTM (``dropout`` between its
+    layers), dropout, and a Dense decoder that shares the embedding's
+    weight (so ``nhid == emsize``)."""
+    from . import gluon
+    from .gluon import nn, rnn
+    assert nhid == emsize, "tied weights need nhid == emsize (%d != %d)" % (
+        nhid, emsize)
+
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(
+                    vocab, emsize,
+                    weight_initializer=initializer.Uniform(0.1))
+                self.rnn = rnn.LSTM(nhid, nlayers, dropout=dropout,
+                                    input_size=emsize)
+                self.decoder = nn.Dense(vocab, in_units=nhid,
+                                        params=self.encoder.params)
+
+        def hybrid_forward(self, F, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            decoded = self.decoder(output.reshape((-1, nhid)))
+            return decoded, hidden
+
+        def begin_state(self, *args, **kwargs):
+            return self.rnn.begin_state(*args, **kwargs)
+
+    return RNNModel(prefix=prefix)
+
+
+class WordLM:
+    """Upstream ``train.py``'s loop on ``ctx``, one bptt window a
+    ``step``: the hidden state detached, a recorded forward and backward
+    of ``SoftmaxCrossEntropyLoss`` over every token of the window, the
+    summed gradients clipped by ``clip_global_norm`` at clip x bptt x
+    batch, and ``trainer.step(bptt x batch)`` (SGD, no momentum, no
+    weight decay): upstream's update of the per-token mean loss, clipped
+    at ``clip``. (Stepping by the batch alone, as an older revision of
+    the example did, makes each step bptt times larger: at lr 20 the loss
+    then rises over the first steps.)"""
+
+    def __init__(self, model, trainer, source, spec, ctx):
+        from .gluon import loss as gloss
+        self.model, self.trainer, self.source = model, trainer, source
+        self.spec, self.ctx = spec, ctx
+        self.loss = gloss.SoftmaxCrossEntropyLoss()
+        self.params = list(model.collect_params().values())
+        self.hidden = model.begin_state(func=nd.zeros,
+                                        batch_size=spec["batch_size"],
+                                        ctx=ctx)
+
+    @property
+    def windows(self):
+        return (self.source.shape[0] - 1) // self.spec["bptt"]
+
+    def batch(self, i):
+        """(data (bptt, batch), target (bptt * batch,)) of window ``i``."""
+        bptt = self.spec["bptt"]
+        start = (i % self.windows) * bptt
+        data = self.source[start:start + bptt]
+        target = self.source[start + 1:start + 1 + bptt].reshape((-1,))
+        return data, target
+
+    def step(self, i):
+        """One training step on window ``i``; returns the per-token loss
+        (an NDArray on ``ctx``, not read back)."""
+        from . import autograd
+        from .gluon import utils as gutils
+        spec = self.spec
+        data, target = self.batch(i)
+        self.hidden = [h.detach() for h in self.hidden]
+        with autograd.record():
+            output, self.hidden = self.model(data, self.hidden)
+            L = self.loss(output, target)
+            L.backward()
+        grads = [p.grad(self.ctx) for p in self.params]
+        gutils.clip_global_norm(
+            grads, spec["clip"] * spec["bptt"] * spec["batch_size"])
+        self.trainer.step(spec["bptt"] * spec["batch_size"])
+        return L
+
+
+def word_lm_setup(ctx=None, seed=0, hybridize=True, prefix="lm_", **spec):
+    """The word LM of upstream ``example/gluon/word_language_model`` on
+    ``ctx`` (the current context unless given), at ``WORD_LM``'s widths
+    unless ``spec`` says otherwise: ``RNNModel`` initialized by
+    ``Xavier()`` from ``ctx``'s generator, a ``Trainer("sgd",
+    learning_rate=lr, momentum=0, wd=0)``, and a corpus of
+    ``lm_tokens`` from ``seed``, batchified to (windows x bptt + 1,
+    batch) on ``ctx``. Returns the ``WordLM``."""
+    from . import gluon
+    spec = dict(WORD_LM, **spec)
+    ctx = ctx if ctx is not None else current_context()
+    steps = spec.pop("windows", 20)
+    model = word_lm_model(spec["vocab"], spec["emsize"], spec["nhid"],
+                          spec["nlayers"], spec["dropout"], prefix=prefix)
+    model.initialize(initializer.Xavier(), ctx=ctx)
+    if hybridize:
+        model.hybridize()
+    trainer = gluon.Trainer(model.collect_params(), "sgd",
+                            {"learning_rate": spec["lr"], "momentum": 0,
+                             "wd": 0})
+    b = spec["batch_size"]
+    corpus = lm_tokens((steps * spec["bptt"] + 1) * b, spec["vocab"], seed)
+    # upstream's batchify: (batch, n) then transposed, time-major
+    source = nd.array(corpus.reshape(b, -1).T.astype(np.float32), ctx=ctx)
+    return WordLM(model, trainer, source, spec, ctx)
+
+
+def word_lm(steps=20, ctx=None, seed=0, hybridize=True, **spec):
+    """``steps`` training steps of ``word_lm_setup``'s model, reading each
+    step's mean token loss back as upstream's loop does. Returns
+    (the ``WordLM``, the losses)."""
+    run = word_lm_setup(ctx=ctx, seed=seed, hybridize=hybridize,
+                        windows=steps, **spec)
+    losses = [float(run.step(i).mean().asscalar()) for i in range(steps)]
+    return run, losses
+
+
+def bucketing_sentences(spec=BUCKETING_LM, seed=0):
+    """``spec["batches"]`` batches' worth of sentences from
+    ``RandomState(seed)``, spread evenly over the buckets (a sentence of
+    bucket b is longer than the bucket below it and at most b tokens
+    long, log-uniform ids in [start_label, vocab)): the stand-in for PTB,
+    which the repository does not hold."""
+    buckets = sorted(spec["buckets"])
+    per_bucket = spec["batches"] // len(buckets) * spec["batch_size"]
+    rs = np.random.RandomState(seed)
+    lengths = [int(rs.randint(low + 1, b + 1))
+               for low, b in zip([0] + buckets[:-1], buckets)
+               for _ in range(per_bucket)]
+    ids = lm_tokens(sum(lengths), spec["vocab"], seed + 1,
+                    low=spec["start_label"])
+    out, pos = [], 0
+    for n in lengths:
+        out.append([int(t) for t in ids[pos:pos + n]])
+        pos += n
+    return out
+
+
+def bucketing_lm(ctx=None, seed=0, num_epoch=1, batch_end_callback=None,
+                 arg_params=None, **spec):
+    """Upstream ``example/rnn/bucketing/lstm_bucketing.py`` at
+    ``BUCKETING_LM``'s values unless ``spec`` says otherwise: a
+    ``SequentialRNNCell`` of ``num_layers`` ``rnn.LSTMCell``s unrolled per
+    bucket by ``sym_gen``, ``BucketSentenceIter`` over
+    ``bucketing_sentences(spec, seed)``, and ``BucketingModule.fit`` on
+    ``ctx`` (the current context unless given) with SGD (lr, momentum,
+    wd), ``Xavier(factor_type="in", magnitude=2.34)`` for what
+    ``arg_params`` does not give, ``Perplexity(invalid_label)`` and the
+    Speedometer. Returns (module, the cell stack, the iterator)."""
+    from . import metric, rnn
+    from . import symbol as sym
+    spec = dict(BUCKETING_LM, **spec)
+    ctx = ctx if ctx is not None else current_context()
+    vocab, nh = spec["vocab"], spec["num_hidden"]
+    stack = rnn.SequentialRNNCell()
+    for i in range(spec["num_layers"]):
+        stack.add(rnn.LSTMCell(num_hidden=nh, prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = sym.Variable("data")
+        label = sym.Variable("softmax_label")
+        embed = sym.Embedding(data=data, input_dim=vocab,
+                              output_dim=spec["num_embed"], name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = sym.Reshape(outputs, shape=(-1, nh))
+        pred = sym.FullyConnected(data=pred, num_hidden=vocab, name="pred")
+        label = sym.Reshape(label, shape=(-1,))
+        pred = sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    with ctx:
+        train = rnn.BucketSentenceIter(
+            bucketing_sentences(spec, seed), spec["batch_size"],
+            buckets=list(spec["buckets"]),
+            invalid_label=spec["invalid_label"])
+        mod = module.BucketingModule(
+            sym_gen=sym_gen, default_bucket_key=train.default_bucket_key,
+            context=ctx)
+        mod.fit(train_data=train,
+                eval_metric=metric.Perplexity(spec["invalid_label"]),
+                kvstore="device", optimizer="sgd",
+                optimizer_params={"learning_rate": spec["lr"],
+                                  "momentum": spec["mom"],
+                                  "wd": spec["wd"]},
+                initializer=initializer.Xavier(factor_type="in",
+                                               magnitude=2.34),
+                arg_params=arg_params, allow_missing=arg_params is not None,
+                num_epoch=num_epoch,
+                batch_end_callback=[callback.Speedometer(
+                    spec["batch_size"], 50, auto_reset=False)]
+                + list(batch_end_callback or []))
+    return mod, stack, train
 
 
 def _main(argv=None):

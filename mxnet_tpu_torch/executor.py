@@ -8,7 +8,10 @@ BatchNorm's batch statistics fold into its running statistics,
 ``momentum * old + (1 - momentum) * stat`` in the aux arrays' dtype, out
 of the autograd graph (the reference op mutates its aux states in
 place; here the new values are returned). Stateful-RNG ops draw from the
-``generator`` given. With ``node_device`` (the ``group2ctx`` placement
+``generator`` given, and an op that takes a ``device`` (the zero-input
+ops: ``_zeros``, ``_arange``, the scalar samplers, ...) gets the graph's
+device: the ``device`` given (the executor's context, a CachedOp's
+inputs'), else the first argument's. With ``node_device`` (the ``group2ctx`` placement
 pass, graph_executor.cc:997) every node runs on its device: its inputs
 move there first, a transfer at each group boundary, and the copies are
 differentiable, so gradients flow back across them.
@@ -40,7 +43,8 @@ def _clean_attrs(attrs):
 
 def _node_call(node, is_train):
     """(fn(*inputs) -> op output, whether the op draws random numbers)
-    for one graph node; ``fn`` takes a ``generator`` keyword."""
+    for one graph node; ``fn`` takes ``generator`` and ``device``
+    keywords, passed on to an op that declares them."""
     op = ops.get(node.op)
     attrs = _clean_attrs(node.attrs)
     has_varargs, param_names = ops.op_dispatch_meta(op)
@@ -48,11 +52,14 @@ def _node_call(node, is_train):
         attrs["is_train"] = is_train
     in_names = node.attrs.get("__input_names__")
     rng = op.stateful_rng and "generator" in param_names
+    wants_device = "device" in param_names
 
-    def fn(*ins, generator=None):
+    def fn(*ins, generator=None, device=None):
         call = dict(attrs)
         if rng:
             call["generator"] = generator
+        if wants_device:
+            call["device"] = device
         if has_varargs:
             return op.fn(*ins, **call)
         if in_names:
@@ -67,17 +74,22 @@ def _node_call(node, is_train):
 
 def node_eval_fn(node):
     """fn(*input_tensors) for one graph node, in inference mode (used by
-    shape inference on meta tensors)."""
+    shape inference on meta tensors: a zero-input op makes its output
+    there too)."""
     fn, _ = _node_call(node, is_train=False)
-    return fn
+    meta = torch.device("meta")
+    return lambda *ins: fn(*ins, device=meta)
 
 
 def build_graph_fn(symbol, is_train, node_device=None, transfers=None):
-    """fn(arg_dict, aux_dict, generator) -> (outputs list, new_aux dict)
-    over torch tensors. ``node_device`` (node -> torch.device or None)
-    places each node: its inputs are copied to its device when they lie
-    elsewhere, and each copy is appended to the list ``transfers`` as
-    (source device, destination device, bytes)."""
+    """fn(arg_dict, aux_dict, generator, device) -> (outputs list, new_aux
+    dict) over torch tensors; ``device`` (default: the first argument's)
+    is where a node that takes one makes its output. ``node_device``
+    (node -> torch.device or None) places each node: its inputs are
+    copied to its device when they lie elsewhere, and each copy is
+    appended to the list ``transfers`` as (source device, destination
+    device, bytes); a placed node that draws random numbers draws from
+    its device's generator."""
     all_nodes = symbol._nodes
     nodes = symbol._active_nodes()
     out_refs = [(all_nodes[ni], oi) for ni, oi in symbol._outputs]
@@ -106,9 +118,11 @@ def build_graph_fn(symbol, is_train, node_device=None, transfers=None):
             transfers.append((t.device, dev, t.numel() * t.element_size()))
         return _Transfer.apply(t, dev, transfers)
 
-    def graph_fn(arg_arrays, aux_arrays, generator=None):
+    def graph_fn(arg_arrays, aux_arrays, generator=None, device=None):
         vals = {}
         aux_updates = {}
+        if device is None and arg_arrays:
+            device = next(iter(arg_arrays.values())).device
         for node, fn, rng, folds in plan:
             if fn is None:
                 name = node.name
@@ -121,7 +135,13 @@ def build_graph_fn(symbol, is_train, node_device=None, transfers=None):
                 continue
             ins = [place(node, vals[(id(s._nodes[s._outputs[0][0]]), oi)])
                    for s, oi in node.inputs]
-            out = fn(*ins, generator=generator) if rng else fn(*ins)
+            dev = None if node_device is None else node_device(node)
+            dev = device if dev is None else dev
+            gen = generator
+            if rng and gen is not None and dev is not None \
+                    and gen.device != dev:
+                gen = _random.generator(dev)
+            out = fn(*ins, generator=gen, device=dev)
             if node.op == "BatchNorm":
                 # the batch statistics are plumbing, not outputs; in
                 # training they fold into the running statistics
@@ -246,10 +266,8 @@ class Executor:
             tgt._set_data(v._data if isinstance(v, nd.NDArray)
                           else nd.array(v, ctx=tgt.context)._data)
         aux_arrays = {k: v._data for k, v in self.aux_dict.items()}
-        gen = None
-        if self._needs_rng:
-            first = next(iter(self.arg_dict.values()))
-            gen = _random.generator(first._data.device)
+        device = self._ctx.torch_device
+        gen = _random.generator(device) if self._needs_rng else None
         if is_train:
             leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
                       for n in self._diff_args
@@ -257,7 +275,8 @@ class Executor:
             arg_arrays = {k: leaves.get(k, v._data.detach())
                           for k, v in self.arg_dict.items()}
             with torch.enable_grad():
-                outs, aux_up = self._train_fn(arg_arrays, aux_arrays, gen)
+                outs, aux_up = self._train_fn(arg_arrays, aux_arrays, gen,
+                                              device)
             self._recorded = (outs, leaves)
             for name, val in aux_up.items():
                 self.aux_dict[name]._set_data(val)
@@ -266,7 +285,7 @@ class Executor:
             arg_arrays = {k: v._data.detach()
                           for k, v in self.arg_dict.items()}
             with torch.no_grad():
-                outs, _ = self._infer_fn(arg_arrays, aux_arrays, gen)
+                outs, _ = self._infer_fn(arg_arrays, aux_arrays, gen, device)
         # a placed graph's outputs take the context of the device they lie on
         ctx = None if self._group2ctx else self._ctx
         self.outputs = [nd.NDArray(o.detach(), ctx) for o in outs]

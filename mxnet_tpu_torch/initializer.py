@@ -5,14 +5,13 @@ The ``Initializer`` base with its registry and ``InitDesc`` attr routing
 (an ``__init__`` attr names the initializer, else the name's suffix
 picks the handler: weight, bias, gamma, beta, ...), ``Zero``, ``One``,
 ``Constant``, ``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``,
-``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``Mixed`` and ``Load``.
+``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``FusedRNN``, ``Mixed`` and
+``Load``.
 Random draws come from the explicit ``torch.Generator`` of the array's
 device (``random.generator``), on that device, so ``random.seed(n)``
 reproduces an initialization on one device. PyTorch's and JAX's streams
 never agree: an initialization crosses between the packages by
 ``save_parameters``/``load_parameters`` or ``models.convert``.
-``FusedRNN`` waits for the recurrent cells of ``rnn/`` (ROADMAP item
-A9).
 """
 
 import json
@@ -23,7 +22,6 @@ import torch
 
 from . import ndarray as nd
 from . import random as _random
-from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
            "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
@@ -343,14 +341,42 @@ class Load(object):
 
 @register
 class FusedRNN(Initializer):
-    """Init for the fused RNN's packed parameter vector: it waits for the
-    recurrent cells of ``mxnet_tpu/rnn/`` (ROADMAP item A9)."""
+    """Init for the fused RNN's packed parameter vector (ops/nn.py RNN):
+    all gate weights, then all gate biases. As in the JAX package, every
+    weight draws from U(-0.07, 0.07) whatever ``init`` says, and the
+    biases are zero but for the LSTM forget gates, at ``forget_bias``."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError(
-            "initializer.FusedRNN lays out the fused RNN op's packed "
-            "parameters by the cell geometry of mxnet_tpu/rnn/, which "
-            "waits for ROADMAP item A9")
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = _INIT_REGISTRY[klass.lower()](**kwargs)
+        super().__init__(init=init.dumps() if init else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        gates = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4,
+                 "gru": 3}[self._mode]
+        h = self._num_hidden
+        dirs = 2 if self._bidirectional else 1
+        total = int(np.prod(arr.shape))
+        nbias = 2 * dirs * self._num_layers * gates * h
+        gen, device = _draw(arr)
+        weights = torch.rand((total - nbias,), generator=gen,
+                             device=device) * 0.14 - 0.07
+        bias = torch.zeros((nbias,), device=device)
+        if self._mode == "lstm":
+            gate = (torch.arange(nbias, device=device) % (gates * h)) // h
+            bias = torch.where(gate == 1, float(self._forget_bias), bias)
+        arr[:] = torch.cat([weights, bias]).reshape(arr.shape)
 
 
 # Registry aliases matching the reference's registered names.

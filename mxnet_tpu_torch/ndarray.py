@@ -23,8 +23,13 @@ float32 and keeps int64 data. ``dtype`` is a numpy dtype, as there
 (``base.np_dtype``); ``asnumpy`` of a bfloat16 array gives ``ml_dtypes``'
 bfloat16, or float32 where ``ml_dtypes`` is missing. ``stype`` other than
 ``"default"`` (``sparse.py``: ``sparse``, ``csr_matrix``,
-``row_sparse_array``) and ``nd.random`` (``random_ops``) wait for ROADMAP
-A9.
+``row_sparse_array``) waits for ROADMAP A9.
+
+``nd.random`` routes a draw as the JAX package does: scalar parameters to
+the ``_random_*`` ops, NDArray parameters to the ``sample_*`` ops. A draw
+with no array parameter lands on ``ctx`` if given, else on the current
+context (the JAX package ignores ``ctx``). ``nd.contrib.foreach``,
+``while_loop`` and ``cond`` are ``control_flow``'s eager loops.
 """
 
 import builtins
@@ -995,24 +1000,85 @@ def _load_arrays(f, header, ctx):
 
 
 # ------------------------------------------------------------- random ---
-def _random_error(name):
-    return MXNetError(
-        "nd.random.%s is an op of mxnet_tpu/ops/random_ops.py, which the "
-        "PyTorch port has not ported yet (ROADMAP item A9)" % name)
-
-
 class _RandomNamespace:
-    """mx.nd.random.*: ``shuffle`` is here; the samplers wait for
-    ``random_ops`` (ROADMAP A9)."""
+    """mx.nd.random.* (python/mxnet/ndarray/random.py)."""
+
+    @staticmethod
+    def _call(op_both, op_scalar, params, shape, dtype, ctx, **extra):
+        if any(isinstance(p, NDArray) for p in params):
+            nds = [_as_nd(p, ctx) for p in params]
+            return imperative_invoke(op_both, nds,
+                                     dict(shape=shape, dtype=dtype, **extra))
+        attrs = dict(shape=shape if shape != () else (1,), dtype=dtype,
+                     **extra)
+        return imperative_invoke(
+            op_scalar, [], dict(attrs, **dict(zip(
+                ops.op_signature(op_scalar).parameters, params))), ctx=ctx)
+
+    @staticmethod
+    def uniform(low=0, high=1, shape=(), dtype="float32", ctx=None,
+                out=None, **kw):
+        return _RandomNamespace._call("sample_uniform", "_random_uniform",
+                                      [low, high], shape, dtype, ctx)
+
+    @staticmethod
+    def normal(loc=0, scale=1, shape=(), dtype="float32", ctx=None,
+               out=None, **kw):
+        return _RandomNamespace._call("sample_normal", "_random_normal",
+                                      [loc, scale], shape, dtype, ctx)
+
+    @staticmethod
+    def gamma(alpha=1, beta=1, shape=(), dtype="float32", ctx=None, **kw):
+        return _RandomNamespace._call("sample_gamma", "_random_gamma",
+                                      [alpha, beta], shape, dtype, ctx)
+
+    @staticmethod
+    def exponential(lam=1, shape=(), dtype="float32", ctx=None, **kw):
+        return _RandomNamespace._call("sample_exponential",
+                                      "_random_exponential", [lam], shape,
+                                      dtype, ctx)
+
+    @staticmethod
+    def poisson(lam=1, shape=(), dtype="float32", ctx=None, **kw):
+        return _RandomNamespace._call("sample_poisson", "_random_poisson",
+                                      [lam], shape, dtype, ctx)
+
+    @staticmethod
+    def negative_binomial(k=1, p=1, shape=(), dtype="float32", ctx=None,
+                          **kw):
+        return imperative_invoke("_random_negative_binomial", [],
+                                 {"k": k, "p": p, "shape": shape or (1,),
+                                  "dtype": dtype}, ctx=ctx)
+
+    @staticmethod
+    def generalized_negative_binomial(mu=1, alpha=1, shape=(),
+                                      dtype="float32", ctx=None, **kw):
+        return imperative_invoke("_random_generalized_negative_binomial", [],
+                                 {"mu": mu, "alpha": alpha,
+                                  "shape": shape or (1,), "dtype": dtype},
+                                 ctx=ctx)
+
+    @staticmethod
+    def multinomial(data, shape=(), get_prob=False, dtype="int32", **kw):
+        return imperative_invoke("_sample_multinomial", [_as_nd(data)],
+                                 {"shape": shape, "get_prob": get_prob,
+                                  "dtype": dtype})
+
+    @staticmethod
+    def randint(low, high, shape=(), dtype="int32", ctx=None, **kw):
+        return imperative_invoke("_random_randint", [],
+                                 {"low": low, "high": high,
+                                  "shape": shape or (1,), "dtype": dtype},
+                                 ctx=ctx)
+
+    @staticmethod
+    def randn(*shape, loc=0, scale=1, dtype="float32", ctx=None, **kw):
+        return _RandomNamespace.normal(loc, scale, shape=shape, dtype=dtype,
+                                       ctx=ctx)
 
     @staticmethod
     def shuffle(data, **kw):
         return _g["shuffle"](data)
-
-    def __getattr__(self, item):
-        if item.startswith("__"):
-            raise AttributeError(item)
-        raise _random_error(item)
 
 
 random = _RandomNamespace()
@@ -1035,16 +1101,18 @@ op = _OpNamespace()
 
 class _PrefixNamespace:
     """nd.contrib / nd.linalg / nd.image: the registry's ``<prefix>*``
-    names (``contrib.boolean_mask`` is ported; most are queued)."""
+    names (``contrib.boolean_mask`` is ported; most are queued);
+    ``contrib``'s ``foreach``, ``while_loop`` and ``cond`` are the eager
+    loops of ``control_flow``."""
 
-    def __init__(self, prefix, queued_names=()):
+    def __init__(self, prefix, control_flow=False):
         self._prefix = prefix
-        self._queued_names = queued_names
+        self._control_flow = control_flow
 
     def __getattr__(self, item):
-        if item in self._queued_names:
-            raise MXNetError("nd.contrib.%s waits for mxnet_tpu/"
-                             "control_flow.py (ROADMAP item A9)" % item)
+        if self._control_flow and item in ("foreach", "while_loop", "cond"):
+            from . import control_flow
+            return getattr(control_flow, item)
         for name in (self._prefix + item, item):
             if ops.exists(name) or name in QUEUED:
                 return _g[name]
@@ -1064,7 +1132,7 @@ class _ImageNamespace(_PrefixNamespace):
             return getattr(_image, item)
 
 
-contrib = _PrefixNamespace("_contrib_", ("foreach", "while_loop", "cond"))
+contrib = _PrefixNamespace("_contrib_", control_flow=True)
 linalg = _PrefixNamespace("linalg_")
 image = _ImageNamespace("_image_")
 

@@ -17,7 +17,8 @@ new values of those inputs, which the dispatcher writes back into the
 NDArrays passed (``ndarray.imperative_invoke``).
 
 The port registers the ops of ``elemwise.py``, ``reduce_ops.py``,
-``matrix.py``, ``nn.py``, ``image_ops.py`` and ``optimizer_ops.py``. The JAX registry's
+``matrix.py``, ``nn.py``, ``image_ops.py``, ``optimizer_ops.py``,
+``random_ops.py`` and ``control_flow_ops.py``. The JAX registry's
 other names (``_queued.py``) raise ``MXNetError`` naming the module and
 the ROADMAP item that ports them.
 """
@@ -137,3 +138,5 @@ from . import matrix  # noqa: E402,F401
 from . import nn  # noqa: E402,F401
 from . import image_ops  # noqa: E402,F401
 from . import optimizer_ops  # noqa: E402,F401
+from . import random_ops  # noqa: E402,F401
+from . import control_flow_ops  # noqa: E402,F401

@@ -17,8 +17,6 @@ _contrib_hawkesll _contrib_ifft _contrib_index_array
 _contrib_index_copy _contrib_interleaved_matmul_selfatt_qk
 _contrib_interleaved_matmul_selfatt_valatt _contrib_quadratic
 all_finite multi_all_finite quadratic"""),
-    "ops/control_flow_ops.py": ("A9", """
-_cond _foreach _while_loop"""),
     "ops/linalg.py": ("A9", """
 _linalg_det _linalg_extractdiag _linalg_extracttrian
 _linalg_gelqf _linalg_gemm _linalg_gemm2 _linalg_inverse
@@ -44,26 +42,6 @@ _contrib_quantized_batch_norm _contrib_quantized_concat
 _contrib_quantized_conv _contrib_quantized_elemwise_add
 _contrib_quantized_flatten _contrib_quantized_fully_connected
 _contrib_quantized_pooling _contrib_requantize"""),
-    "ops/random_ops.py": ("A9", """
-_random_exponential _random_gamma
-_random_generalized_negative_binomial _random_negative_binomial
-_random_normal _random_pdf_dirichlet _random_pdf_exponential
-_random_pdf_gamma _random_pdf_generalized_negative_binomial
-_random_pdf_negative_binomial _random_pdf_normal
-_random_pdf_poisson _random_pdf_uniform _random_poisson
-_random_randint _random_uniform _sample_exponential
-_sample_gamma _sample_generalized_negative_binomial
-_sample_multinomial _sample_negative_binomial _sample_normal
-_sample_poisson _sample_uniform _sample_unique_zipfian
-exponential gamma_sample multinomial normal pdf_dirichlet
-pdf_exponential pdf_gamma pdf_generalized_negative_binomial
-pdf_negative_binomial pdf_normal pdf_poisson pdf_uniform poisson
-randint random_exponential random_gamma
-random_generalized_negative_binomial random_negative_binomial
-random_normal random_poisson random_uniform sample_exponential
-sample_gamma sample_generalized_negative_binomial
-sample_multinomial sample_negative_binomial sample_normal
-sample_poisson sample_uniform uniform"""),
     "ops/vision_ops.py": ("A9", """
 Correlation DeformableConvolution DeformablePSROIPooling
 MultiBoxDetection MultiBoxPrior MultiBoxTarget MultiProposal

@@ -1,10 +1,12 @@
 """Global RNG state (port of ``mxnet_tpu/random.py``).
 
 ``seed`` reseeds one explicit ``torch.Generator`` per device, which the
-stateful ops draw from (``shuffle``, ``ops/matrix.py``). PyTorch's and
-JAX's streams never agree, so a stateful op is checked by its
-properties, not its values. The samplers (``uniform``, ``normal``, ...)
-are ops of ``ops/random_ops.py``, which waits for ROADMAP A9.
+stateful ops draw from (``shuffle``, the samplers of
+``ops/random_ops.py``, dropout): it takes the place of the JAX package's
+key chain (``next_key``/``key_scope``). PyTorch's and JAX's streams never
+agree, so a stateful op is checked by its properties, not its values.
+The convenience samplers (``uniform``, ``normal``, ...) call
+``nd.random``, as mx.random.* does (python/mxnet/ndarray/random.py).
 """
 
 import threading
@@ -51,6 +53,53 @@ def generator(device):
 def _nd():
     from . import ndarray as nd
     return nd
+
+
+def uniform(low=0, high=1, shape=(), dtype="float32", ctx=None, out=None,
+            **kw):
+    return _nd().random.uniform(low, high, shape=shape, dtype=dtype, ctx=ctx)
+
+
+def normal(loc=0, scale=1, shape=(), dtype="float32", ctx=None, out=None,
+           **kw):
+    return _nd().random.normal(loc, scale, shape=shape, dtype=dtype, ctx=ctx)
+
+
+def randn(*shape, **kw):
+    return normal(shape=shape, **kw)
+
+
+def poisson(lam=1, shape=(), dtype="float32", ctx=None, **kw):
+    return _nd().random.poisson(lam, shape=shape, dtype=dtype, ctx=ctx)
+
+
+def exponential(scale=1, shape=(), dtype="float32", ctx=None, **kw):
+    return _nd().random.exponential(1.0 / scale, shape=shape, dtype=dtype,
+                                    ctx=ctx)
+
+
+def gamma(alpha=1, beta=1, shape=(), dtype="float32", ctx=None, **kw):
+    return _nd().random.gamma(alpha, beta, shape=shape, dtype=dtype, ctx=ctx)
+
+
+def negative_binomial(k=1, p=1, shape=(), dtype="float32", ctx=None, **kw):
+    return _nd().random.negative_binomial(k, p, shape=shape, dtype=dtype,
+                                          ctx=ctx)
+
+
+def generalized_negative_binomial(mu=1, alpha=1, shape=(), dtype="float32",
+                                  ctx=None, **kw):
+    return _nd().random.generalized_negative_binomial(
+        mu, alpha, shape=shape, dtype=dtype, ctx=ctx)
+
+
+def multinomial(data, shape=(), get_prob=False, dtype="int32", **kw):
+    return _nd().random.multinomial(data, shape=shape, get_prob=get_prob,
+                                    dtype=dtype)
+
+
+def randint(low, high, shape=(), dtype="int32", ctx=None, **kw):
+    return _nd().random.randint(low, high, shape=shape, dtype=dtype, ctx=ctx)
 
 
 def shuffle(data, **kw):

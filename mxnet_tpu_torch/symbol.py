@@ -802,8 +802,8 @@ def ones(shape, dtype="float32", **kwargs):
 class _SymContribNamespace:
     def __getattr__(self, item):
         if item in ("foreach", "while_loop", "cond"):
-            raise MXNetError("sym.contrib.%s waits for mxnet_tpu/"
-                             "control_flow.py (ROADMAP item A9)" % item)
+            from . import control_flow
+            return getattr(control_flow, "sym_" + item)
         for name in ("_contrib_" + item, item):
             if name in _g:
                 return _g[name]
@@ -836,15 +836,23 @@ linalg = _SymLinalgNamespace()
 
 
 class _SymRandomNamespace:
-    """sym.random.*: the samplers are ops of mxnet_tpu/ops/random_ops.py,
-    which waits for ROADMAP item A9."""
+    """sym.random.* (python/mxnet/symbol/random.py): scalar-parameter
+    draws compose the ``_random_*`` ops, Symbol parameters the
+    ``sample_*`` ops, the same split as ``nd.random``."""
 
     def __getattr__(self, item):
-        if item.startswith("__"):
+        scalar_op = "_random_" + item
+        tensor_op = "sample_" + item
+        if not (ops.exists(scalar_op) or ops.exists(tensor_op)):
             raise AttributeError(item)
-        raise MXNetError(
-            "sym.random.%s is an op of mxnet_tpu/ops/random_ops.py, which "
-            "the PyTorch port has not ported yet (ROADMAP item A9)" % item)
+
+        def f(*args, **kwargs):
+            if any(isinstance(a, Symbol) for a in args) or \
+                    any(isinstance(v, Symbol) for v in kwargs.values()):
+                return _g[tensor_op](*args, **kwargs)
+            return _g[scalar_op](*args, **kwargs)
+        f.__name__ = item
+        return f
 
 
 random = _SymRandomNamespace()

@@ -158,8 +158,15 @@ def test_initializer_attr_and_constant():
     arr = mt.nd.zeros((3,))
     tinit.Xavier()(tinit.InitDesc("x_moving_var", {"__init__": "ones"}), arr)
     np.testing.assert_array_equal(arr.asnumpy(), 1.0)
-    with pytest.raises(mt.MXNetError, match="A9"):
-        tinit.FusedRNN(None, 4, 1, "lstm")
+    # FusedRNN (ported with the recurrent nets): weights in U(-0.07, 0.07),
+    # biases zero but for the LSTM forget gate
+    packed = mt.nd.zeros((4 * 4 * (3 + 4 + 2),))
+    fused = tinit.FusedRNN(None, 4, 1, "lstm", forget_bias=1.5)
+    tinit.Xavier()(tinit.InitDesc("lstm_parameters",
+                                  {"__init__": fused.dumps()}), packed)
+    w, b = packed.asnumpy()[:-32], packed.asnumpy()[-32:]
+    assert np.abs(w).max() <= 0.07 and np.abs(w).max() > 0.05
+    np.testing.assert_array_equal(b, np.tile(np.repeat([0, 1.5, 0, 0], 4), 2))
 
 
 def test_hybridized_matches_imperative(tmp_path):
@@ -253,9 +260,13 @@ def test_model_zoo_and_refusals():
         tvision.get_model("vgg16")
     with pytest.raises(ValueError, match="pretrained"):
         tvision.resnet18_v1(pretrained=True)
-    for name, item in (("rnn", "A9"), ("contrib", "A9")):
+    # gluon.rnn and gluon.contrib.rnn resolve (A9's recurrent nets are
+    # ported); gluon.contrib's other submodules name A9
+    assert tgluon.rnn.LSTM and tgluon.contrib.rnn.VariationalDropoutCell
+    for name, item in (("estimator", "A9"), ("nn", "A9"), ("data", "A9"),
+                       ("cnn", "A9")):
         with pytest.raises(mt.MXNetError, match=item):
-            getattr(tgluon, name)
+            getattr(tgluon.contrib, name)
     # gluon.data resolves (A8 is ported)
     assert tgluon.data.DataLoader and tgluon.data.vision.transforms.ToTensor
     assert tgluon.Trainer is tgluon.trainer.Trainer

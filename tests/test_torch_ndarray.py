@@ -340,11 +340,14 @@ def test_what_waits_for_later_items_raises_naming_them(cpu):
     with pytest.raises(mt.MXNetError, match="A9"):
         tnd.array(X).tostype("csr")
     with pytest.raises(mt.MXNetError, match="A9"):
-        tnd.random.uniform(0, 1, shape=(2,))
+        tnd._npi_uniform(low=0, high=1, size=(2,))
     with pytest.raises(mt.MXNetError, match="A9"):
         tnd.MultiBoxPrior(tnd.array(X))
     with pytest.raises(mt.MXNetError, match="A9"):
-        tnd.contrib.foreach
+        tnd.contrib.fft(tnd.array(X))
+    # nd.random and the control-flow loops are ported (A9's second item)
+    assert tnd.random.uniform(0, 1, shape=(2,)).shape == (2,)
+    assert callable(tnd.contrib.foreach)
     with pytest.raises(mt.MXNetError, match="A9"):
         tnd.linalg.gemm2(tnd.array(X), tnd.array(X))
     assert tnd.contrib.boolean_mask is tnd._contrib_boolean_mask

@@ -34,12 +34,15 @@ from mxnet_tpu_torch.base import dtype_name
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODULES = ("elemwise", "reduce_ops", "matrix")
-# ops/nn.py, ops/optimizer_ops.py and ops/image_ops.py, each ported
-# whole; their cases are in test_torch_nn_ops.py, test_torch_nn_ops_rest.py,
-# test_torch_optimizer_ops.py and test_torch_image.py
+# ops/nn.py, ops/optimizer_ops.py, ops/image_ops.py, ops/random_ops.py and
+# ops/control_flow_ops.py, each ported whole; their cases are in
+# test_torch_nn_ops.py, test_torch_nn_ops_rest.py,
+# test_torch_optimizer_ops.py, test_torch_image.py, test_torch_random.py
+# and test_torch_control_flow.py
 NN_PORTED = {n for n, op in jops._REGISTRY.items()
-             if op.fn.__module__.split(".")[-1] in ("nn", "optimizer_ops",
-                                                    "image_ops")}
+             if op.fn.__module__.split(".")[-1] in (
+                 "nn", "optimizer_ops", "image_ops", "random_ops",
+                 "control_flow_ops")}
 TOL = (1e-6, 1e-6)                  # (rtol, atol) at fp32
 
 
@@ -292,9 +295,10 @@ def test_gate_every_op_of_the_three_modules_is_ported_and_cased():
 
 def test_gate_other_jax_ops_raise_naming_their_queue_item():
     """Every JAX op outside MODULES, ``ops/nn.py``,
-    ``ops/optimizer_ops.py`` and ``ops/image_ops.py`` is queued, and its
-    ``nd`` function, its registry entry and a Gluon layer over it raise
-    naming the queue item."""
+    ``ops/optimizer_ops.py``, ``ops/image_ops.py``, ``ops/random_ops.py``
+    and ``ops/control_flow_ops.py`` is queued, and its ``nd`` function,
+    its registry entry and a Gluon layer over it raise naming the queue
+    item."""
     names = {n for n, op in jops._REGISTRY.items()
              if op.fn.__module__.split(".")[-1] not in MODULES
              and n not in NN_PORTED and n != "_index"}
@@ -304,7 +308,7 @@ def test_gate_other_jax_ops_raise_naming_their_queue_item():
     assert {n for n in jops._ALIAS if jops._ALIAS[n] in NN_PORTED} <= \
         set(tops._ALIAS)
     for name, item in (("MultiBoxPrior", "A9"), ("_contrib_quantize", "A9"),
-                       ("linalg_gemm2", "A9"), ("_random_uniform", "A9")):
+                       ("linalg_gemm2", "A9"), ("_npi_uniform", "A9")):
         with pytest.raises(mt.MXNetError, match=item):
             getattr(tnd, name)(tnd.zeros((2,), ctx=mt.cpu()))
         with pytest.raises(mt.MXNetError, match=item):

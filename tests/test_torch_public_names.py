@@ -66,9 +66,13 @@ def test_ported_names_exist_and_unported_ones_refuse():
     # item); the rest of the library still names A9
     assert mt.metric.Accuracy and mt.kvstore.create and mt.module.Module
     assert mt.mod is mt.module and mt.model.FeedForward
-    for name in ("sparse", "rnn", "operator"):
+    for name in ("sparse", "operator"):
         with pytest.raises(mt.MXNetError, match="A9"):
             getattr(mt, name)
+    # random sampling, control flow and the recurrent nets resolve (A9's
+    # second item)
+    assert mt.rnn.BucketSentenceIter and mt.random.uniform
+    assert mt.contrib.ndarray.foreach and mt.contrib.symbol.foreach
     # data and IO resolve (A8 is ported); contrib's other modules name A9
     assert mt.io.ImageRecordIter and mt.recordio.MXIndexedRecordIO
     assert mt.image.ImageIter and mt.contrib.io.DataLoaderIter
